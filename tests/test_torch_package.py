@@ -32,7 +32,7 @@ def test_import_leaves_out_jax_and_the_reference():
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, check=True).stdout.split(" ", 1)
-    assert int(out[0]) >= 15          # every module of the port imported
+    assert int(out[0]) >= 40          # every module of the port imported
     assert out[1].strip() == "[]"
 
 
@@ -46,6 +46,25 @@ def test_run_without_cpu_request_needs_a_card():
                  TExecSpec(resident=True, kernel="fused", gossip="dense")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             trunner.run(algo, tp, sched, spec, record_every=10)
+
+
+def test_serving_entry_points_need_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    from repro_torch import configs
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer
+    cfg = configs.smoke_variant(configs.get_config("h2o-danube-1.8b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_cache(cfg, 2, 32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_serve.main(["--requests", "1"])
+    params = transformer.init_params(cfg, 0, device="cpu")
+    assert params["embed"].device.type == "cpu"
+    cache = transformer.init_cache(cfg, 2, 32, device="cpu")
+    assert cache["pos"].device.type == "cpu"
 
 
 def test_run_checks_the_problem_lies_on_the_run_device():

@@ -7,7 +7,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch / CUDA
    versions;
-2. builds the three CUDA kernels of the port from the sources in this
+2. builds the five CUDA kernels of the port (four sources) from this
    checkout (``nvcc``, sm_90a, one process each, all started together) and
    prints the build time and each ptxas report;
 3. holds the fused resident-step kernel against its plain PyTorch version
@@ -15,25 +15,40 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    kernel, plain version, ``torch.matmul(W, q)`` (``library_ms``: no single
    PyTorch call computes the fused function; the matrix product is its
    largest part) and the bound;
-4. times the plain and the fused DPSVRG step, and the update alone, at d
+4. holds ``svrg_step`` and ``mix_prox`` against their plain versions on the
+   card (lengths 1, 7, 1000, 8 x 1024 and 2048 x 1024, and views at an odd
+   offset; alpha in {0, 0.05, 1} by value and from device memory; the
+   reference's mix cases): max abs err 0.  Times kernel, eager call, plain
+   version and bound at 2048 x 1024 and 16384 x 1024, with the unfused
+   torch chain beside them (no one PyTorch call computes either function,
+   so ``library_ms`` is null);
+5. times the plain and the fused DPSVRG step, and the update alone, at d
    in {30, 1024, 8192, 131072} (the measurements behind ``kernel="auto"``);
-5. drives the logistic-regression path at full width: DPSVRG then DSPG
+6. drives the logistic-regression path at full width: DPSVRG then DSPG
    with the same step count on ``cifar10_like`` at scale 1.0 (n = 50,000,
    d = 1,024), m = 8, a b=1 ring, the paper's hyper-parameters, through
    ``ExecSpec(resident=True, kernel="fused", gossip="dense")``.  The fused
    kernel's launch count is set to 0 before and read after: it must equal
    the inner steps run.  Histories must be finite, the objective must
    fall, and both runs must match the same runs of the port on the CPU;
-6. traces a shorter logistic-regression run (DPSVRG, 10 outer rounds) with
+7. traces a shorter logistic-regression run (DPSVRG, 10 outer rounds) with
    ``torch.profiler``: the card's busy time, idle share, kernels per step;
-7. holds the RMSNorm and flash attention kernels against their plain
+8. runs the kernel bench at full width (``benchmarks/pt_kernel_bench``):
+   ``run(scale=1.0)`` with every launch count set to 0 before and read
+   after (svrg_step and mix_prox must equal the calls the bench made; the
+   banded d = 131,072 loopless DPSVRG fused run must launch fused_step
+   once per inner step), its histories held to the same bench run on the
+   CPU; then a DVR fused run on the same banded stack (launches equal to
+   steps), and DSPG on the paper's b=1 ring through ``gossip="auto"``,
+   which must pick ``banded``, both held to their CPU runs;
+9. holds the RMSNorm and flash attention kernels against their plain
    versions on the card (RMSNorm: rows in {1, 3, 4, 8, 6144}, d in {128,
    2560}; flash: causal, window, softcap, GQA, bidirectional and ragged
    shapes, head_dim in {32, 80, 128, 256}, and the h2o-danube prefill at
    L = 6144; float32 and bf16), and times kernel, eager call, plain
    version, ``F.rms_norm`` / ``F.scaled_dot_product_attention``
    (``library_ms``, timed only) and the bound;
-8. serves h2o-danube-1.8b at full width (24 layers, d_model 2560, f32,
+10. serves h2o-danube-1.8b at full width (24 layers, d_model 2560, f32,
    random weights from a seed, flash and RMSNorm kernels on) through
    ``ResidentEngine(max_slots=4, max_len=6208, chunk=8)``: 8 requests with
    prompts of 512 to 6144 tokens, 32 new tokens each.  The kernels' launch
@@ -44,11 +59,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (``use_flash=False, use_fused_norm=False``).  Prints ms per prefill,
    per chunk and per decode step, tokens/s, peak memory and the card's
    idle share over one traced prefill and one chunk;
-9. replays a seeded Poisson stream through the same model (TTFT / TPOT);
-10. runs ``repro_torch.launch.serve --arch h2o-danube-1.8b --stream`` at the
+11. replays a seeded Poisson stream through the same model (TTFT / TPOT);
+12. runs ``repro_torch.launch.serve --arch h2o-danube-1.8b --stream`` at the
     launcher's smoke size;
-11. prints the card, a ``{"kernels": [...]}`` line, and last
-    ``{"ok": true, "device": {...}}``.
+13. prints the card, a ``{"kernels": [...]}`` line (all five kernels), and
+    last ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero without one, and without the repository
 around it.
@@ -72,7 +87,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.configs import paper_logreg  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core import (algorithm, gossip, graphs, prox,  # noqa: E402
-                              runner)
+                              runner, transport)
 from repro_torch.core.exec_spec import ExecSpec  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import SOURCES, _build  # noqa: E402
@@ -88,6 +103,7 @@ from repro_torch.serve import stream as serve_stream  # noqa: E402
 from repro_torch.serve.engine import ResidentEngine  # noqa: E402
 from repro_torch.serve.scheduler import (ContinuousBatcher,  # noqa: E402
                                          Request)
+from benchmarks import pt_common, pt_kernel_bench  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 # peak operation rates by operand type, dense (NVIDIA's H100 SXM data
@@ -236,7 +252,110 @@ def check_kernel(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: plain vs fused DPSVRG step, for kernel="auto"
+# phase 4: svrg_step and mix_prox against their plain versions
+# ---------------------------------------------------------------------------
+
+# lengths of the flat buffers: a single element, a ragged tail of 3 after a
+# float4, a ragged tail after 250 float4s, one (8, 1024) TPU tile, and the
+# kernel bench's 8 MiB per stream
+SVRG_MIX_LENGTHS = [1, 7, 1000, 8 * 1024, 2048 * 1024]
+# views one element into a buffer: not 16-byte aligned, so the scalar path
+SVRG_MIX_MISALIGNED = [1000, 8 * 1024]
+SVRG_ALPHAS = [0.0, 0.05, 1.0]
+# (w_self, w_up, w_down, thresh): the reference's cases (tests/test_kernels)
+MIX_CASES = [(1.0, 0.0, 0.0, 0.0), (1 / 3, 1 / 3, 1 / 3, 0.01),
+             (0.5, 0.25, 0.25, 0.3)]
+# rows of 1024 timed: the bench's shape (40 MiB for svrg_step, under the
+# card's 50 MB L2, so repeated calls may be served from L2 and beat the
+# memory bound) and 16384 rows (64 MiB per stream), well over the L2
+SVRG_MIX_TIMED_ROWS = [2048, 16384]
+SVRG_FLOPS, MIX_FLOPS = 4, 8       # per element (mix: 3 mul, 2 add, prox 3)
+
+
+def _flat_operands(n: int, count: int, seed: int, device, offset: int = 0):
+    """``count`` float32 buffers of n elements from a seed; with ``offset``
+    each is a view that starts ``offset`` elements into a larger buffer."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        base = torch.as_tensor(rng.normal(size=n + offset),
+                               dtype=torch.float32, device=device)
+        out.append(base[offset:])
+    return out
+
+
+def check_svrg_mix(device) -> tuple:
+    """Every case must equal the plain version exactly.  Returns (the max
+    abs err of each kernel over its cases, the timing rows by (kernel,
+    rows))."""
+    cases = 0
+    max_err = {"svrg_step": 0.0, "mix_prox": 0.0}
+    shapes = [(n, 0) for n in SVRG_MIX_LENGTHS] + \
+        [(n, 1) for n in SVRG_MIX_MISALIGNED]
+    for n, offset in shapes:
+        x, gn, gs, mu = _flat_operands(n, 4, n + offset, device, offset)
+        for alpha in SVRG_ALPHAS:
+            alpha_dev = torch.tensor([alpha], dtype=torch.float32,
+                                     device=device)[0]
+            plain = ref.svrg_step_ref(x, gn, gs, mu, alpha)
+            for a in (alpha, alpha_dev):
+                out = ops.svrg_step(x, gn, gs, mu, a)
+                err = float((out - plain).abs().max())
+                if not torch.equal(out, plain):
+                    fail(f"svrg_step differs from its plain version: n={n} "
+                         f"offset={offset} alpha={alpha} "
+                         f"({type(a).__name__}), max abs err {err}")
+                max_err["svrg_step"] = max(max_err["svrg_step"], err)
+                cases += 1
+        for w_s, w_u, w_d, th in MIX_CASES:
+            out = ops.mix_prox(x, gn, gs, w_s, w_u, w_d, th)
+            plain = ref.mix_prox_ref(x, gn, gs, w_s, w_u, w_d, th)
+            err = float((out - plain).abs().max())
+            if not torch.equal(out, plain):
+                fail(f"mix_prox differs from its plain version: n={n} "
+                     f"offset={offset} case={(w_s, w_u, w_d, th)}, max abs "
+                     f"err {err}")
+            max_err["mix_prox"] = max(max_err["mix_prox"], err)
+            cases += 1
+    print(f"svrg_mix: all {cases} cases equal to the plain version (max abs "
+          f"err 0)", flush=True)
+
+    rows = {}
+    alpha, (w_s, w_u, w_d, th) = 0.05, MIX_CASES[1]
+    for n_rows in SVRG_MIX_TIMED_ROWS:
+        x, gn, gs, mu = (t.reshape(n_rows, 1024) for t in _flat_operands(
+            n_rows * 1024, 4, n_rows, device))
+        n = x.numel()
+        a = torch.tensor([alpha], dtype=torch.float32, device=device)[0]
+
+        def unfused():
+            q = x - a * (gn - gs + mu)
+            return torch.sign(q) * torch.clamp_min(torch.abs(q) - th, 0.0)
+
+        unfused_ms = graph_ms(unfused)
+        for name, kern, plain_fn, streams, flops in (
+                ("svrg_step", lambda: ops.svrg_step(x, gn, gs, mu, a),
+                 lambda: ref.svrg_step_ref(x, gn, gs, mu, a), 5, SVRG_FLOPS),
+                ("mix_prox", lambda: ops.mix_prox(x, gn, gs, w_s, w_u, w_d,
+                                                  th),
+                 lambda: ref.mix_prox_ref(x, gn, gs, w_s, w_u, w_d, th), 4,
+                 MIX_FLOPS)):
+            bnd, bnd_by = bound(streams * n * 4, flops * n)
+            row = {"kernel": name, "shape": [n_rows, 1024],
+                   "max_abs_err": float((kern() - plain_fn()).abs().max()),
+                   "ms": graph_ms(kern), "call_ms": time_ms(kern),
+                   "plain_ms": graph_ms(plain_fn), "library_ms": None,
+                   "bound_ms": bnd, "bound_by": bnd_by,
+                   "unfused_chain_ms": unfused_ms,
+                   "l2_resident": streams * n * 4 < 50e6}
+            row["share_of_bound"] = bnd / row["ms"]
+            rows[(name, n_rows)] = row
+            print("svrg_mix_case " + json.dumps(row), flush=True)
+    return max_err, rows
+
+
+# ---------------------------------------------------------------------------
+# phase 5: plain vs fused DPSVRG step, for kernel="auto"
 # ---------------------------------------------------------------------------
 
 def time_auto(device) -> None:
@@ -293,7 +412,7 @@ def time_auto(device) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the main path at full width
+# phase 6: the main path at full width
 # ---------------------------------------------------------------------------
 
 def main_path_runs(device, parts, dim, kernel_mode):
@@ -371,9 +490,16 @@ def profile_main_path(parts, dim: int) -> dict:
 def device_busy(prof, wall_us: float) -> dict:
     """The card's busy time in a traced window: the union of its kernels'
     intervals; the idle share is the rest of the window's wall time."""
+    # a record_function span (the runner's resident.* spans) also shows on
+    # the device's timeline, as a user annotation of the same name: it is
+    # not device work
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    annotations = {e.name for e in prof.events() if e.device_type == cpu
+                   and getattr(e, "is_user_annotation", False)}
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == cuda and e.name not in annotations
+                   and not getattr(e, "is_user_annotation", False))
     busy, end, by_name = 0.0, float("-inf"), {}
     for start, stop, name in spans:
         busy += max(0.0, stop - max(start, end))
@@ -387,7 +513,192 @@ def device_busy(prof, wall_us: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: RMSNorm and flash attention against their plain versions
+# phase 8: the kernel bench, DVR on the banded stack, DSPG through "auto"
+# ---------------------------------------------------------------------------
+
+BENCH_SCALE = 1.0      # the whole adult_like set for the paper-scale rows
+DVR_STEPS = 40
+DSPG_AUTO_STEPS = 600
+
+
+def _reset_launches() -> None:
+    ops.launches = ops.launches_svrg_step = ops.launches_mix_prox = 0
+    rn_ops.launches = fa_ops.launches = 0
+
+
+def _launch_counts() -> dict:
+    return {"fused_step": ops.launches, "svrg_step": ops.launches_svrg_step,
+            "mix_prox": ops.launches_mix_prox, "rmsnorm": rn_ops.launches,
+            "flash_attention": fa_ops.launches}
+
+
+def _held_to_cpu(name: str, card, cpu) -> float:
+    """Assert a card history equals the CPU run's; returns the max abs
+    difference of the objective."""
+    card, cpu = np.asarray(card), np.asarray(cpu)
+    np.testing.assert_allclose(card, cpu, rtol=HISTORY_RTOL,
+                               atol=HISTORY_ATOL,
+                               err_msg=f"{name}: card vs CPU")
+    return float(np.max(np.abs(card - cpu)))
+
+
+def kernel_bench_phase() -> dict:
+    """Phase 8.  Returns the launch counts of the bench run and the rows."""
+    t0 = time.perf_counter()
+    _reset_launches()
+    rows = pt_kernel_bench.run(scale=BENCH_SCALE, device="cuda")
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    bench_s = time.perf_counter() - t0
+    calls = {"svrg_step": 0, "mix_prox": 0}
+    for r in rows:
+        for k, v in r.data.get("calls", {}).items():
+            calls[k] += v
+    for k, want in calls.items():
+        if counts[k] != want:
+            fail(f"kernel bench: {counts[k]} {k} launches, the bench made "
+                 f"{want} calls")
+    if counts["fused_step"] == 0:
+        fail("kernel bench: fused_step was never launched")
+    by_name = {r.name: r for r in rows}
+    errs = by_name["kernel/svrg_mix_check"].data["max_abs_err"]
+    if any(v != 0.0 for v in errs.values()):
+        fail(f"kernel bench: kernels differ from their plain versions "
+             f"{errs}")
+    ps = by_name["kernel/resident_paper_scale_auto"].data
+    ld = by_name["kernel/resident_large_d_fused"].data
+    for sec in (ps, ld):
+        if sec["fused_launches"] != sec["steps"]:
+            fail(f"kernel bench {sec['algorithm']}: {sec['fused_launches']} "
+                 f"fused_step launches for {sec['steps']} steps")
+    t1 = time.perf_counter()
+    cpu = pt_kernel_bench.kernel_stats(BENCH_SCALE, "cpu", timed=False)
+    cpu_s = time.perf_counter() - t1
+    diffs = {}
+    for key, sec in (("paper_scale", ps), ("large_d", ld)):
+        for kind, hist in sec["objective"].items():
+            diffs[f"{key}/{kind}"] = _held_to_cpu(
+                f"{key} {kind}", hist, cpu[key]["objective"][kind])
+    summary = {
+        "launches": counts, "calls": calls, "bench_s": bench_s,
+        "cpu_reference_s": cpu_s, "max_abs_objective_vs_cpu": diffs,
+        "rows": [{"name": r.name, "us_per_call": r.us_per_call,
+                  "derived": r.derived} for r in rows],
+        "paper_scale": {k: v for k, v in ps.items() if k != "objective"},
+        "large_d": {k: v for k, v in ld.items() if k != "objective"},
+    }
+    print("kernel_bench " + json.dumps(summary), flush=True)
+    return summary
+
+
+def profile_large_d() -> dict:
+    """Where the banded d = 131,072 fused run's time goes: one run of the
+    bench's loopless DPSVRG traced by ``torch.profiler`` after a warm run.
+    Besides the card's busy time, the runner's own spans split the host's
+    wall time: the plan (dataset pull and minibatch gather), the staging
+    copy, issuing the steps, and the history pull."""
+    from torch.profiler import ProfilerActivity, profile
+
+    problem = pt_kernel_bench.large_problem("cuda")
+    sched = pt_kernel_bench._circulant8()
+    spec = ExecSpec(resident=True, kernel="fused", gossip="banded")
+
+    def make():
+        return algorithm.loopless_dpsvrg_algorithm(
+            problem, 0.05, 40, consensus_rounds=1, batch_size=1)
+
+    runner.run(make(), problem, sched, spec, record_every=20)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runner.run(make(), problem, sched, spec, record_every=20)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    out = {"steps": 40}
+    out.update(device_busy(prof, wall_us))
+    spans = {}
+    for e in prof.events():
+        if (e.name.startswith("resident.")
+                and e.device_type == torch.autograd.DeviceType.CPU):
+            spans[e.name] = spans.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+    out["host_spans_ms"] = spans
+    return out
+
+
+def _counted_run(algo, problem, sched, spec, record_every):
+    torch.cuda.synchronize()
+    before = ops.launches
+    t0 = time.perf_counter()
+    res = runner.run(algo, problem, sched, spec, seed=0,
+                     record_every=record_every)
+    torch.cuda.synchronize()
+    return res, ops.launches - before, time.perf_counter() - t0
+
+
+def dvr_and_auto_phase() -> None:
+    """DVR fused on the banded d = 131,072 stack, and DSPG on the paper's
+    b=1 ring with the default ``gossip="auto"``; each against its CPU run."""
+    sched = pt_kernel_bench._circulant8()
+    out = {}
+
+    def dvr(device):
+        problem = pt_kernel_bench.large_problem(device)
+        return (algorithm.dvr_algorithm(problem, 0.05, DVR_STEPS, rho=0.5),
+                problem)
+
+    data, _, h, x0, _ = pt_common.setup_problem("adult_like", BENCH_SCALE,
+                                                device="cuda")
+    ring = graphs.b_connected_ring_schedule(8, 1)
+
+    def dspg(device):
+        if device == "cuda":
+            problem = algorithm.Problem(logreg_loss, h, x0, data)
+        else:
+            problem = algorithm.Problem(
+                logreg_loss, h, x0.cpu(),
+                {k: v.cpu() for k, v in data.items()})
+        return (algorithm.dspg_algorithm(
+            problem, algorithm.DSPGHyperParams(alpha0=0.2),
+            DSPG_AUTO_STEPS), problem)
+
+    for name, make, schedule, spec_kw, every in (
+            ("dvr_banded_fused", dvr, sched, dict(gossip="banded"), 20),
+            ("dspg_ring_auto", dspg, ring, {}, 100)):
+        algo, problem = make("cuda")
+        spec = ExecSpec(resident=True, kernel="fused", **spec_kw)
+        backend = transport.resolve_backend(spec.gossip, schedule, algo.meta)
+        if name == "dspg_ring_auto" and backend.name != "banded":
+            fail(f"gossip='auto' picked {backend.name!r} for DSPG on the "
+                 f"b=1 ring, not 'banded'")
+        res, launches, secs = _counted_run(algo, problem, schedule, spec,
+                                           every)
+        steps = int(res.history.steps[-1])
+        if launches != steps:
+            fail(f"{name}: {launches} fused_step launches for {steps} steps")
+        calgo, cproblem = make("cpu")
+        cres = runner.run(calgo, cproblem, schedule,
+                          spec.replace(device="cpu"), seed=0,
+                          record_every=every)
+        np.testing.assert_array_equal(res.extras["wire_bytes"],
+                                      cres.extras["wire_bytes"])
+        diff = _held_to_cpu(name, res.history.objective,
+                            cres.history.objective)
+        out[name] = {"backend": backend.name, "steps": steps,
+                     "launches": launches, "run_s": secs,
+                     "ms_per_step": secs / steps * 1e3,
+                     "transfers_h2d": res.extras["transfers_h2d"],
+                     "transfers_d2h": res.extras["transfers_d2h"],
+                     "wire_bytes_last": int(res.extras["wire_bytes"][-1]),
+                     "objective_first": float(res.history.objective[0]),
+                     "objective_last": float(res.history.objective[-1]),
+                     "max_abs_objective_vs_cpu": diff}
+        print(f"{name} " + json.dumps(out[name]), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: RMSNorm and flash attention against their plain versions
 # ---------------------------------------------------------------------------
 
 # Kernel on the card vs plain version on the card.  float32: the same
@@ -524,7 +835,7 @@ def check_flash(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 8-10: serving h2o-danube-1.8b at full width
+# phases 10-12: serving h2o-danube-1.8b at full width
 # ---------------------------------------------------------------------------
 
 DANUBE_SEED = 0
@@ -573,7 +884,7 @@ def danube_requests(vocab: int) -> list:
 
 
 def serve_danube() -> dict:
-    """Phase 8.  Returns the numbers of the serving run."""
+    """Phase 10.  Returns the numbers of the serving run."""
     cfg = configs.get_config("h2o-danube-1.8b").scaled(
         use_flash=True, use_fused_norm=True)
     t0 = time.perf_counter()
@@ -706,7 +1017,7 @@ def serve_danube() -> dict:
     torch.cuda.empty_cache()
     print("danube_serve " + json.dumps(result), flush=True)
 
-    # phase 9: a seeded Poisson stream through the same model
+    # phase 11: a seeded Poisson stream through the same model
     sc = serve_stream.StreamConfig(
         num_requests=8, vocab_size=cfg.vocab_size, arrival="poisson",
         rate=STREAM_RATE, prompt_lens=(512, 2048, 6144), new_low=16,
@@ -758,10 +1069,16 @@ def main() -> None:
           f"{KERNEL_ATOL} of the plain version (max abs err {max_err:.3g})",
           flush=True)
 
-    # phase 4: the auto threshold's measurements
+    # phase 4: svrg_step and mix_prox vs their plain versions
+    t0 = time.perf_counter()
+    svrg_mix_err, svrg_mix_rows = check_svrg_mix(device)
+    print(f"phase 4 (svrg_step, mix_prox): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # phase 5: the auto threshold's measurements
     time_auto(device)
 
-    # phase 5: the main path at full width
+    # phase 6: the main path at full width
     cfg = paper_logreg.CONFIG
     t0 = time.perf_counter()
     ds = synthetic.make_paper_dataset("cifar10_like", scale=1.0, seed=0)
@@ -796,11 +1113,19 @@ def main() -> None:
             "transfers_h2d": res.extras["transfers_h2d"],
             "transfers_d2h": res.extras["transfers_d2h"]}), flush=True)
 
-    # phase 6: where the card's time goes on the main path
+    # phase 7: where the card's time goes on the main path
     print("profile " + json.dumps(profile_main_path(parts, ds.dim)),
           flush=True)
 
-    # phase 7: RMSNorm and flash attention against their plain versions
+    # phase 8: the kernel bench at full width, DVR banded, DSPG via "auto"
+    t0 = time.perf_counter()
+    bench = kernel_bench_phase()
+    print("profile_large_d " + json.dumps(profile_large_d()), flush=True)
+    dvr_and_auto_phase()
+    print(f"phase 8 (kernel bench, dvr, auto): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # phase 9: RMSNorm and flash attention against their plain versions
     rms_rows = check_rmsnorm(device)
     flash_rows = check_flash(device)
     rms_err = max(r["max_abs_err"] for r in rms_rows.values()
@@ -812,15 +1137,18 @@ def main() -> None:
           f"{len(flash_rows)} cases (float32 max abs err {flash_err:.3g})",
           flush=True)
 
-    # phases 8-9: serve h2o-danube-1.8b at full width, then a stream
+    # phases 10-11: serve h2o-danube-1.8b at full width, then a stream
     serve = serve_danube()
 
-    # phase 10: the launcher at its smoke size
+    # phase 12: the launcher at its smoke size
     summary = launch_serve.main(["--arch", "h2o-danube-1.8b", "--stream"])
     if summary["requests"] != 16:
         fail(f"launch.serve: {summary['requests']} requests finished")
 
     main_row = rows[(8, 1024, "svrg", "l1")]
+    # the shape the kernel bench gives svrg_step and mix_prox
+    svrg_row = svrg_mix_rows[("svrg_step", pt_kernel_bench.ROWS)]
+    mix_row = svrg_mix_rows[("mix_prox", pt_kernel_bench.ROWS)]
     rms_row = rms_rows[RMS_LINE_SHAPE + ("float32",)]
     flash_row = flash_rows[(DANUBE_FLASH_CASE, "float32")]
 
@@ -838,6 +1166,16 @@ def main() -> None:
              "src/repro_torch/kernels/fused_update/csrc/fused_step.cu",
              "src/repro/kernels/fused_update/kernel.py:108", main_launches,
              max_err, main_row),
+        line("svrg_step",
+             "src/repro_torch/kernels/fused_update/csrc/svrg_mix.cu",
+             "src/repro/kernels/fused_update/kernel.py:68",
+             bench["launches"]["svrg_step"], svrg_mix_err["svrg_step"],
+             svrg_row),
+        line("mix_prox",
+             "src/repro_torch/kernels/fused_update/csrc/svrg_mix.cu",
+             "src/repro/kernels/fused_update/kernel.py:75",
+             bench["launches"]["mix_prox"], svrg_mix_err["mix_prox"],
+             mix_row),
         line("rmsnorm", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
              "src/repro/kernels/rmsnorm/kernel.py:37",
              serve["launches"]["rmsnorm"], rms_err, rms_row),

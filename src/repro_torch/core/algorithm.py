@@ -11,10 +11,13 @@ state with stacked node parameters (leading axis m):
                                                    Algorithm 1's tail average)
 
 plus declarative :class:`AlgoMeta`.  The single driver in
-:mod:`repro_torch.core.runner` consumes this protocol.  Ported so far:
-DPSVRG (paper Algorithm 1) and DSPG [paper ref. 11], each with its fused
-twin, whose inner update runs through the fused resident-step kernel
-(``kernels.fused_update``).
+:mod:`repro_torch.core.runner` consumes this protocol.  The whole registry
+of the reference is ported: DPSVRG (paper Algorithm 1), DSPG [paper ref.
+11], DPG [ref. 10], GT-SVRG [refs 18/19], the beyond-paper loopless DPSVRG
+and DVR.  All but GT-SVRG have a fused twin, whose inner update runs
+through the fused resident-step kernel (``kernels.fused_update``).  Steps
+that thread a mix state (``cstate``) ride the stateful ``compressed``
+transport through ``compression.mix_with_state``.
 
 PyTorch runs eagerly, so the reference's step memoization
 (``_shared_step``), which existed to keep XLA executables warm across
@@ -29,7 +32,8 @@ from typing import Any, Callable, NamedTuple
 import torch
 from torch.utils import _pytree as pytree
 
-from . import gossip, prox as prox_lib, schedules, svrg, transport
+from . import compression, gossip, prox as prox_lib, schedules, svrg, \
+    transport
 from ..kernels.fused_update import ops as fused_ops
 
 __all__ = [
@@ -41,16 +45,24 @@ __all__ = [
     "Algorithm",
     "ParamState",
     "DPSVRGState",
+    "GTSVRGState",
+    "LooplessState",
     "DPSVRGHyperParams",
     "DSPGHyperParams",
     "build_node_grad_fn",
     "build_node_full_grad_fn",
     "build_dpsvrg_inner_step",
     "build_dspg_step",
+    "build_gt_svrg_inner_step",
+    "build_dvr_inner_step",
     "build_fused_svrg_inner",
     "build_fused_sgd_step",
     "dpsvrg_algorithm",
     "dspg_algorithm",
+    "dpg_algorithm",
+    "gt_svrg_algorithm",
+    "loopless_dpsvrg_algorithm",
+    "dvr_algorithm",
     "ALGORITHMS",
 ]
 
@@ -83,7 +95,7 @@ class DPSVRGHyperParams:
     batch_size: int = 1          # paper uses single-sample inner steps
     k_max: int | None = None     # multi-consensus cap (None = faithful, k rounds at step k)
     single_consensus: bool = False  # Fig.3 ablation: one gossip round per step
-    compress_bits: int | None = None  # int-quantized gossip (not ported yet)
+    compress_bits: int | None = None  # int-quantized gossip w/ error feedback
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,18 +177,23 @@ def build_node_full_grad_fn(loss_fn: Callable, full_batch) -> Callable:
 def build_dpsvrg_inner_step(loss_fn: Callable, prox: prox_lib.Prox,
                             compress_bits: int | None = None):
     """``step(params, svrg_state, batch, phi, alpha, cstate) -> (params,
-    cstate)``: Algorithm 1 lines 7-11 for all nodes at once.  ``cstate`` is
-    the compressed-gossip state of the reference; no stateful transport is
-    ported, so it passes through as ``None``."""
-    if compress_bits is not None:
-        raise NotImplementedError(
-            "compress_bits (quantized gossip with error feedback) is not "
-            "ported to PyTorch yet (ROADMAP Queue 1 item 7)")
+    cstate)``: Algorithm 1 lines 7-11 for all nodes at once.  ``phi`` may be
+    any wire format (dense, ``BandedPhi``, ``CompressedPhi``).  ``cstate``
+    is the error-feedback state of compressed gossip (None, returned
+    untouched, for stateless transports).  ``compress_bits`` wraps the
+    incoming phi in a ``CompressedPhi``, so hp-level quantization and the
+    ``compressed`` transport share one path."""
     node_grad = build_node_grad_fn(loss_fn)
 
     def step(params, svrg_state, batch, phi, alpha, cstate):
+        if compress_bits is not None and \
+                not isinstance(phi, compression.CompressedPhi):
+            phi = compression.CompressedPhi(phi, compress_bits)
         v = svrg.corrected_gradient(node_grad, params, svrg_state, batch)
-        return prox_gossip_update(params, v, phi, alpha, prox), cstate
+        q = pytree.tree_map(lambda x, vi: x - alpha * vi.to(x.dtype), params,
+                            v)
+        q_hat, cstate = compression.mix_with_state(phi, q, cstate)
+        return prox.apply(q_hat, alpha), cstate
 
     return step
 
@@ -193,6 +210,54 @@ def build_dspg_step(loss_fn: Callable, prox: prox_lib.Prox):
     return step
 
 
+def build_gt_svrg_inner_step(loss_fn: Callable, prox: prox_lib.Prox):
+    """GT-SVRG inner update: prox-gossip step + gradient-tracking recursion.
+
+    Both mixes (the iterate and the tracker) go through
+    ``compression.mix_with_state``: ``cstate`` is a pair of error-feedback
+    states, one per transmitted quantity, or None for stateless
+    transports."""
+    node_grad = build_node_grad_fn(loss_fn)
+
+    def inner(params, tracker, v_prev, est, batch, w, a, cstate):
+        cq, ct = cstate if cstate is not None else (None, None)
+        q = pytree.tree_map(lambda x, y: x - a * y, params, tracker)
+        q_hat, cq = compression.mix_with_state(w, q, cq)
+        new_params = prox.apply(q_hat, a)
+        v_new = svrg.corrected_gradient(node_grad, new_params, est, batch)
+        t_mixed, ct = compression.mix_with_state(w, tracker, ct)
+        new_tracker = pytree.tree_map(lambda ty, vn, vp: ty + vn - vp,
+                                      t_mixed, v_new, v_prev)
+        new_cstate = None if cq is None and ct is None else (cq, ct)
+        return new_params, new_tracker, v_new, new_cstate
+
+    return inner
+
+
+def build_dvr_inner_step(loss_fn: Callable, prox: prox_lib.Prox, rho: float):
+    """Dual-Free DVR inner update (Hendrikx et al., arXiv 2006.14384), as the
+    reference adapts it to the runner's sampled-batch interface:
+
+        v  = SVRG-corrected gradient
+        y  = x - alpha v                      (local computation step)
+        x' = prox_h((1-rho) y + rho W y)      (damped gossip)
+
+    The mix goes through ``compression.mix_with_state``, so DVR rides the
+    stateful ``compressed`` transport too."""
+    node_grad = build_node_grad_fn(loss_fn)
+
+    def step(params, est, batch, phi, alpha, cstate):
+        v = svrg.corrected_gradient(node_grad, params, est, batch)
+        y = pytree.tree_map(lambda x, vi: x - alpha * vi.to(x.dtype), params,
+                            v)
+        y_mixed, cstate = compression.mix_with_state(phi, y, cstate)
+        q = pytree.tree_map(lambda a, b: (1.0 - rho) * a + rho * b, y,
+                            y_mixed)
+        return prox.apply(q, alpha), cstate
+
+    return step
+
+
 # ---------------------------------------------------------------------------
 # Fused resident-step twins (kernels.fused_update)
 # ---------------------------------------------------------------------------
@@ -204,7 +269,8 @@ def build_dspg_step(loss_fn: Callable, prox: prox_lib.Prox):
 # lowering:
 #
 # * the phi wire format has no dense matrix (``transport.mix_matrix``
-#   returns None),
+#   returns None: compressed gossip); a ``BandedPhi`` lowers to its dense
+#   matrix on the device,
 # * a stateful transport threads a mix state (cstate is not None),
 # * the prox has no ``fused_spec`` (only l1 / sql2 / none lower),
 # * kernel="auto" at per-node sizes where the unfused step wins
@@ -226,16 +292,22 @@ def _fused_fallback(mode: str, prox: prox_lib.Prox, phi, cstate, params):
 
 
 def build_fused_svrg_inner(loss_fn: Callable, prox: prox_lib.Prox,
-                           mode: str):
-    """Fused twin of ``build_dpsvrg_inner_step``, same signature:
+                           mode: str, rho: float | None = None):
+    """Fused twin of ``build_dpsvrg_inner_step`` (rho=None) /
+    ``build_dvr_inner_step`` (rho set: W_eff = (1-rho) I + rho W folds DVR's
+    damped gossip into the kernel's mix matrix).  Same signature:
     ``inner(params, est, batch, phi, alpha, cstate) -> (params, cstate)``."""
-    base = build_dpsvrg_inner_step(loss_fn, prox)
+    base = (build_dvr_inner_step(loss_fn, prox, rho) if rho is not None
+            else build_dpsvrg_inner_step(loss_fn, prox))
     node_grad = build_node_grad_fn(loss_fn)
 
     def inner(params, est, batch, phi, alpha, cstate):
         w, spec = _fused_fallback(mode, prox, phi, cstate, params)
         if w is None:
             return base(params, est, batch, phi, alpha, cstate)
+        if rho is not None:
+            w = (1.0 - rho) * torch.eye(w.shape[0], dtype=w.dtype,
+                                        device=w.device) + rho * w
         kind, lam = spec
         g_now = node_grad(params, batch)
         g_snap = node_grad(est.snapshot, batch)
@@ -311,6 +383,12 @@ class AlgoMeta:
 class Algorithm:
     """A decentralized algorithm bound to a :class:`Problem`.
 
+    ``init_mix_state(state, make=...)`` opts the algorithm into stateful
+    gossip transports: it puts a fresh mix state (``make(x0)``, the
+    backend's initializer) into the state's ``cstate`` slot(s), and the
+    step threads it through ``compression.mix_with_state``.  None means
+    only stateless transports can drive it.
+
     ``outer_traced(state, full_data)`` / ``end_outer_traced(state, k)`` are
     the transitions the resident runner applies between staged steps, with
     the dataset passed explicitly (the staged device copy) and ``k`` a
@@ -323,6 +401,7 @@ class Algorithm:
     outer: Callable[[Any], Any] | None = None
     end_outer: Callable[[Any, int], Any] | None = None
     rule: UpdateRule | None = None
+    init_mix_state: Callable[..., Any] | None = None
     outer_traced: Callable[[Any, Any], Any] | None = None
     end_outer_traced: Callable[[Any, Any], Any] | None = None
     device_state: Callable[[Any], Any] | None = None
@@ -342,6 +421,22 @@ class DPSVRGState(NamedTuple):
     est: svrg.SvrgState | None        # current snapshot + full gradient
     inner_sum: Any                    # tail-average accumulator (line 13)
     cstate: Any                       # transport state (None: stateless)
+
+
+class GTSVRGState(NamedTuple):
+    params: Any
+    anchor: Any
+    est: svrg.SvrgState | None
+    tracker: Any                      # gradient-tracking direction y_i
+    v_prev: Any
+    inner_sum: Any
+    cstate: Any = None                # (iterate, tracker) error-feedback pair
+
+
+class LooplessState(NamedTuple):
+    params: Any
+    est: svrg.SvrgState
+    cstate: Any = None                # compression error-feedback state
 
 
 def _zeros_like(tree):
@@ -367,6 +462,19 @@ def _tail_average_end_outer_traced(state, k):
         anchor=pytree.tree_map(lambda acc: acc / k, state.inner_sum))
 
 
+def _loopless_outer_traced(loss_fn: Callable) -> Callable:
+    """Coin-flip snapshot refresh at the CURRENT iterate (L-SVRG style),
+    with the dataset passed explicitly."""
+    node_grad = build_node_grad_fn(loss_fn)
+
+    def outer_traced(state, full_data):
+        return state._replace(est=svrg.SvrgState(
+            snapshot=state.params,
+            full_grad=node_grad(state.params, full_data)))
+
+    return outer_traced
+
+
 def _svrg_placeholder_state(state):
     """Fill ``est=None`` with a zero ``SvrgState`` placeholder (overwritten
     by the first outer transition before any step reads it)."""
@@ -389,8 +497,13 @@ def dpsvrg_algorithm(problem: Problem, hp: DPSVRGHyperParams) -> Algorithm:
     full_grad_fn = build_node_full_grad_fn(problem.loss_fn, problem.full_data)
 
     def init():
+        cstate = (compression.init_state(problem.x0)
+                  if hp.compress_bits is not None else None)
         return DPSVRGState(params=problem.x0, anchor=problem.x0, est=None,
-                           inner_sum=_zeros_like(problem.x0), cstate=None)
+                           inner_sum=_zeros_like(problem.x0), cstate=cstate)
+
+    def init_mix_state(state, make=compression.init_state):
+        return state._replace(cstate=make(problem.x0))
 
     def outer(state):
         est = svrg.SvrgState(snapshot=state.anchor,
@@ -435,10 +548,13 @@ def dpsvrg_algorithm(problem: Problem, hp: DPSVRGHyperParams) -> Algorithm:
         record_key="round",
         final_record=True,
         compress_bits=hp.compress_bits,
-        fused_step=fused_step,
+        # hp-level quantization threads error feedback through every mix:
+        # no fused lowering exists for it
+        fused_step=None if hp.compress_bits is not None else fused_step,
     )
     return Algorithm(meta=meta, init=init, step=with_inner(inner),
                      outer=outer, end_outer=end_outer, rule=DPSVRG_RULE,
+                     init_mix_state=init_mix_state,
                      outer_traced=_svrg_outer_traced(problem.loss_fn),
                      end_outer_traced=_tail_average_end_outer_traced,
                      device_state=_svrg_placeholder_state)
@@ -475,7 +591,180 @@ def dspg_algorithm(problem: Problem, hp: DSPGHyperParams,
                      step=step, rule=DSPG_RULE)
 
 
+def dpg_algorithm(problem: Problem, alpha: float, num_steps: int) -> Algorithm:
+    """DPG [paper ref. 10]: deterministic full local gradients, one gossip +
+    prox per step.  The smooth anchor: one effective epoch per step."""
+    full_grad_fn = build_node_full_grad_fn(problem.loss_fn, problem.full_data)
+    prox = problem.prox
+
+    def _step(params, phi, a):
+        return prox_gossip_update(params, full_grad_fn(params), phi, a, prox)
+
+    def step(state, batch, phi, alpha):
+        return ParamState(_step(state.params, phi, alpha))
+
+    def fused_step(mode):
+        def fstep(state, batch, phi, alpha):
+            w, spec = _fused_fallback(mode, prox, phi, None, state.params)
+            if w is None:
+                return ParamState(_step(state.params, phi, alpha))
+            kind, lam = spec
+            return ParamState(fused_ops.fused_resident_step(
+                w, state.params, (full_grad_fn(state.params),), alpha, lam,
+                rule="sgd", prox_kind=kind))
+
+        return fstep
+
+    meta = AlgoMeta(
+        name="dpg",
+        stepsize=schedules.constant(alpha),
+        num_steps=num_steps,
+        batch_size=0,
+        step_grad_factor=0,
+        slot_start=1,
+        epoch_metric="steps",
+        fused_step=fused_step,
+    )
+    return Algorithm(meta=meta, init=lambda: ParamState(problem.x0),
+                     step=step)
+
+
+def gt_svrg_algorithm(problem: Problem, alpha: float, num_outer: int,
+                      inner_steps: int, batch_size: int = 1) -> Algorithm:
+    """GT-SVRG [paper refs 18/19]: SVRG estimator + gradient tracking; one
+    gossip round per step (tracking replaces multi-consensus).  No fused
+    twin: the step mixes two quantities."""
+    inner = build_gt_svrg_inner_step(problem.loss_fn, problem.prox)
+    full_grad_fn = build_node_full_grad_fn(problem.loss_fn, problem.full_data)
+
+    def init():
+        # standard GT init: the tracker starts at the x0 full gradient
+        est = svrg.SvrgState(snapshot=problem.x0,
+                             full_grad=full_grad_fn(problem.x0))
+        return GTSVRGState(params=problem.x0, anchor=problem.x0, est=est,
+                           tracker=est.full_grad, v_prev=est.full_grad,
+                           inner_sum=_zeros_like(problem.x0))
+
+    def init_mix_state(state, make=compression.init_state):
+        # one transport state per transmitted quantity
+        return state._replace(cstate=(make(problem.x0), make(problem.x0)))
+
+    def outer(state):
+        est = svrg.SvrgState(snapshot=state.anchor,
+                             full_grad=full_grad_fn(state.anchor))
+        return state._replace(est=est, inner_sum=_zeros_like(state.params))
+
+    def step(state, batch, phi, alpha):
+        params, tracker, v_prev, cstate = inner(
+            state.params, state.tracker, state.v_prev, state.est, batch,
+            phi, alpha, state.cstate)
+        return state._replace(
+            params=params, tracker=tracker, v_prev=v_prev, cstate=cstate,
+            inner_sum=svrg.tree_add(state.inner_sum, params))
+
+    def end_outer(state, K):
+        return state._replace(
+            anchor=pytree.tree_map(lambda acc: acc / K, state.inner_sum))
+
+    meta = AlgoMeta(
+        name="gt_svrg",
+        stepsize=schedules.constant(alpha),
+        outer_lengths=(inner_steps,) * num_outer,
+        batch_size=batch_size,
+        step_grad_factor=2,
+        outer_full_grad=True,
+        gossip_payloads=2,   # the step mixes the iterate AND the tracker
+        record_key="global",
+        final_record=False,
+    )
+    return Algorithm(meta=meta, init=init, step=step, outer=outer,
+                     end_outer=end_outer, rule=DPSVRG_RULE,
+                     init_mix_state=init_mix_state,
+                     outer_traced=_svrg_outer_traced(problem.loss_fn),
+                     end_outer_traced=_tail_average_end_outer_traced)
+
+
+def _loopless_family(problem: Problem, name: str, inner: Callable,
+                     finner_for: Callable[[str], Callable], *, alpha: float,
+                     num_steps: int, snapshot_prob: float, batch_size: int,
+                     gossip_rounds: Callable[[int], int]) -> Algorithm:
+    """Flat loop with coin-flip snapshot refreshes at the current iterate:
+    loopless DPSVRG and DVR differ only in their inner step."""
+    full_grad_fn = build_node_full_grad_fn(problem.loss_fn, problem.full_data)
+
+    def init():
+        est = svrg.SvrgState(snapshot=problem.x0,
+                             full_grad=full_grad_fn(problem.x0))
+        return LooplessState(params=problem.x0, est=est)
+
+    def init_mix_state(state, make=compression.init_state):
+        return state._replace(cstate=make(problem.x0))
+
+    def outer(state):
+        return state._replace(est=svrg.SvrgState(
+            snapshot=state.params, full_grad=full_grad_fn(state.params)))
+
+    def with_inner(inner_fn):
+        def step(state, batch, phi, alpha):
+            params, cstate = inner_fn(state.params, state.est, batch, phi,
+                                      alpha, state.cstate)
+            return state._replace(params=params, cstate=cstate)
+        return step
+
+    meta = AlgoMeta(
+        name=name,
+        stepsize=schedules.constant(alpha),
+        num_steps=num_steps,
+        batch_size=batch_size,
+        step_grad_factor=2,
+        outer_full_grad=True,
+        init_full_grad=True,
+        gossip_rounds=gossip_rounds,
+        snapshot_prob=snapshot_prob,
+        fused_step=lambda mode: with_inner(finner_for(mode)),
+    )
+    return Algorithm(meta=meta, init=init, step=with_inner(inner),
+                     outer=outer, rule=DPSVRG_RULE,
+                     init_mix_state=init_mix_state,
+                     outer_traced=_loopless_outer_traced(problem.loss_fn))
+
+
+def loopless_dpsvrg_algorithm(problem: Problem, alpha: float, num_steps: int,
+                              snapshot_prob: float = 0.05,
+                              consensus_rounds: int = 2,
+                              batch_size: int = 1) -> Algorithm:
+    """BEYOND-PAPER: L-SVRG-style coin-flip snapshots — fixed-shape steps,
+    no outer-loop bookkeeping."""
+    return _loopless_family(
+        problem, "loopless_dpsvrg",
+        build_dpsvrg_inner_step(problem.loss_fn, problem.prox),
+        lambda mode: build_fused_svrg_inner(problem.loss_fn, problem.prox,
+                                            mode),
+        alpha=alpha, num_steps=num_steps, snapshot_prob=snapshot_prob,
+        batch_size=batch_size, gossip_rounds=lambda t: consensus_rounds)
+
+
+def dvr_algorithm(problem: Problem, alpha: float, num_steps: int,
+                  rho: float = 0.5, snapshot_prob: float = 0.05,
+                  batch_size: int = 1) -> Algorithm:
+    """Dual-Free DVR (Hendrikx et al., arXiv 2006.14384) — see
+    :func:`build_dvr_inner_step`.  Flat loop with loopless coin-flip
+    snapshot refreshes; one gossip round per step with communication step
+    size ``rho``."""
+    return _loopless_family(
+        problem, "dvr",
+        build_dvr_inner_step(problem.loss_fn, problem.prox, rho),
+        lambda mode: build_fused_svrg_inner(problem.loss_fn, problem.prox,
+                                            mode, rho=rho),
+        alpha=alpha, num_steps=num_steps, snapshot_prob=snapshot_prob,
+        batch_size=batch_size, gossip_rounds=lambda t: 1)
+
+
 ALGORITHMS: dict[str, Callable[..., Algorithm]] = {
     "dpsvrg": dpsvrg_algorithm,
     "dspg": dspg_algorithm,
+    "dpg": dpg_algorithm,
+    "gt_svrg": gt_svrg_algorithm,
+    "loopless_dpsvrg": loopless_dpsvrg_algorithm,
+    "dvr": dvr_algorithm,
 }

@@ -1,0 +1,121 @@
+"""Compressed gossip with error feedback: the port of
+``repro.core.compression`` on one device.
+
+Node i transmits an int-quantized view of its iterate and keeps the
+quantization residual in an error-feedback accumulator (CHOCO-SGD style),
+so the compression error is compensated over time instead of accumulating:
+
+    q_send   = Q(q + e)          # symmetric per-node-row int quantization
+    e_next   = (q + e) - q_send  # residual carried forward
+    mix over q_send as usual.
+
+The mix over ``q_send`` goes through ``gossip.mix_stacked``, so the
+quantized payload rides either wire format, dense or
+:class:`~repro_torch.core.gossip.BandedPhi`.  :class:`CompressedPhi` marks a
+phi whose transport is compressed (the ``compressed`` backend in
+:mod:`repro_torch.core.transport`); :func:`mix_with_state` is the
+dispatching mix for algorithm steps that thread an error-feedback state.
+The reference's quantize-before-the-collective path on a device mesh
+(``compressed_mix_permute``) is multi-device work (ROADMAP Queue 1 item 14).
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+from torch.utils import _pytree as pytree
+
+from . import gossip
+
+__all__ = ["CompressionState", "init_state", "quantize_leaf",
+           "quantize_int_leaf", "compressed_mix", "CompressedPhi",
+           "mix_with_state"]
+
+
+class CompressionState(NamedTuple):
+    error: Any   # residual tree, same structure as params
+
+
+def init_state(tree) -> CompressionState:
+    return CompressionState(error=pytree.tree_map(torch.zeros_like, tree))
+
+
+def quantize_int_leaf(x: torch.Tensor, bits: int = 8):
+    """Symmetric per-node-row quantization, returned as the wire payload:
+    the integer code (int8 for bits <= 8, int16 above) plus the per-row
+    float32 scale.  ``code.float() * scale`` is exactly what
+    :func:`quantize_leaf` returns.
+
+    The max-abs scale is reduced over everything except the leading node
+    axis (node i only knows its own row); a 1-D stacked leaf has one scale
+    per element, i.e. per node.  Codes round half to even, as ``jnp.round``
+    does."""
+    levels = float(2 ** (bits - 1) - 1)
+    if x.ndim <= 1:
+        peak = torch.abs(x)
+    else:
+        peak = torch.amax(torch.abs(x), dim=tuple(range(1, x.ndim)),
+                          keepdim=True)
+    scale = torch.clamp_min(peak / levels, 1e-12).to(torch.float32)
+    q = torch.clamp(torch.round(x / scale), -levels, levels)
+    code_dtype = torch.int8 if bits <= 8 else torch.int16
+    return q.to(code_dtype), scale
+
+
+def quantize_leaf(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """Dequantized view of :func:`quantize_int_leaf` (what the receiver
+    reconstructs)."""
+    code, scale = quantize_int_leaf(x, bits)
+    return code.to(scale.dtype) * scale
+
+
+def compressed_mix(phi, tree, state: CompressionState,
+                   bits: int = 8) -> tuple[Any, CompressionState]:
+    """Gossip over quantized iterates with error feedback.  Returns (mixed
+    tree, new compression state).  The consensus mean is not preserved per
+    step; the error accumulator restores it asymptotically."""
+    compensated = pytree.tree_map(torch.add, tree, state.error)
+    sent = pytree.tree_map(lambda leaf: quantize_leaf(leaf, bits),
+                           compensated)
+    new_error = pytree.tree_map(torch.sub, compensated, sent)
+    return gossip.mix_stacked(phi, sent), CompressionState(error=new_error)
+
+
+class CompressedPhi:
+    """Marks a mixing matrix whose payload rides the wire int-quantized with
+    error feedback.  ``inner`` is any phi ``mix_stacked`` accepts (dense, or
+    ``BandedPhi``); ``bits`` is the pytree context, so the inner phi's
+    leaves stage and slice as usual."""
+
+    __slots__ = ("inner", "bits")
+    stateful = True     # gossip.mix_stacked refuses it: use mix_with_state
+
+    def __init__(self, inner, bits: int = 8):
+        self.inner = inner
+        self.bits = int(bits)
+
+    def __repr__(self):
+        return f"CompressedPhi(bits={self.bits}, inner={self.inner!r})"
+
+
+pytree.register_pytree_node(
+    CompressedPhi,
+    lambda phi: ([phi.inner], phi.bits),
+    lambda children, bits: CompressedPhi(list(children)[0], bits))
+
+
+def mix_with_state(phi, tree, state: CompressionState | None):
+    """Transport-dispatching mix for steps that thread a mix state.
+
+    Stateless phis pass straight through ``gossip.mix_stacked`` (the state
+    is returned untouched and may be None); a :class:`CompressedPhi` routes
+    to :func:`compressed_mix` with its inner wire format."""
+    if isinstance(phi, CompressedPhi):
+        if state is None:
+            raise ValueError(
+                "compressed gossip needs an error-feedback CompressionState; "
+                "the driven algorithm must thread a mix state "
+                "(see Algorithm.init_mix_state)")
+        return compressed_mix(phi.inner, tree, state, bits=phi.bits)
+    return gossip.mix_stacked(phi, tree), state

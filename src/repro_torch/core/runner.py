@@ -26,6 +26,11 @@ ExecSpec`:
   swaps in the algorithm's fused step, whose update runs through the fused
   resident-step CUDA kernel on the card.
 
+Coin-flip snapshot methods (``AlgoMeta.snapshot_prob``: loopless DPSVRG,
+DVR) draw their coin from the same ``np.random`` stream as the reference,
+after each step's minibatch indices, on both paths.  Stateful transports
+(``compressed``) get their mix state through ``Algorithm.init_mix_state``.
+
 ``RunResult.extras['transfers_h2d'/'transfers_d2h']`` counts the
 driver-initiated transfer events of either path, by the reference's rules.
 
@@ -42,6 +47,7 @@ from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 from torch.utils import _pytree as pytree
 
 from . import algorithm as algorithm_lib, gossip, graphs, transport
@@ -184,9 +190,9 @@ def _resolve_transitions(algo, device_transitions) -> bool:
     plan's per-step flags (the traced transitions) instead of as separate
     host ops between chunks."""
     meta = algo.meta
-    if meta.outer_lengths is None:
+    if meta.outer_lengths is None and meta.snapshot_prob is None:
         return False                # nothing to fold
-    needs_end = algo.end_outer is not None
+    needs_end = meta.outer_lengths is not None and algo.end_outer is not None
     has = (algo.outer is None or algo.outer_traced is not None) and \
         (not needs_end or algo.end_outer_traced is not None)
     if device_transitions == "auto":
@@ -210,7 +216,7 @@ def _resolve_kernel_step(algo, kernel: str):
 class _Chunk(NamedTuple):
     xs: tuple                      # host (batch tree | None, phis, alphas)
     keep: np.ndarray               # (bucket,) False on padded steps
-    flags: tuple | None            # host (o_pre, e_post, e_k) or None
+    flags: tuple | None            # host (o_pre, o_post, e_post, e_k) or None
 
 
 class _Plan(NamedTuple):
@@ -230,9 +236,12 @@ def _plan_resident(meta, rng, backend, aux, *, m: int, n: int,
     minibatch indices (same ``np.random`` draw order as the host loop) and
     every host-computable history column.  With ``transitions=True`` the
     plan holds no ``outer``/``end_outer`` ops: per-step flags say where the
-    algorithm's traced transitions apply."""
+    algorithm's traced transitions apply (before a step: a new outer round;
+    after it: a coin-flip snapshot, or the end of a round).  Without them a
+    coin flip cuts the chunk and an ``outer`` op follows it."""
     has_batch = meta.batch_size > 0
     bsz = meta.batch_size
+    has_snapshot = meta.snapshot_prob is not None
 
     ops: list = []
     chunks: list = []
@@ -275,7 +284,7 @@ def _plan_resident(meta, rng, backend, aux, *, m: int, n: int,
             phis.extend(phis[-1:] * pad)
             alphas.extend(alphas[-1:] * pad)
         keep = np.array([True] * chunk + [False] * pad, np.bool_)
-        phis_st = np.stack([np.asarray(p) for p in phis]).astype(np.float32)
+        phis_st = _stack_wire(phis)
         alphas_st = np.asarray(alphas, np.float32)
         batch = None
         if has_batch:
@@ -289,6 +298,7 @@ def _plan_resident(meta, rng, backend, aux, *, m: int, n: int,
         if transitions:
             fpad = [False] * pad
             chunk_flags = (np.array(flags["o_pre"] + fpad, np.bool_),
+                           np.array(flags["o_post"] + fpad, np.bool_),
                            np.array(flags["e_post"] + fpad, np.bool_),
                            np.array(flags["e_k"] + [0.0] * pad, np.float32))
         ops.append(("chunk", len(chunks)))
@@ -317,7 +327,7 @@ def _plan_resident(meta, rng, backend, aux, *, m: int, n: int,
                          if record_every else K - k)
                 chunk = min(K - k, until)
                 idxs, phis, alphas = [], [], []
-                flags = {"o_pre": [], "e_post": [], "e_k": []}
+                flags = {"o_pre": [], "o_post": [], "e_post": [], "e_k": []}
                 for j in range(chunk):
                     if has_batch:
                         idxs.append(draw_idx())
@@ -326,6 +336,7 @@ def _plan_resident(meta, rng, backend, aux, *, m: int, n: int,
                     if transitions:
                         flags["o_pre"].append(pending_outer)
                         pending_outer = False
+                        flags["o_post"].append(False)
                         flags["e_post"].append(k + j + 1 == K)
                         flags["e_k"].append(float(K))
                 finish_chunk(idxs, phis, alphas, flags, chunk)
@@ -350,16 +361,38 @@ def _plan_resident(meta, rng, backend, aux, *, m: int, n: int,
             raise ValueError(
                 f"{meta.name}: flat loops need record_every >= 1")
         while t < meta.num_steps:
-            chunk = min(meta.num_steps - t, record_every - t % record_every)
+            chunk_max = min(meta.num_steps - t,
+                            record_every - t % record_every)
             idxs, phis, alphas = [], [], []
-            for j in range(chunk):
+            flags = {"o_pre": [], "o_post": [], "e_post": [], "e_k": []}
+            refresh = False
+            chunk = 0
+            for j in range(chunk_max):
                 if has_batch:
                     idxs.append(draw_idx())
                 phis.append(phi_for(meta.gossip_rounds(t + j + 1)))
                 alphas.append(meta.stepsize(t + j + 1))
-            finish_chunk(idxs, phis, alphas, None, chunk)
+                chunk += 1
+                # the coin of a snapshot method comes after the step's
+                # indices, as in the host loop
+                flip = has_snapshot and rng.random() < meta.snapshot_prob
+                if transitions:
+                    flags["o_pre"].append(False)
+                    flags["o_post"].append(flip)
+                    flags["e_post"].append(False)
+                    flags["e_k"].append(0.0)
+                    if flip and meta.outer_full_grad:
+                        grad_evals += full_grad_cost
+                elif flip:
+                    refresh = True   # the snapshot lands here: cut the chunk
+                    break
+            finish_chunk(idxs, phis, alphas, flags, chunk)
             t += chunk
             grad_evals += chunk * meta.step_grad_factor * m * bsz
+            if refresh:
+                ops.append(("outer",))
+                if meta.outer_full_grad:
+                    grad_evals += full_grad_cost
             if t % record_every == 0 or t == meta.num_steps:
                 plan_record()
 
@@ -370,24 +403,35 @@ def _plan_resident(meta, rng, backend, aux, *, m: int, n: int,
                  num_records=num_records)
 
 
+def _stack_wire(phis):
+    """Stack per-step wire representations (each a pytree: a dense array, a
+    ``BandedPhi``, a ``CompressedPhi``) leaf by leaf along a new leading
+    step axis.  Float leaves become float32; integer payloads keep their
+    dtype."""
+    flat = [pytree.tree_flatten(p) for p in phis]
+    spec = flat[0][1]
+    stacked = []
+    for col in zip(*(leaves for leaves, _ in flat)):
+        out = np.stack([np.asarray(a) for a in col])
+        if np.issubdtype(out.dtype, np.floating):
+            out = out.astype(np.float32, copy=False)
+        stacked.append(out)
+    return pytree.tree_unflatten(stacked, spec)
+
+
 def _stage(chunks, device) -> list:
     """Ship every chunk's (batch, phis, alphas) to the device as one tensor
     per leaf; returns each chunk's device xs as views of those."""
-    has_batch = chunks[0].xs[0] is not None
-    spec = pytree.tree_flatten(chunks[0].xs[0])[1] if has_batch else None
-
-    def leaves(c):
-        batch_leaves = pytree.tree_leaves(c.xs[0]) if has_batch else []
-        return batch_leaves + list(c.xs[1:])
-
-    staged = [torch.from_numpy(np.concatenate(col)).to(device)
-              for col in zip(*map(leaves, chunks))]
+    specs = [pytree.tree_flatten(c.xs) for c in chunks]
+    spec = specs[0][1]
+    staged = [None if col[0] is None
+              else torch.from_numpy(np.concatenate(col)).to(device)
+              for col in zip(*(leaves for leaves, _ in specs))]
     out, start = [], 0
     for c in chunks:
         stop = start + len(c.keep)
-        views = [s[start:stop] for s in staged]
-        batch = pytree.tree_unflatten(views[:-2], spec) if has_batch else None
-        out.append((batch, views[-2], views[-1]))
+        views = [None if s is None else s[start:stop] for s in staged]
+        out.append(pytree.tree_unflatten(views, spec))
         start = stop
     return out
 
@@ -401,9 +445,12 @@ def _exec_chunk(state, chunk: _Chunk, xs, step_fn, algo, data_dev,
         if chunk.flags is not None and chunk.flags[0][j]:
             state = algo.outer_traced(state, data_dev)
         b = pytree.tree_map(lambda a: a[j], batch) if has_batch else None
-        state = step_fn(state, b, phis[j], alphas[j])
+        phi = pytree.tree_map(lambda a: a[j], phis)
+        state = step_fn(state, b, phi, alphas[j])
         if chunk.flags is not None and chunk.flags[1][j]:
-            state = algo.end_outer_traced(state, float(chunk.flags[2][j]))
+            state = algo.outer_traced(state, data_dev)
+        if chunk.flags is not None and chunk.flags[2][j]:
+            state = algo.end_outer_traced(state, float(chunk.flags[3][j]))
     return state
 
 
@@ -419,49 +466,54 @@ def _run_resident(algo, problem, backend, aux, rng, *, m: int, n: int,
     has_batch = meta.batch_size > 0
     transitions = _resolve_transitions(algo, device_transitions)
 
-    # one host copy of the dataset for index gathering
-    host_data = None
-    if has_batch:
-        host_data = params_to_numpy(problem.full_data)
-        transfers["d2h"] += 1
-
-    plan = _plan_resident(
-        meta, rng, backend, aux, m=m, n=n, param_count=param_count,
-        record_every=record_every, host_data=host_data,
-        transitions=transitions)
+    # spans for torch.profiler (nothing is recorded when it is off): the
+    # host's plan and its staging copy, issuing the chunks, the pull
+    with record_function("resident.plan"):
+        # one host copy of the dataset for index gathering
+        host_data = None
+        if has_batch:
+            host_data = params_to_numpy(problem.full_data)
+            transfers["d2h"] += 1
+        plan = _plan_resident(
+            meta, rng, backend, aux, m=m, n=n, param_count=param_count,
+            record_every=record_every, host_data=host_data,
+            transitions=transitions)
     step_fn = _resolve_kernel_step(algo, kernel)
     objective = _resolved_objective(meta, problem)
 
     # the dataset already lies on the device (runner.run checks it), so
     # only the plan is staged
     data_dev = problem.full_data
-    staged = _stage(plan.chunks, device)       # ONE staging transfer
+    with record_function("resident.stage"):
+        staged = _stage(plan.chunks, device)   # ONE staging transfer
     transfers["h2d"] += 1
 
-    state = algo.init()
-    if transitions and algo.device_state is not None:
-        state = algo.device_state(state)
+    with record_function("resident.execute"):
+        state = inject_mix_state(algo, backend, aux, algo.init())
+        if transitions and algo.device_state is not None:
+            state = algo.device_state(state)
+        bufs = torch.zeros((2, plan.num_records), dtype=torch.float32,
+                           device=device)      # objective, consensus
+        slot = 0
+        for op in plan.ops:
+            kind = op[0]
+            if kind == "chunk":
+                state = _exec_chunk(state, plan.chunks[op[1]],
+                                    staged[op[1]], step_fn, algo, data_dev,
+                                    has_batch)
+            elif kind == "record":
+                params = algo.get_params(state)
+                bufs[0, slot] = objective(params, data_dev)
+                if meta.track_consensus:
+                    bufs[1, slot] = traceable_consensus(params)
+                slot += 1
+            elif kind == "outer":
+                state = algo.outer(state)
+            elif algo.end_outer is not None:    # ("end_outer", K)
+                state = algo.end_outer(state, op[1])
 
-    bufs = torch.zeros((2, plan.num_records), dtype=torch.float32,
-                       device=device)          # objective, consensus
-    slot = 0
-    for op in plan.ops:
-        kind = op[0]
-        if kind == "chunk":
-            state = _exec_chunk(state, plan.chunks[op[1]], staged[op[1]],
-                                step_fn, algo, data_dev, has_batch)
-        elif kind == "record":
-            params = algo.get_params(state)
-            bufs[0, slot] = objective(params, data_dev)
-            if meta.track_consensus:
-                bufs[1, slot] = traceable_consensus(params)
-            slot += 1
-        elif kind == "outer":
-            state = algo.outer(state)
-        elif algo.end_outer is not None:        # ("end_outer", K)
-            state = algo.end_outer(state, op[1])
-
-    history_buf = bufs.cpu().numpy()           # the ONE history pull
+    with record_function("resident.pull"):
+        history_buf = bufs.cpu().numpy()       # the ONE history pull
     transfers["d2h"] += 1
 
     history = RunHistory(
@@ -512,12 +564,40 @@ def _check_on_device(problem, device: torch.device) -> None:
                                  f"problem on the run's device")
 
 
+def inject_mix_state(algo, backend, aux, state):
+    """Give ``state`` the transport state a stateful backend needs: the
+    algorithm owns where it lives (``Algorithm.init_mix_state``), the
+    backend what it is (its ``init_mix_state(aux, x0)``)."""
+    if not backend.needs_mix_state:
+        return state
+    if algo.init_mix_state is None:
+        raise ValueError(
+            f"{algo.meta.name} does not thread a gossip mix state "
+            f"(Algorithm.init_mix_state is None), so it cannot be "
+            f"driven by the stateful {backend.name!r} transport")
+    return algo.init_mix_state(
+        state, make=lambda x0: backend.init_mix_state(aux, x0))
+
+
 def _resolved_backend(gossip, schedule, meta):
+    """Resolve the transport and honour hp-level quantization: a method that
+    quantizes its own gossip payload (``AlgoMeta.compress_bits``) gets its
+    transport wrapped in a ``CompressedBackend`` at those bits, so the wire
+    accounting matches what moves (a conflicting compressed transport
+    raises)."""
     backend = transport.resolve_backend(gossip, schedule, meta)
     if meta.compress_bits is not None:
-        raise NotImplementedError(
-            "stateful (compressed) gossip is not ported to PyTorch yet "
-            "(ROADMAP Queue 1 item 7)")
+        if isinstance(backend, transport.CompressedBackend):
+            if backend.bits != meta.compress_bits:
+                raise ValueError(
+                    f"conflicting compression: the algorithm quantizes its "
+                    f"gossip at {meta.compress_bits} bits "
+                    f"(meta.compress_bits) but the requested transport "
+                    f"compresses at {backend.bits} bits; drop one of the "
+                    f"two, or make them agree")
+        else:
+            backend = transport.CompressedBackend(inner=backend,
+                                                  bits=meta.compress_bits)
     return backend
 
 
@@ -555,10 +635,6 @@ def run(algo: algorithm_lib.Algorithm,
             "sampling='device' is not ported to PyTorch yet (ROADMAP "
             "Queue 1 item 5); use sampling='host'")
     meta = algo.meta
-    if meta.snapshot_prob is not None:
-        raise NotImplementedError(
-            f"{meta.name}: coin-flip snapshot methods are not ported to "
-            f"PyTorch yet (ROADMAP Queue 1 item 6)")
     device = _resolve_device(spec)
     _check_on_device(problem, device)
     backend = _resolved_backend(spec.gossip, schedule, meta)
@@ -590,7 +666,7 @@ def run(algo: algorithm_lib.Algorithm,
         host_data = params_to_numpy(problem.full_data)
         transfers["d2h"] += 1
 
-    state = algo.init()
+    state = inject_mix_state(algo, backend, aux, algo.init())
     grad_evals = m * n if meta.init_full_grad else 0
     full_grad_cost = m * n
     comm = 0
@@ -606,8 +682,9 @@ def run(algo: algorithm_lib.Algorithm,
         wire += (backend.bytes_per_step(aux, phi, param_count)
                  * meta.gossip_payloads)
         transfers["h2d"] += 1
-        return torch.as_tensor(np.asarray(phi), dtype=torch.float32,
-                               device=device)
+        return pytree.tree_map(
+            lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                      device=device), phi)
 
     def next_batch():
         if meta.batch_size == 0:
@@ -662,6 +739,11 @@ def run(algo: algorithm_lib.Algorithm,
             phi = phi_for(meta.gossip_rounds(t))
             state = algo.step(state, batch, phi, stepsize(t))
             grad_evals += meta.step_grad_factor * m * meta.batch_size
+            if (meta.snapshot_prob is not None
+                    and rng.random() < meta.snapshot_prob):
+                state = algo.outer(state)
+                if meta.outer_full_grad:
+                    grad_evals += full_grad_cost
             if t % record_every == 0 or t == meta.num_steps:
                 do_record()
 

@@ -1,5 +1,5 @@
 """Gossip transports: HOW the doubly-stochastic mixing moves parameters
-between nodes.  The dense subset of ``repro.core.transport``.
+between nodes.  The port of ``repro.core.transport`` on one device.
 
 A :class:`GossipBackend` owns
 
@@ -8,26 +8,44 @@ A :class:`GossipBackend` owns
   representation, memoized in ``aux`` on ``(slot % period, rounds)``,
 * ``bytes_per_step`` / ``bytes_per_link`` — wire-cost accounting.
 
-Only ``dense`` is ported: one pre-multiplied ``(m, m)`` product per step.
-The ``"auto"`` rule is the reference's, so it may name a transport the
-port does not have yet (``banded`` for a ring with single-round gossip,
-``ppermute`` on a mesh, ``compressed``); resolving such a name raises
-``NotImplementedError``.  Runs of the port pin ``gossip="dense"``.
+Registered backends (:data:`GOSSIP_BACKENDS`):
+
+``dense``
+    One pre-multiplied ``(m, m)`` product per step, charged as an
+    all-gather of the stacked buffer.
+``banded``
+    Cyclic-band decomposition (``gossip.BandedPhi``) on the schedule's
+    static offset union: each band is one ``torch.roll``, and each nonzero
+    off-diagonal coefficient is charged as one parameter vector over one
+    link.
+``compressed``
+    Wraps either of them: payloads ride the inner wire format
+    int-quantized with an error-feedback residual (``core.compression``),
+    cutting bytes by ``32 / bits``.  Stateful: the driven algorithm threads
+    a mix state (``Algorithm.init_mix_state``).
+
+``"auto"`` is the reference's rule: a band union strictly smaller than m
+-> ``banded``, else ``dense``.  Its mesh branch (``ppermute``) is
+multi-device work (ROADMAP Queue 1 item 14) and raises.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+import dataclasses
+import warnings
+from typing import Any, Iterator, NamedTuple
 
 import numpy as np
 from torch.utils import _pytree as pytree
 
-from . import gossip, graphs
+from . import compression, gossip, graphs
 
 __all__ = [
     "band_offset_union",
     "GossipBackend",
     "DenseBackend",
+    "BandedBackend",
+    "CompressedBackend",
     "GOSSIP_BACKENDS",
     "UNPORTED_BACKENDS",
     "select_backend_name",
@@ -39,7 +57,7 @@ __all__ = [
 F32_BYTES = 4
 
 # transports of the reference that the port has not built yet
-UNPORTED_BACKENDS = ("banded", "ppermute", "compressed")
+UNPORTED_BACKENDS = ("ppermute",)
 
 
 def _rounds_values(meta) -> list[int]:
@@ -79,16 +97,56 @@ def node_param_count(tree) -> int:
 def mix_matrix(phi):
     """The dense (m, m) mixing matrix (numpy or tensor) the fused
     resident-step kernel consumes, or ``None`` when the wire format has no
-    dense lowering (the caller then keeps the unfused step)."""
+    dense lowering (the caller then keeps the unfused step).  A
+    ``BandedPhi`` lowers through ``gossip.banded_to_dense`` on its
+    coefficients' device; a ``CompressedPhi`` threads mix state and has
+    none."""
+    if isinstance(phi, gossip.BandedPhi):
+        return gossip.banded_to_dense(phi.offsets, phi.coeffs)
+    if isinstance(phi, compression.CompressedPhi):
+        return None
     return phi if getattr(phi, "ndim", None) == 2 else None
+
+
+def _active_entries(offsets: tuple, coeffs, m: int) -> Iterator:
+    """(band offset d, node i) pairs whose coefficient carries mass this
+    step: node i receives ``x_{(i+d) mod m}`` with weight coeffs[b][i]."""
+    c = np.asarray(coeffs)
+    for b, d in enumerate(offsets):
+        if d % m == 0:
+            continue
+        for i in np.flatnonzero(np.abs(c[b]) > 1e-12):
+            yield d, int(i)
+
+
+def _banded_wire_bytes(offsets: tuple, coeffs, m: int,
+                       param_count: int) -> int:
+    """Point-to-point accounting for band-structured gossip: each nonzero
+    off-diagonal coefficient moves one param vector over one link."""
+    n = sum(1 for _ in _active_entries(offsets, coeffs, m))
+    return n * param_count * F32_BYTES
+
+
+def _banded_link_bytes(offsets: tuple, coeffs, m: int,
+                       param_count: int) -> dict:
+    """Per-directed-link refinement of :func:`_banded_wire_bytes`: band
+    ``d`` at node ``i`` moves one param vector over ``(i+d) mod m -> i``."""
+    links: dict = {}
+    for d, i in _active_entries(offsets, coeffs, m):
+        key = ((i + d) % m, i)
+        links[key] = links.get(key, 0) + param_count * F32_BYTES
+    return links
 
 
 class GossipBackend:
     """Protocol base.  Instances are stateless; per-run state lives in the
     ``aux`` returned by :meth:`prepare`.  ``meta`` is the driven
-    algorithm's ``AlgoMeta``."""
+    algorithm's ``AlgoMeta``.  ``needs_mix_state`` marks stateful
+    transports: the runner asks the driven algorithm to thread the state
+    (``Algorithm.init_mix_state``)."""
 
     name: str = "?"
+    needs_mix_state: bool = False
 
     def prepare(self, schedule: graphs.MixingSchedule, meta) -> Any:
         raise NotImplementedError
@@ -101,6 +159,12 @@ class GossipBackend:
 
     def bytes_per_link(self, aux, phi, param_count: int) -> dict:
         raise NotImplementedError
+
+    def init_mix_state(self, aux, x0):
+        """Per-run transport state threaded through the algorithm state
+        (``needs_mix_state`` backends only)."""
+        raise NotImplementedError(
+            f"gossip backend {self.name!r} is stateless")
 
 
 class _DenseAux(NamedTuple):
@@ -134,8 +198,113 @@ class DenseBackend(GossipBackend):
                 for i in range(aux.m) for j in range(aux.m) if i != j}
 
 
+class _BandedAux(NamedTuple):
+    schedule: graphs.MixingSchedule
+    m: int
+    offsets: tuple
+    cache: dict
+
+
+class BandedBackend(GossipBackend):
+    """Cyclic-band decomposition on the schedule's static offset union."""
+
+    name = "banded"
+
+    def prepare(self, schedule, meta):
+        offsets = band_offset_union(schedule, meta)
+        if len(offsets) >= schedule.m:
+            # only reachable when banded is requested by name ("auto" picks
+            # dense on a saturated union): still correct, but m shifted
+            # passes per step are slower than one (m, m) product
+            warnings.warn(
+                f"{schedule.name}: banded gossip needs all {len(offsets)} "
+                f"of {schedule.m} band offsets, no O(degree) structure to "
+                f"exploit; gossip='auto' or 'dense' will be faster (cap "
+                f"multi-consensus rounds, e.g. k_max, to keep products "
+                f"banded)", RuntimeWarning, stacklevel=3)
+        return _BandedAux(schedule, schedule.m, offsets, {})
+
+    def phi_for(self, aux, slot, rounds):
+        key = _phi_key(aux.schedule, slot, rounds)
+        phi = aux.cache.get(key)
+        if phi is None:
+            phi = aux.cache[key] = gossip.BandedPhi.from_dense(
+                aux.schedule.consensus_rounds(slot, rounds), aux.offsets)
+        return phi
+
+    def bytes_per_step(self, aux, phi, param_count):
+        return _banded_wire_bytes(phi.offsets, phi.coeffs, aux.m, param_count)
+
+    def bytes_per_link(self, aux, phi, param_count):
+        return _banded_link_bytes(phi.offsets, phi.coeffs, aux.m, param_count)
+
+
+class _CompressedAux(NamedTuple):
+    inner_backend: GossipBackend
+    inner_aux: Any
+    bits: int
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressedBackend(GossipBackend):
+    """Error-feedback quantized gossip over either inner wire format.
+
+    ``inner`` names (or is) the transport the quantized payload rides on;
+    ``bits`` the integer width.  Stateful: the residual accumulator threads
+    through the algorithm state (``Algorithm.init_mix_state``), so only
+    algorithms that thread a mix state can be driven compressed.
+    """
+
+    inner: Any = "dense"   # str name or GossipBackend instance
+    bits: int = 8
+
+    name = "compressed"
+    needs_mix_state = True
+
+    def _inner_backend(self) -> GossipBackend:
+        if isinstance(self.inner, str):
+            if self.inner == "compressed":
+                raise ValueError("compressed cannot wrap itself")
+            return resolve_backend(self.inner, None, None)
+        return self.inner
+
+    def prepare(self, schedule, meta):
+        ib = self._inner_backend()
+        return _CompressedAux(ib, ib.prepare(schedule, meta), self.bits)
+
+    def phi_for(self, aux, slot, rounds):
+        return compression.CompressedPhi(
+            aux.inner_backend.phi_for(aux.inner_aux, slot, rounds), aux.bits)
+
+    def init_mix_state(self, aux, x0) -> compression.CompressionState:
+        return compression.init_state(x0)
+
+    def bytes_per_step(self, aux, phi, param_count):
+        inner = aux.inner_backend.bytes_per_step(aux.inner_aux, phi.inner,
+                                                 param_count)
+        return inner * aux.bits // 32
+
+    def bytes_per_link(self, aux, phi, param_count):
+        # per-link floors can undershoot the single-floor total when bits
+        # does not divide 32; the remainder goes to the links in order, so
+        # the map sums exactly to bytes_per_step
+        inner = aux.inner_backend.bytes_per_link(aux.inner_aux, phi.inner,
+                                                 param_count)
+        links = {link: b * aux.bits // 32 for link, b in inner.items()}
+        remainder = (self.bytes_per_step(aux, phi, param_count)
+                     - sum(links.values()))
+        for link in sorted(links):
+            if remainder <= 0:
+                break
+            links[link] += 1
+            remainder -= 1
+        return links
+
+
 GOSSIP_BACKENDS: dict[str, GossipBackend] = {
     "dense": DenseBackend(),
+    "banded": BandedBackend(),
+    "compressed": CompressedBackend(),
 }
 
 
@@ -161,8 +330,9 @@ def resolve_backend(gossip, schedule: graphs.MixingSchedule, meta,
         how = (f"gossip='auto' picked {name!r} for this schedule"
                if gossip == "auto" else f"gossip={name!r}")
         raise NotImplementedError(
-            f"{how}, but the {name} transport is not ported to PyTorch yet "
-            f"(ROADMAP Queue 1 item 7); pass gossip='dense'")
+            f"{how}, but the {name} transport (multi-device) is not ported "
+            f"to PyTorch yet (ROADMAP Queue 1 item 14); pass gossip='dense' "
+            f"or 'banded'")
     try:
         return GOSSIP_BACKENDS[name]
     except KeyError:

@@ -9,7 +9,9 @@ Each kernel package mirrors its counterpart in ``repro.kernels``:
               the kernel's oracle on the card.
 
   fused_update    — the fused resident step prox(W @ (x - alpha*v)) of
-                    DPSVRG / DSPG (replaces fused_step_kernel_call).
+                    DPSVRG / DSPG (replaces fused_step_kernel_call), and
+                    the elementwise svrg_step and mix_prox (replace
+                    svrg_step_kernel_call and mix_prox_kernel_call).
   rmsnorm         — RMSNorm with float32 statistics (replaces
                     rmsnorm_kernel_call); ModelConfig(use_fused_norm=True).
   flash_attention — online-softmax attention forward with GQA, causal and
@@ -22,5 +24,5 @@ from . import flash_attention, fused_update, rmsnorm
 __all__ = ["flash_attention", "fused_update", "rmsnorm", "SOURCES"]
 
 # every CUDA source of the port, for building them all at once
-SOURCES = (fused_update.kernel.SOURCE, rmsnorm.kernel.SOURCE,
-           flash_attention.kernel.SOURCE)
+SOURCES = (fused_update.kernel.SOURCE, fused_update.kernel.SVRG_MIX_SOURCE,
+           rmsnorm.kernel.SOURCE, flash_attention.kernel.SOURCE)

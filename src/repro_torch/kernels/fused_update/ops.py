@@ -1,15 +1,21 @@
-"""Wrappers around the fused resident-step kernel: the stacked ``(m, d)``
-layout, device routing, and the launch count.
+"""Wrappers around the fused-update kernels: layouts, device routing, and
+the launch counts.
 
-``fused_step_buf`` is the one entry to the kernel.  For tensors on the CPU
-it runs the plain PyTorch version (``ref.fused_step_math``); for CUDA
-tensors it checks them, launches the CUDA kernel and adds one to
-``launches``, or raises.  There is no fallback from the kernel to the plain
-version.
+``fused_step_buf`` is the one entry to the fused resident step, and
+``svrg_step`` / ``mix_prox`` are the entries to the elementwise pipeline.
+For tensors on the CPU each runs its plain PyTorch version (``ref``); for
+CUDA tensors it checks them, launches the CUDA kernel and adds one to its
+count (``launches`` for fused_step, ``launches_svrg_step`` and
+``launches_mix_prox``), or raises.  There is no fallback from a kernel to
+its plain version.
 
-The layout is the port's own: contiguous row-major ``(m, d)`` float32, one
-row per node, no padding (the reference's (8, 128) tile padding,
-``stacked_layout`` / ``pad_mix_matrix``, served the TPU only).
+The fused step's layout is the port's own: contiguous row-major ``(m, d)``
+float32, one row per node, no padding (the reference's (8, 128) tile
+padding, ``stacked_layout`` / ``pad_mix_matrix``, served the TPU only).
+``svrg_step`` and ``mix_prox`` take contiguous float32 buffers of any shape
+and length; ``flatten_tree`` keeps the reference's zero-padded
+``(rows, 1024)`` layout so that both packages' buffers compare element by
+element, though the kernels themselves need no padding.
 """
 
 from __future__ import annotations
@@ -22,11 +28,20 @@ from . import kernel, ref
 
 __all__ = ["FUSED_MIN_D", "fused_wins", "flatten_stacked",
            "unflatten_stacked", "tree_node_dim", "fused_step_buf",
-           "fused_resident_step", "launches"]
+           "fused_resident_step", "launches", "BLOCK_ROWS", "BLOCK_COLS",
+           "flatten_tree", "unflatten_tree", "svrg_step", "mix_prox",
+           "launches_svrg_step", "launches_mix_prox"]
 
-# Launches of the CUDA kernel since the count was last set to 0: one per
-# kernel launch, counted by fused_step_buf and nowhere else.
-launches = 0
+# Launches of each CUDA kernel since its count was last set to 0: one per
+# kernel launch, counted by its wrapper and nowhere else.
+launches = 0                # fused_step (fused_step_buf)
+launches_svrg_step = 0      # svrg_step
+launches_mix_prox = 0       # mix_prox
+
+# the reference's flat-buffer tile: flatten_tree pads to whole (8, 1024)
+# tiles so that its buffers equal the reference's element by element
+BLOCK_ROWS = 8
+BLOCK_COLS = 1024
 
 # kernel="auto" runs the fused step at per-node sizes d >= FUSED_MIN_D: the
 # smallest d at which chip_smoke.py timed the fused update against the
@@ -148,3 +163,107 @@ def fused_resident_step(w, x_tree, grad_trees, alpha, lam, *, rule: str,
     out = fused_step_buf(w.contiguous(), streams, alpha, lam, rule=rule,
                          prox_kind=prox_kind)
     return unflatten_stacked(out, aux)
+
+
+# ---------------------------------------------------------------------------
+# The elementwise pipeline: svrg_step and mix_prox over flat buffers
+# ---------------------------------------------------------------------------
+
+def flatten_tree(tree):
+    """-> (buffer (rows, 1024) float32, aux): every leaf flattened and
+    concatenated, zero-padded to whole (8, 1024) tiles, as the reference's
+    ``flatten_tree`` lays it out."""
+    leaves, spec = pytree.tree_flatten(tree)
+    flat = torch.cat([leaf.reshape(-1).to(torch.float32) for leaf in leaves])
+    n = flat.shape[0]
+    padded = -n % (BLOCK_ROWS * BLOCK_COLS)
+    if padded:
+        flat = torch.cat([flat, flat.new_zeros(padded)])
+    shapes = [tuple(leaf.shape) for leaf in leaves]
+    dtypes = [leaf.dtype for leaf in leaves]
+    return flat.reshape(-1, BLOCK_COLS), (spec, shapes, dtypes, n)
+
+
+def unflatten_tree(buf, aux):
+    spec, shapes, dtypes, n = aux
+    flat = buf.reshape(-1)[:n]
+    leaves, off = [], 0
+    for shp, dt in zip(shapes, dtypes):
+        size = int(np.prod(shp, dtype=np.int64))
+        leaves.append(flat[off:off + size].reshape(shp).to(dt))
+        off += size
+    return pytree.tree_unflatten(leaves, spec)
+
+
+def _check_elementwise(name: str, operands, alpha=None) -> None:
+    """Same device, float32, contiguous, one shape; alpha a Python number or
+    a one-element float32 tensor on the operands' device."""
+    first = operands[0]
+    for t in operands:
+        if t.device != first.device:
+            raise ValueError(f"{name}: operands on {t.device} and "
+                             f"{first.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the {name} kernel takes float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"the {name} kernel takes contiguous tensors")
+        if t.shape != first.shape:
+            raise ValueError(f"{name}: shapes {tuple(t.shape)} and "
+                             f"{tuple(first.shape)} differ")
+    if isinstance(alpha, torch.Tensor):
+        if alpha.numel() != 1:
+            raise ValueError(f"{name}: alpha must be a scalar")
+        if alpha.device != first.device or alpha.dtype != torch.float32:
+            raise ValueError(f"{name}: a tensor alpha must be float32 on "
+                             f"{first.device}")
+
+
+def _route(name: str, device: torch.device) -> bool:
+    """True for a CUDA device (launch the kernel), False for the CPU (run
+    the plain version); any other device raises."""
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA (kernel) or CPU (plain "
+                         f"version), not on {device}")
+    return True
+
+
+def svrg_step(x, g_now, g_snap, mu, alpha):
+    """q = x - alpha * (g_now - g_snap + mu) over float32 buffers of one
+    shape.  ``alpha``: a Python float or a one-element float32 tensor on
+    the buffers' device.  CPU tensors run the plain version; CUDA tensors
+    launch the kernel; any other device raises."""
+    global launches_svrg_step
+    if not _route("svrg_step", x.device):
+        return ref.svrg_step_ref(x, g_now, g_snap, mu, alpha)
+    _check_elementwise("svrg_step", (x, g_now, g_snap, mu), alpha)
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    rc = kernel.svrg_step_launch(x, g_now, g_snap, mu, out, alpha)
+    if rc != 0:
+        raise RuntimeError(f"svrg_step kernel launch failed with status {rc}")
+    launches_svrg_step += 1
+    return out
+
+
+def mix_prox(q_self, q_up, q_down, w_self, w_up, w_down, thresh):
+    """soft_threshold(w_self*q_self + w_up*q_up + w_down*q_down, thresh)
+    over float32 buffers of one shape; the weights and the threshold are
+    Python floats.  CPU tensors run the plain version; CUDA tensors launch
+    the kernel; any other device raises."""
+    global launches_mix_prox
+    if not _route("mix_prox", q_self.device):
+        return ref.mix_prox_ref(q_self, q_up, q_down, w_self, w_up, w_down,
+                                thresh)
+    _check_elementwise("mix_prox", (q_self, q_up, q_down))
+    out = torch.empty_like(q_self)
+    if out.numel() == 0:
+        return out
+    rc = kernel.mix_prox_launch(q_self, q_up, q_down, out, w_self, w_up,
+                                w_down, thresh)
+    if rc != 0:
+        raise RuntimeError(f"mix_prox kernel launch failed with status {rc}")
+    launches_mix_prox += 1
+    return out

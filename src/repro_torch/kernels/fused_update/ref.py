@@ -1,11 +1,17 @@
-"""Plain PyTorch version of the fused resident step.
+"""Plain PyTorch versions of the fused-update kernels.
 
-``fused_step_math`` is the port of ``repro.kernels.fused_update.ref.
-fused_step_math`` and the oracle of the CUDA kernel in ``csrc/fused_step.cu``:
-the kernel's wrapper (``ops.fused_step_buf``) runs it for tensors on the
-CPU, and the tests and ``chip_smoke.py`` hold the kernel against it on the
-card.  Buffers are the port's own layout: contiguous row-major ``(m, d)``
-float32, one row per node, no padding.
+``svrg_step_ref`` / ``mix_prox_ref`` / ``inner_step_ref`` are the ports of
+``repro.kernels.fused_update.ref``'s elementwise pipeline and the oracles of
+the CUDA kernels in ``csrc/svrg_mix.cu``; ``fused_step_math`` is the port of
+the reference's ``fused_step_math`` and the oracle of ``csrc/fused_step.cu``.
+The wrappers in ``ops`` run them for tensors on the CPU, and the tests and
+``chip_smoke.py`` hold the kernels against them on the card.
+
+Scalars that are Python floats are rounded to float32 before they touch a
+tensor, and every product and sum is its own float32 operation, in the
+kernels' order: the CUDA kernels, which contract nothing into FMAs, then
+give the same bits.  The fused step's buffers are the port's own layout:
+contiguous row-major ``(m, d)`` float32, one row per node, no padding.
 """
 
 from __future__ import annotations
@@ -13,12 +19,44 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["fused_step_math", "fused_step_ref", "FUSED_RULES",
+__all__ = ["svrg_step_ref", "mix_prox_ref", "inner_step_ref",
+           "fused_step_math", "fused_step_ref", "FUSED_RULES",
            "FUSED_PROXES"]
 
 # static configuration space of the fused resident step
 FUSED_RULES = ("svrg", "sgd")
 FUSED_PROXES = ("l1", "sql2", "none")
+
+
+def _f32(a):
+    """A Python scalar rounded to float32 (as the kernels receive it); a
+    tensor as a float32 tensor."""
+    if isinstance(a, torch.Tensor):
+        return a.to(torch.float32)
+    return float(np.float32(a))
+
+
+def svrg_step_ref(x, g_now, g_snap, mu, alpha):
+    """q = x - alpha * (g_now - g_snap + mu)   (Algorithm 1 lines 8-9)."""
+    v = g_now - g_snap + mu
+    return x - _f32(alpha) * v
+
+
+def mix_prox_ref(q_self, q_up, q_down, w_self, w_up, w_down, thresh):
+    """soft_threshold(w_self*q_self + w_up*q_up + w_down*q_down, thresh)
+
+    (ring-gossip combine + l1 prox; Algorithm 1 lines 10-11 with threshold
+    = alpha * lambda)."""
+    z = (_f32(w_self) * q_self + _f32(w_up) * q_up) + _f32(w_down) * q_down
+    return torch.sign(z) * torch.clamp_min(torch.abs(z) - _f32(thresh), 0.0)
+
+
+def inner_step_ref(x, g_now, g_snap, mu, x_up, x_down, w_self, w_up, w_down,
+                   alpha, thresh):
+    """Single-device composition of the two: the neighbours' q are supplied
+    already exchanged."""
+    q = svrg_step_ref(x, g_now, g_snap, mu, alpha)
+    return mix_prox_ref(q, x_up, x_down, w_self, w_up, w_down, thresh)
 
 
 def fused_step_math(w, streams, alpha, lam, *, rule: str, prox_kind: str):

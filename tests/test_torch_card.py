@@ -1,17 +1,25 @@
 """Tests of the port that need a CUDA card: the hand-written kernels
-(fused_step, RMSNorm, flash attention) against their plain versions on the
-card, their operand checks, the resident logistic-regression path through
-fused_step, and a served model through RMSNorm and flash.  They skip, with
+(fused_step, svrg_step, mix_prox, RMSNorm, flash attention) against their
+plain versions on the card, their operand checks, the resident
+logistic-regression path through fused_step (dense and banded gossip), the
+kernel bench, and a served model through RMSNorm and flash.  They skip, with
 the reason, where there is no card.  This file imports neither JAX nor the JAX package, so it also
 runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest tests/test_torch_card.py
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from benchmarks import pt_kernel_bench  # noqa: E402
 from repro_torch import configs
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import algorithm, graphs, prox, runner
@@ -147,6 +155,122 @@ def test_resident_main_path_on_card_matches_cpu(cuda_device):
                                        rtol=HISTORY_RTOL, atol=HISTORY_ATOL)
         np.testing.assert_array_equal(res.history.steps, cpu.history.steps)
         assert res.extras["transfers_h2d"] == cpu.extras["transfers_h2d"]
+
+
+# ---------------------------------------------------------------------------
+# svrg_step and mix_prox: equal to their plain versions bit for bit
+# ---------------------------------------------------------------------------
+
+def _flat(n, count, seed, device, offset=0):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.normal(size=n + offset), dtype=torch.float32,
+                            device=device)[offset:] for _ in range(count)]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 7, 1000, 8 * 1024, 300_001])
+def test_svrg_step_kernel_equals_plain_version_on_card(cuda_device, n,
+                                                       offset):
+    x, gn, gs, mu = _flat(n, 4, n, cuda_device, offset)
+    for alpha in (0.0, 0.05, 1.0):
+        want = ref.svrg_step_ref(x, gn, gs, mu, alpha)
+        dev = torch.tensor([alpha], dtype=torch.float32, device=cuda_device)
+        for a in (alpha, dev[0]):
+            before = ops.launches_svrg_step
+            got = ops.svrg_step(x, gn, gs, mu, a)
+            assert ops.launches_svrg_step == before + 1
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", [(1.0, 0.0, 0.0, 0.0),
+                                  (1 / 3, 1 / 3, 1 / 3, 0.01),
+                                  (0.5, 0.25, 0.25, 0.3)])
+@pytest.mark.parametrize("n,offset", [(7, 0), (1000, 1), (8 * 1024, 0),
+                                      (300_001, 1)])
+def test_mix_prox_kernel_equals_plain_version_on_card(cuda_device, n,
+                                                      offset, case):
+    qs, qu, qd = _flat(n, 3, n + 1, cuda_device, offset)
+    before = ops.launches_mix_prox
+    got = ops.mix_prox(qs, qu, qd, *case)
+    assert ops.launches_mix_prox == before + 1
+    assert torch.equal(got, ref.mix_prox_ref(qs, qu, qd, *case))
+
+
+def test_svrg_mix_kernels_reject_what_they_do_not_take(cuda_device):
+    x = torch.zeros(4, 8, device=cuda_device)
+    before = (ops.launches_svrg_step, ops.launches_mix_prox)
+    with pytest.raises(TypeError, match="float32"):
+        ops.svrg_step(*[x.double()] * 4, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.mix_prox(*[x.t()] * 3, 1.0, 0.0, 0.0, 0.0)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.svrg_step(x, x, x, torch.zeros(8, 4, device=cuda_device), 0.1)
+    with pytest.raises(ValueError, match="operands on"):
+        ops.mix_prox(x, x.cpu(), x, 1.0, 0.0, 0.0, 0.0)
+    with pytest.raises(ValueError, match="alpha"):
+        ops.svrg_step(x, x, x, x, torch.tensor([0.1, 0.2],
+                                               device=cuda_device))
+    with pytest.raises(ValueError, match="alpha"):
+        ops.svrg_step(x, x, x, x, torch.tensor(0.1))
+    assert (ops.launches_svrg_step, ops.launches_mix_prox) == before
+
+
+def test_kernel_bench_on_card_launches_what_it_calls(cuda_device):
+    """The bench's kernel rows launch exactly the calls they record, and the
+    banded large-d fused run launches fused_step once per inner step; its
+    histories equal the bench run on the CPU."""
+    kw = dict(large_d=2048, paper_steps=100)
+    before = (ops.launches_svrg_step, ops.launches_mix_prox)
+    rows = pt_kernel_bench.run(0.02, "cuda", rows=64, **kw)
+    calls = {"svrg_step": 0, "mix_prox": 0}
+    for r in rows:
+        for k, v in r.data.get("calls", {}).items():
+            calls[k] += v
+    assert (ops.launches_svrg_step - before[0],
+            ops.launches_mix_prox - before[1]) == (calls["svrg_step"],
+                                                   calls["mix_prox"])
+    by_name = {r.name: r.data for r in rows}
+    assert set(by_name["kernel/svrg_mix_check"]["max_abs_err"].values()) \
+        == {0.0}
+    cpu = pt_kernel_bench.kernel_stats(0.02, "cpu", timed=False, **kw)
+    for row, key in (("kernel/resident_paper_scale_auto", "paper_scale"),
+                     ("kernel/resident_large_d_fused", "large_d")):
+        sec = by_name[row]
+        assert sec["fused_launches"] == sec["steps"]
+        for kind, hist in sec["objective"].items():
+            np.testing.assert_allclose(hist, cpu[key]["objective"][kind],
+                                       rtol=HISTORY_RTOL, atol=HISTORY_ATOL)
+
+
+@pytest.mark.parametrize("name", ["loopless_dpsvrg", "dvr", "dpg"])
+def test_banded_fused_runs_on_card_match_cpu(cuda_device, name):
+    """The banded phi reaches the kernel (one launch per step) for every
+    method with a fused twin, and the card's history equals the CPU's."""
+    sched = pt_kernel_bench._circulant8()
+
+    def run(device):
+        problem = pt_kernel_bench.large_problem(device, 1024)
+        algo = {"loopless_dpsvrg": lambda: algorithm.loopless_dpsvrg_algorithm(
+                    problem, 0.05, 30, snapshot_prob=0.2,
+                    consensus_rounds=1),
+                "dvr": lambda: algorithm.dvr_algorithm(
+                    problem, 0.05, 30, snapshot_prob=0.2),
+                "dpg": lambda: algorithm.dpg_algorithm(problem, 0.05, 30),
+                }[name]()
+        before = ops.launches
+        res = runner.run(algo, problem, sched,
+                         ExecSpec(resident=True, kernel="fused",
+                                  gossip="banded", device=device),
+                         record_every=10)
+        return res, ops.launches - before
+
+    res, launches = run("cuda")
+    cpu, cpu_launches = run("cpu")
+    assert launches == 30 and cpu_launches == 0
+    np.testing.assert_allclose(res.history.objective, cpu.history.objective,
+                               rtol=HISTORY_RTOL, atol=HISTORY_ATOL)
+    np.testing.assert_array_equal(res.extras["wire_bytes"],
+                                  cpu.extras["wire_bytes"])
 
 
 # ---------------------------------------------------------------------------

@@ -177,19 +177,25 @@ def test_auto_backend_rule_matches_reference(b):
         assert ttransport.select_backend_name(ts, tm) == want
         assert (ttransport.band_offset_union(ts, tm)
                 == jtransport.band_offset_union(js, jm))
-        if want == "dense":
-            assert ttransport.resolve_backend("auto", ts, tm).name == "dense"
-        else:
-            with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-                ttransport.resolve_backend("auto", ts, tm)
+        # without a mesh "auto" names dense or banded, both ported now
+        assert ttransport.resolve_backend("auto", ts, tm).name == want
 
 
 @pytest.mark.parametrize("name", ["banded", "ppermute", "compressed"])
 def test_unported_backends_raise(name):
+    """Only the multi-device ppermute transport is still unported; banded
+    and compressed resolve to the reference's backends."""
     ts = tgraphs.b_connected_ring_schedule(8, 2)
     meta = _metas(jalgorithm, talgorithm)[1][1]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ttransport.resolve_backend(name, ts, meta)
+    if name in ttransport.UNPORTED_BACKENDS:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+            ttransport.resolve_backend(name, ts, meta)
+    else:
+        backend = ttransport.resolve_backend(name, ts, meta)
+        assert backend.name == jtransport.GOSSIP_BACKENDS[name].name
+        assert type(backend).__name__ == \
+            type(jtransport.GOSSIP_BACKENDS[name]).__name__
+    assert ttransport.UNPORTED_BACKENDS == ("ppermute",)
     with pytest.raises(ValueError, match="unknown gossip backend"):
         ttransport.resolve_backend("carrier-pigeon", ts, meta)
 

@@ -7,9 +7,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch / CUDA
    versions;
-2. builds the five CUDA kernels of the port (four sources) from this
-   checkout (``nvcc``, sm_90a, one process each, all started together) and
-   prints the build time and each ptxas report;
+2. builds the six CUDA kernels of the port (four sources; flash
+   attention is two kernels, float32 and bf16, behind one entry point)
+   from this checkout (``nvcc``, sm_90a, one process each, all started
+   together), prints the build time and each ptxas report, and a
+   ``flash_sass`` line: the number of ``HGMMA`` (wgmma) instructions in the
+   built flash library, from ``cuobjdump -sass``;
 3. holds the fused resident-step kernel against its plain PyTorch version
    on the card for both rules x three proxes at four shapes, and times
    kernel, plain version, ``torch.matmul(W, q)`` (``library_ms``: no single
@@ -45,10 +48,17 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    versions on the card (RMSNorm: rows in {1, 3, 4, 8, 6144}, d in {128,
    2560}; flash: causal, window, softcap, GQA, bidirectional and ragged
    shapes, head_dim in {32, 80, 128, 256}, and the h2o-danube prefill at
-   L = 6144; float32 and bf16), and times kernel, eager call, plain
-   version, ``F.rms_norm`` / ``F.scaled_dot_product_attention``
+   L = 6144; float32 within rtol 1e-5 / atol 2e-5, bf16 within the
+   element-wise bound ``ref.bf16_bound``), and times kernel, eager call,
+   plain version, ``F.rms_norm`` / ``F.scaled_dot_product_attention``
    (``library_ms``, timed only) and the bound;
-10. serves h2o-danube-1.8b at full width (24 layers, d_model 2560, f32,
+10. runs h2o-danube-1.8b at full width in bf16 (random weights from a
+   seed, 3.5 GB) through a 2048-token and a 6144-token prefill on the
+   kernel path (exactly 24 bf16 flash launches each; each prefill is timed
+   after one untimed call at its length) and on the plain path, and holds both to the float32 kernel path on the same weights
+   cast back to float32: the kernel path's max abs logit error must stay
+   within 1.5x the plain path's;
+11. serves h2o-danube-1.8b at full width (24 layers, d_model 2560, f32,
    random weights from a seed, flash and RMSNorm kernels on) through
    ``ResidentEngine(max_slots=4, max_len=6208, chunk=8)``: 8 requests with
    prompts of 512 to 6144 tokens, 32 new tokens each.  The kernels' launch
@@ -59,10 +69,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (``use_flash=False, use_fused_norm=False``).  Prints ms per prefill,
    per chunk and per decode step, tokens/s, peak memory and the card's
    idle share over one traced prefill and one chunk;
-11. replays a seeded Poisson stream through the same model (TTFT / TPOT);
-12. runs ``repro_torch.launch.serve --arch h2o-danube-1.8b --stream`` at the
+12. replays a seeded Poisson stream through the same model (TTFT / TPOT);
+13. runs ``repro_torch.launch.serve --arch h2o-danube-1.8b --stream`` at the
     launcher's smoke size;
-13. prints the card, a ``{"kernels": [...]}`` line (all five kernels), and
+14. prints the card, a ``{"kernels": [...]}`` line (all six kernels), and
     last ``{"ok": true, "device": {...}}``.
 
 Needs one card; exits non-zero without one, and without the repository
@@ -71,6 +81,7 @@ around it.
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -82,6 +93,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.utils import _pytree as pytree  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs import paper_logreg  # noqa: E402
@@ -91,6 +103,7 @@ from repro_torch.core import (algorithm, gossip, graphs, prox,  # noqa: E402
 from repro_torch.core.exec_spec import ExecSpec  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.kernels import SOURCES, _build  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.fused_update import kernel, ops, ref  # noqa: E402
@@ -707,14 +720,13 @@ def dvr_and_auto_phase() -> None:
 # the plain version); 2e-5 is the reference's own tolerance for its flash
 # kernel (tests/test_kernels.py).  bf16 RMSNorm: both round a float32
 # value to bf16 and may land on neighbouring values, one bf16 ulp apart,
-# at most 2^-7 = 7.8e-3 of the value.  bf16 flash: held against the plain
-# version on the float32 values of the same bf16 inputs; the kernel works
-# in float32 and rounds only its output to bf16, at most 2^-8 = 3.9e-3 of
-# the value, on top of the float32 tolerance.
+# at most 2^-7 = 7.8e-3 of the value.  bf16 flash: held element by element
+# to ``fa_ref.bf16_bound`` against the plain version on the float32 values
+# of the same bf16 inputs; the bound follows where the kernel rounds (P to
+# bf16 before P V, the output to bf16).
 RMS_F32_TOL = dict(rtol=1e-5, atol=1e-5)
 RMS_BF16_TOL = dict(rtol=8e-3, atol=1e-5)
 FLASH_F32_TOL = dict(rtol=1e-5, atol=2e-5)
-FLASH_BF16_TOL = dict(rtol=4e-3, atol=2e-5)
 RMS_ROWS = [1, 3, 4, 8, 6144]
 RMS_DIMS = [128, 2560]
 # the shape of the kernels line: a decode step of the serving path (4 slots)
@@ -740,6 +752,34 @@ def bound(nbytes: float, flops: float, dtype=torch.float32):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FLOPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_sass() -> dict:
+    """HGMMA (wgmma) instructions in the built flash library, counted in
+    ``cuobjdump -sass``: the toolkit's, else one on PATH, else the one in
+    Triton's package.  Says why where none is found."""
+    lib = _build.library_path(fa_kernel.SOURCE)
+    tools = [os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump"),
+             shutil.which("cuobjdump")]
+    try:
+        import triton
+        tools.append(os.path.join(os.path.dirname(triton.__file__),
+                                  "backends", "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    found = [t for t in tools if t and os.access(t, os.X_OK)]
+    if not found:
+        return {"library": lib.name, "cuobjdump": None,
+                "why": "no cuobjdump beside nvcc, on PATH or in Triton's "
+                       "package"}
+    proc = subprocess.run([found[0], "-sass", str(lib)], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        fail(f"{found[0]} -sass {lib.name}: {proc.stderr.strip()}")
+    sass = proc.stdout.splitlines()
+    return {"library": lib.name, "cuobjdump": found[0],
+            "hgmma": sum("HGMMA" in ln for ln in sass),
+            "kernels": sum("Function :" in ln for ln in sass)}
 
 
 def check_rmsnorm(device) -> dict:
@@ -790,14 +830,24 @@ def check_flash(device) -> dict:
                                    device=device).to(dtype)
                        for s, n in ((sq, h), (sk, kv), (sk, kv)))
             kw = dict(causal=causal, sliding_window=win, softcap=cap)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             out = fa_ops.flash_attention(q, k, v, **kw)
-            plain = fa_ref.attention_ref(
-                q.float().transpose(1, 2), k.float().transpose(1, 2),
-                v.float().transpose(1, 2), **kw).transpose(1, 2)
-            torch.cuda.synchronize()
-            tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
-            torch.testing.assert_close(out.float(), plain, **tol)
-            err = float((out.float() - plain).abs().max())
+            over = None   # bf16: the largest share of its bound
+            if dtype == torch.float32:
+                plain = fa_ref.attention_ref(qt, kt, vt, **kw).transpose(1, 2)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(out, plain, **FLASH_F32_TOL)
+                err = float((out - plain).abs().max())
+            else:
+                plain, limit = fa_ref.bf16_bound(qt, kt, vt, **kw)
+                torch.cuda.synchronize()
+                diff = (out.float() - plain.transpose(1, 2)).abs()
+                over = float((diff / limit.transpose(1, 2)).max())
+                err = float(diff.max())
+                if not over <= 1.0:
+                    fail(f"flash {case} bf16: error {err:.3g} reaches "
+                         f"{over:.3g}x its element-wise bound")
+                del limit, diff
             del plain
             ok = fa_ref.mask(sq, sk, causal=causal, sliding_window=win,
                              device=device)
@@ -805,7 +855,6 @@ def check_flash(device) -> dict:
             es = q.element_size()
             bnd, bnd_by = bound((2 * b * sq * h + 2 * b * sk * kv) * hd * es,
                                 4 * hd * pairs * h * b, dtype)
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
             def kern():
                 return fa_ops.flash_attention(q, k, v, **kw)
@@ -819,7 +868,8 @@ def check_flash(device) -> dict:
 
             iters = 2 if big else 20
             row = {"case": list(case), "dtype": str(dtype).split(".")[-1],
-                   "max_abs_err": err, "pairs": pairs,
+                   "max_abs_err": err, "max_err_over_bound": over,
+                   "pairs": pairs,
                    "ms": graph_ms(kern, iters),
                    "call_ms": time_ms(kern, iters=iters),
                    "plain_ms": graph_ms(plain_fn, iters),
@@ -835,10 +885,98 @@ def check_flash(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 10-12: serving h2o-danube-1.8b at full width
+# phase 10: h2o-danube-1.8b in bf16 through the bf16 flash kernel
 # ---------------------------------------------------------------------------
 
 DANUBE_SEED = 0
+DANUBE_BF16_PROMPTS = [2048, 6144]
+# Both paths round the activations and P to bf16; the plain path also
+# rounds the attention logits to bf16, the kernel path keeps them in
+# float32, and RMSNorm sums in its own order.  Both errors against the
+# float32 path are bf16 rounding compounded through 24 layers, of one
+# order; a broken kernel gives errors of order 1.
+BF16_ERR_RATIO = 1.5
+
+
+def _prefill_ms(cfg, params, toks):
+    """(last logits as float32, ms) of a prefill, timed on the host clock
+    after one untimed call at the same length (first calls at a new shape
+    pay for the allocator and the libraries' set-up).  The kernels' launch
+    counts are set to 0 between the two calls: they count the timed one."""
+    transformer.prefill(cfg, params, toks, max_len=toks.shape[1])
+    torch.cuda.synchronize()
+    fa_ops.launches = rn_ops.launches = 0
+    t0 = time.perf_counter()
+    logits, _ = transformer.prefill(cfg, params, toks,
+                                    max_len=toks.shape[1])
+    torch.cuda.synchronize()
+    return logits.float(), (time.perf_counter() - t0) * 1e3
+
+
+def danube_bf16_prefill() -> dict:
+    """Phase 10: bf16 prefills of h2o-danube-1.8b at full width on the
+    kernel path (the bf16 flash and RMSNorm kernels) and the plain path,
+    both held to the float32 kernel path on the same weights."""
+    cfg = configs.get_config("h2o-danube-1.8b").scaled(
+        param_dtype="bfloat16", use_flash=True, use_fused_norm=True)
+    plain_cfg = cfg.scaled(use_flash=False, use_fused_norm=False)
+    f32_cfg = cfg.scaled(param_dtype="float32")
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, DANUBE_SEED, device=SERVE_DEVICE)
+    params32 = pytree.tree_map(lambda t: t.float(), params)
+    torch.cuda.synchronize()
+    print(f"danube bf16: {transformer.param_count(params)} parameters "
+          f"(bf16, and a float32 copy) on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(DANUBE_SEED)
+    result = {"launches": {"flash_attention": 0, "rmsnorm": 0},
+              "prompts": {}}
+    for n in DANUBE_BF16_PROMPTS:
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=n)
+                               .astype(np.int32), device=SERVE_DEVICE)[None]
+        # the bf16 kernel path: counts set to 0 just before the timed
+        # prefill, read just after
+        lk, kernel_ms = _prefill_ms(cfg, params, toks)
+        flash_n, rms_n = fa_ops.launches, rn_ops.launches
+        if (flash_n, rms_n) != (cfg.num_layers, 2 * cfg.num_layers + 1):
+            fail(f"danube bf16 {n}: {flash_n} flash and {rms_n} rmsnorm "
+                 f"launches, want {cfg.num_layers} and "
+                 f"{2 * cfg.num_layers + 1}")
+        result["launches"]["flash_attention"] += flash_n
+        result["launches"]["rmsnorm"] += rms_n
+        lp, plain_ms = _prefill_ms(plain_cfg, params, toks)
+        lr, f32_ms = _prefill_ms(f32_cfg, params32, toks)
+        for name, lg in (("kernel", lk), ("plain", lp), ("float32", lr)):
+            if not bool(torch.isfinite(lg).all()) or \
+                    tuple(lg.shape) != (1, cfg.vocab_size):
+                fail(f"danube bf16 {n}: {name} path logits of shape "
+                     f"{tuple(lg.shape)}, not all finite")
+        kerr = float((lk - lr).abs().max())
+        perr = float((lp - lr).abs().max())
+        row = {"kernel_ms": kernel_ms, "plain_ms": plain_ms,
+               "float32_kernel_ms": f32_ms,
+               "max_abs_logit_err_kernel": kerr,
+               "max_abs_logit_err_plain": perr,
+               "err_ratio": kerr / perr,
+               "flash_launches": flash_n, "rmsnorm_launches": rms_n,
+               "greedy_kernel_vs_float32": int(lk.argmax()) ==
+               int(lr.argmax())}
+        result["prompts"][str(n)] = row
+        print(f"danube_bf16_prefill_{n} " + json.dumps(row), flush=True)
+        if not kerr <= BF16_ERR_RATIO * perr:
+            fail(f"danube bf16 {n}: kernel path logit error {kerr:.3g} "
+                 f"exceeds {BF16_ERR_RATIO}x the plain path's {perr:.3g}")
+        del lk, lp, lr
+    del params, params32
+    torch.cuda.empty_cache()
+    print("danube_bf16_prefill " + json.dumps(result), flush=True)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phases 11-13: serving h2o-danube-1.8b at full width
+# ---------------------------------------------------------------------------
+
 DANUBE_PROMPTS = [512, 1024, 2048, 3072, 4096, 4608, 5120, 6144]
 DANUBE_NEW = 32
 DANUBE_SLOTS, DANUBE_MAX_LEN, DANUBE_CHUNK = 4, 6208, 8
@@ -884,7 +1022,7 @@ def danube_requests(vocab: int) -> list:
 
 
 def serve_danube() -> dict:
-    """Phase 10.  Returns the numbers of the serving run."""
+    """Phase 11.  Returns the numbers of the serving run."""
     cfg = configs.get_config("h2o-danube-1.8b").scaled(
         use_flash=True, use_fused_norm=True)
     t0 = time.perf_counter()
@@ -1017,7 +1155,7 @@ def serve_danube() -> dict:
     torch.cuda.empty_cache()
     print("danube_serve " + json.dumps(result), flush=True)
 
-    # phase 11: a seeded Poisson stream through the same model
+    # phase 12: a seeded Poisson stream through the same model
     sc = serve_stream.StreamConfig(
         num_requests=8, vocab_size=cfg.vocab_size, arrival="poisson",
         rate=STREAM_RATE, prompt_lens=(512, 2048, 6144), new_low=16,
@@ -1061,6 +1199,11 @@ def main() -> None:
         print(log.strip(), flush=True)
     print(f"build: {', '.join(s.name for s in SOURCES)} in {build_s:.1f} s "
           f"(fused_step max m {kernel.max_m()})", flush=True)
+    sass = flash_sass()
+    print("flash_sass " + json.dumps(sass), flush=True)
+    if sass["cuobjdump"] is not None and sass["hgmma"] == 0:
+        fail("the flash library holds no HGMMA instruction: the bf16 "
+             "kernel does not run on the tensor cores")
 
     # phase 3: kernel vs plain version
     rows = check_kernel(device)
@@ -1132,15 +1275,20 @@ def main() -> None:
                   if r["dtype"] == "float32")
     flash_err = max(r["max_abs_err"] for r in flash_rows.values()
                     if r["dtype"] == "float32")
+    flash_over = max(r["max_err_over_bound"] for r in flash_rows.values()
+                     if r["dtype"] == "bfloat16")
     print(f"rmsnorm: all {len(rms_rows)} cases within tolerance of the "
           f"plain version (float32 max abs err {rms_err:.3g}); flash: all "
-          f"{len(flash_rows)} cases (float32 max abs err {flash_err:.3g})",
-          flush=True)
+          f"{len(flash_rows)} cases (float32 max abs err {flash_err:.3g}, "
+          f"bf16 at most {flash_over:.3g} of its bound)", flush=True)
 
-    # phases 10-11: serve h2o-danube-1.8b at full width, then a stream
+    # phase 10: h2o-danube-1.8b in bf16 through the bf16 flash kernel
+    bf16_prefill = danube_bf16_prefill()
+
+    # phases 11-12: serve h2o-danube-1.8b at full width, then a stream
     serve = serve_danube()
 
-    # phase 12: the launcher at its smoke size
+    # phase 13: the launcher at its smoke size
     summary = launch_serve.main(["--arch", "h2o-danube-1.8b", "--stream"])
     if summary["requests"] != 16:
         fail(f"launch.serve: {summary['requests']} requests finished")
@@ -1151,6 +1299,9 @@ def main() -> None:
     mix_row = svrg_mix_rows[("mix_prox", pt_kernel_bench.ROWS)]
     rms_row = rms_rows[RMS_LINE_SHAPE + ("float32",)]
     flash_row = flash_rows[(DANUBE_FLASH_CASE, "float32")]
+    flash_bf16_row = flash_rows[(DANUBE_FLASH_CASE, "bfloat16")]
+    flash_bf16_err = max(r["max_abs_err"] for r in flash_rows.values()
+                         if r["dtype"] == "bfloat16")
 
     def line(name, source, replaces, launches, err, row):
         return {"name": name, "route": "cuda", "source": source,
@@ -1184,6 +1335,12 @@ def main() -> None:
              "flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:106",
              serve["launches"]["flash_attention"], flash_err, flash_row),
+        line("flash_attention_bf16",
+             "src/repro_torch/kernels/flash_attention/csrc/"
+             "flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:106",
+             bf16_prefill["launches"]["flash_attention"], flash_bf16_err,
+             flash_bf16_row),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,6 +17,8 @@ Each kernel package mirrors its counterpart in ``repro.kernels``:
   flash_attention — online-softmax attention forward with GQA, causal and
                     sliding-window masks and softcap (replaces
                     flash_attention_call); ModelConfig(use_flash=True).
+                    float32 runs on the CUDA cores, bf16 on the tensor
+                    cores (wgmma), rounding P to bf16 before P V.
 """
 
 from . import flash_attention, fused_update, rmsnorm

@@ -3,7 +3,10 @@
 
 The kernel is the Hopper counterpart of the Pallas TPU kernel
 ``repro.kernels.flash_attention.kernel.flash_attention_call``; the source's
-header says what bounds it and how it is laid out.  It is compiled with
+header says what bounds it and how it is laid out.  One C entry point
+launches one of two kernels by dtype: float32 runs on the CUDA cores,
+bf16 on the tensor cores (wgmma), which rounds the probabilities P to bf16
+before P V (``ref.bf16_bound`` is the error that allows).  It is compiled with
 ``nvcc`` for ``sm_90a`` on first use (``kernels._build``) and called through
 ``ctypes`` on PyTorch's current stream.  This module only launches: the
 checks and the launch count live in the wrapper ``ops.flash_attention``.

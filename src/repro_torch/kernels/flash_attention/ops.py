@@ -5,7 +5,9 @@ routing and the launch count.
 (B, S, H, hd) layout, as the JAX package's wrapper does.  For tensors on
 the CPU it runs the plain PyTorch version (``ref.attention_ref``); for CUDA
 tensors it checks them, launches the CUDA kernel and adds one to
-``launches``, or raises.  There is no fallback from the kernel to the plain
+``launches``, or raises.  float32 runs on the CUDA cores; bf16 runs on the
+tensor cores and rounds P to bf16 before P V, so its output is held to
+``ref.bf16_bound`` rather than to float32's tolerance.  There is no fallback from the kernel to the plain
 version.  The kernel masks ragged sequence lengths and head dims itself, so
 the reference wrapper's padding and scale correction (and its refusal of a
 ragged bidirectional Sk) have no counterpart here.

@@ -7,8 +7,13 @@ softcap, sk > sq, narrow windows, head_dim 24, bf16, ragged q).  The CUDA
 kernel itself runs only on a card (tests/test_torch_card.py).
 
 Tolerances: float32 atol 2e-5 (the reference's own for its kernel), bf16
-atol 3e-2 (the reference's bf16 tolerance).
+atol 3e-2 (the reference's bf16 tolerance).  The card's bf16 check,
+``ref.bf16_bound``, is derived from where the bf16 kernel rounds; the last
+tests emulate that arithmetic on the CPU over every shape of the card tests
+(tests/test_torch_card.py:FLASH_CARD_CASES) and hold it to the bound.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +22,7 @@ import torch
 
 from repro.kernels.flash_attention import ops as jops, ref as jref
 from repro_torch.kernels.flash_attention import ops, ref
+from test_torch_card import FLASH_CARD_CASES
 
 torch.set_num_threads(1)
 
@@ -136,3 +142,84 @@ def test_wrapper_on_the_cpu_counts_nothing_and_refuses_other_devices():
     meta = torch.zeros(1, 4, 2, 8, device="meta")
     with pytest.raises(ValueError, match="not on meta"):
         ops.flash_attention(meta, meta, meta)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernel's arithmetic and its bound
+# ---------------------------------------------------------------------------
+
+# the check of the bf16 kernel before the bound: the output's rounding only
+OLD_BF16_TOL = dict(rtol=4e-3, atol=2e-5)
+
+
+def _emulate_bf16_kernel(q, k, v, *, causal, sliding_window, softcap,
+                         block_k=64):
+    """The bf16 kernel's arithmetic in plain PyTorch, q: (B, H, Sq, hd), k,
+    v: (B, KV, Sk, hd), bf16: float32 scores of the bf16 values, an online
+    softmax over tiles of 64 keys with m, l and the accumulator in float32,
+    P rounded to bf16 before P V (l sums the unrounded p), and the output
+    rounded once to bf16."""
+    b, h, sq, hd = q.shape
+    sk = k.shape[2]
+    kf, vf = (t.float().repeat_interleave(h // k.shape[1], dim=1)
+              for t in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) / math.sqrt(hd)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    ok = ref.mask(sq, sk, causal=causal, sliding_window=sliding_window)
+    s = torch.where(ok, s, torch.full_like(s, -1e30))
+    m = torch.full((b, h, sq), -1e30)
+    l = torch.zeros((b, h, sq))
+    acc = torch.zeros((b, h, sq, hd))
+    for k0 in range(0, sk, block_k):
+        tile = s[..., k0:k0 + block_k]
+        m_new = torch.maximum(m, tile.amax(dim=-1))
+        alpha = torch.where(m > -5e29, torch.exp(m - m_new),
+                            torch.zeros_like(m))
+        p = torch.where((m_new > -5e29)[..., None],
+                        torch.exp(tile - m_new[..., None]),
+                        torch.zeros_like(tile))
+        l = alpha * l + p.sum(dim=-1)
+        acc = alpha[..., None] * acc + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(),
+            vf[:, :, k0:k0 + block_k])
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).to(torch.bfloat16)
+
+
+def _bf16_case(case, seed):
+    b, h, kv, sq, sk, hd, causal, win, cap = case
+    q, k, v = _qkv(b, h, kv, sq, sk, hd, seed=seed)
+    qb, kb, vb = (_t(_bhsd(a)).to(torch.bfloat16) for a in (q, k, v))
+    return qb, kb, vb, dict(causal=causal, sliding_window=win, softcap=cap)
+
+
+@pytest.mark.parametrize("case", FLASH_CARD_CASES)
+def test_bf16_kernel_arithmetic_stays_within_the_bound(case):
+    """The emulated kernel is within ref.bf16_bound of the plain version on
+    every card shape, and the bound's plain version is the JAX oracle on
+    the float32 values of the same inputs."""
+    qb, kb, vb, kw = _bf16_case(case, seed=sum(case[:6]))
+    plain, bound = ref.bf16_bound(qb, kb, vb, **kw)
+    want = jref.attention_ref(*(jnp.asarray(t.float().numpy())
+                                for t in (qb, kb, vb)), **kw)
+    dead = ~ref.mask(qb.shape[2], kb.shape[2], causal=kw["causal"],
+                     sliding_window=kw["sliding_window"]).any(dim=-1)
+    live = (~dead).numpy()
+    np.testing.assert_allclose(plain.numpy()[:, :, live],
+                               np.asarray(want)[:, :, live], atol=F32_ATOL)
+    err = (_emulate_bf16_kernel(qb, kb, vb, **kw).float() - plain).abs()
+    assert bool((err <= bound).all()), float((err - bound).max())
+
+
+def test_the_old_bf16_tolerance_is_not_enough_for_the_kernel_arithmetic():
+    """rtol 4e-3 / atol 2e-5 covers the output's rounding only; rounding P
+    to bf16 breaks it on some card shape, hence ref.bf16_bound."""
+    broken = []
+    for case in FLASH_CARD_CASES:
+        qb, kb, vb, kw = _bf16_case(case, seed=sum(case[:6]))
+        plain, _ = ref.bf16_bound(qb, kb, vb, **kw)
+        got = _emulate_bf16_kernel(qb, kb, vb, **kw).float()
+        if not torch.allclose(got, plain, **OLD_BF16_TOL):
+            broken.append(case)
+    assert broken

@@ -45,13 +45,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    steps), and DSPG on the paper's b=1 ring through ``gossip="auto"``,
    which must pick ``banded``, both held to their CPU runs;
 9. holds the RMSNorm and flash attention kernels against their plain
-   versions on the card (RMSNorm: rows in {1, 3, 4, 8, 6144}, d in {128,
-   2560}; flash: causal, window, softcap, GQA, bidirectional and ragged
-   shapes, head_dim in {32, 80, 128, 256}, and the h2o-danube prefill at
+   versions on the card (RMSNorm: rows in {1, 3, 4, 8, 6144}, d in {1, 7,
+   128, 2304, 2560, 3584} and the first width past the register tiles;
+   flash: causal, window, softcap, GQA, bidirectional and ragged shapes,
+   head_dim in {32, 33, 80, 128, 256}, and the h2o-danube prefill at
    L = 6144; float32 within rtol 1e-5 / atol 2e-5, bf16 within the
    element-wise bound ``ref.bf16_bound``), and times kernel, eager call,
    plain version, ``F.rms_norm`` / ``F.scaled_dot_product_attention``
-   (``library_ms``, timed only) and the bound;
+   (``library_ms``, timed only), a copy of RMSNorm's input (``copy_ms``,
+   the memory rate's yardstick) and the bound, with ``share_of_bound``
+   (bound / kernel time) on every row;
 10. runs h2o-danube-1.8b at full width in bf16 (random weights from a
    seed, 3.5 GB) through a 2048-token and a 6144-token prefill on the
    kernel path (exactly 24 bf16 flash launches each; each prefill is timed
@@ -72,8 +75,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 12. replays a seeded Poisson stream through the same model (TTFT / TPOT);
 13. runs ``repro_torch.launch.serve --arch h2o-danube-1.8b --stream`` at the
     launcher's smoke size;
-14. prints the card, a ``{"kernels": [...]}`` line (all six kernels), and
-    last ``{"ok": true, "device": {...}}``.
+14. prints the card, a ``{"kernels": [...]}`` line (all six kernels, each
+    with its ``share_of_bound``), and last ``{"ok": true, "device":
+    {...}}``.
 
 Needs one card; exits non-zero without one, and without the repository
 around it.
@@ -107,6 +111,7 @@ from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.fused_update import kernel, ops, ref  # noqa: E402
+from repro_torch.kernels.rmsnorm import kernel as rn_kernel  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rn_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as rn_ref  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
@@ -728,7 +733,11 @@ RMS_F32_TOL = dict(rtol=1e-5, atol=1e-5)
 RMS_BF16_TOL = dict(rtol=8e-3, atol=1e-5)
 FLASH_F32_TOL = dict(rtol=1e-5, atol=2e-5)
 RMS_ROWS = [1, 3, 4, 8, 6144]
-RMS_DIMS = [128, 2560]
+# widths around the kernel's register tiles: ragged (1, 7: the scalar
+# two-pass path), the smoke variants' 128, the models' 2304 (minicpm), 2560
+# (h2o-danube) and 3584 (gemma2), and the first width past the widest row
+# held in registers (two passes; 10,248 float32, 20,488 bf16)
+RMS_DIMS = [1, 7, 128, 2304, 2560, 3584, "register+8"]
 # the shape of the kernels line: a decode step of the serving path (4 slots)
 RMS_LINE_SHAPE = (4, 2560)
 # b, h, kv, sq, sk, hd, causal, window, softcap
@@ -741,6 +750,7 @@ FLASH_CASES = [
     (1, 4, 2, 77, 130, 80, False, None, None),      # bidirectional, ragged
     (1, 4, 4, 200, 200, 128, False, 37, None),      # bidirectional + window
     (1, 4, 2, 300, 300, 256, True, 100, 50.0),      # gemma2's head_dim 256
+    (1, 4, 2, 130, 130, 33, True, None, None),      # hd % 4 != 0: loads
     (1, 32, 8, 6144, 6144, 80, True, 4096, None),   # h2o-danube prefill
 ]
 DANUBE_FLASH_CASE = FLASH_CASES[-1]
@@ -785,9 +795,11 @@ def flash_sass() -> dict:
 def check_rmsnorm(device) -> dict:
     gen = torch.Generator(device=device).manual_seed(7)
     rows_out = {}
-    for d in RMS_DIMS:
+    for width in RMS_DIMS:
         for n in RMS_ROWS:
             for dtype in (torch.float32, torch.bfloat16):
+                d = width if width != "register+8" else \
+                    rn_kernel.max_register_d(dtype) + 8
                 x = torch.randn(n, d, generator=gen, device=device).to(dtype)
                 w = (0.1 * torch.randn(d, generator=gen, device=device)
                      ).to(dtype)
@@ -807,13 +819,18 @@ def check_rmsnorm(device) -> dict:
                 def plain_fn():
                     return rn_ref.rmsnorm_ref(x, w)
 
+                buf = torch.empty_like(x)
                 row = {"shape": [n, d], "dtype": str(dtype).split(".")[-1],
                        "max_abs_err": err,
                        "ms": graph_ms(kern), "call_ms": time_ms(kern),
                        "plain_ms": graph_ms(plain_fn),
                        "library_ms": graph_ms(
                            lambda: F.rms_norm(x, (d,), w1, 1e-6)),
+                       # the memory rate's yardstick: x copied, the same
+                       # bytes less w's (timed only)
+                       "copy_ms": graph_ms(lambda: buf.copy_(x)),
                        "bound_ms": bnd, "bound_by": bnd_by}
+                row["share_of_bound"] = bnd / row["ms"]
                 rows_out[(n, d, row["dtype"])] = row
                 print("rmsnorm_case " + json.dumps(row), flush=True)
     return rows_out
@@ -877,6 +894,7 @@ def check_flash(device) -> dict:
                    "library_ms": None if cap is not None
                    else graph_ms(library, iters),
                    "bound_ms": bnd, "bound_by": bnd_by}
+            row["share_of_bound"] = bnd / row["ms"]
             rows_out[(case, row["dtype"])] = row
             print("flash_case " + json.dumps(row), flush=True)
             del q, k, v, qt, kt, vt, ok
@@ -1309,7 +1327,8 @@ def main() -> None:
                 "max_abs_err": err, "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"],
-                "library_ms": row["library_ms"]}
+                "library_ms": row["library_ms"],
+                "share_of_bound": row["bound_ms"] / row["ms"]}
 
     print(card, flush=True)
     print(json.dumps({"kernels": [

@@ -26,25 +26,57 @@
 //
 // Two kernels behind one entry point, chosen by dtype:
 //
-// float32: flash_fwd_kernel, on the CUDA cores (there is no float32
-// tensor-core product that keeps float32's precision).  One block of 8
-// warps per (q tile of BQ = 64 rows, head, batch).
-// The TPU kernel's sequential kv grid axis becomes a loop inside the block
-// over kv tiles of BK = 64 keys, staged in shared memory (converted to
-// float32); kv tiles that the causal or window mask empties for the whole
-// q tile are never visited (the TPU kernel's block skip), and a warp skips
-// a tile that is empty for its own 8 rows.  Each warp owns 8 query rows.
-// Scores: lane l computes the scores of keys l and l + 32 for all 8 rows,
-// with 16-byte shared-memory loads (the q row is a broadcast; the k rows
-// use a row stride of round_up(hd, 8) + 4 floats, which keeps the lanes'
-// 16-byte loads free of bank conflicts).  The online softmax keeps m and l
-// per row, replicated across the warp (shuffle reductions), and guards
-// exp(m_prev - m_new) exactly as the TPU kernel does.  P goes through a
-// per-warp shared tile; for P V each lane owns the head dims l + 32 i,
-// i < NSLOT = ceil(hd / 32), so any head_dim up to 256 works, and dims past
-// hd are masked.  Heavy q tiles (late, under the causal mask) are scheduled
-// first.  Shared memory is (BQ + 2 BK) * stride * 4 + 16 KiB: 80 KiB at
-// hd = 80, 211 KiB at hd = 256 (dynamic shared memory above 48 KiB).
+// float32: flash_fwd_f32, on the CUDA cores (there is no float32
+// tensor-core product that keeps float32's precision; 3xTF32 is not
+// tried).  Every product is an FFMA, and an SM issues at most one warp
+// instruction a cycle per scheduler, so each shared-memory load, shuffle
+// or exponential in the inner loops takes the slot of an FFMA: the design
+// keeps the ratio of loads to FFMAs low, as an SGEMM does.
+//   * One block of 256 threads per (q tile of BQ rows, head, batch): BQ =
+//     128 up to hd_pad 128, 64 above; hd_pad = round_up(hd, 16), so the
+//     models' head dims (64, 80, 128, 256) compute no padding.  The TPU
+//     kernel's sequential kv grid axis is a loop over kv tiles of BK keys,
+//     64 up to hd_pad 112, 32 above.  Thread (ty, tx) = (threadIdx / 16,
+//     threadIdx % 16) owns the TM = BQ / 16 query rows ty TM .., the keys
+//     tx + 16 j, j < BK / 16, of every tile, and the head dims tx + 16 i,
+//     i < hd_pad / 16, of the output: the 16 threads of a row are one
+//     half-warp.
+//   * S = Q K^T as register micro-tiles: per 4 head dims a thread loads
+//     TM 16-byte rows of Q (a broadcast over its half-warp) and BK / 16 of
+//     K and does TM BK / 4 FFMAs (12 loads for 128 FFMAs at TM = 8, BK =
+//     64).  Q, K and V keep the model's row layout (hd contiguous), rows
+//     hd_pad + 4 floats apart, so the 16-byte loads of 8 neighbouring rows
+//     hit distinct banks.
+//   * The online softmax runs on the register tile in the exp2 domain
+//     (one FFMA folds the scale and the max, then the bare MUFU.EX2): the
+//     row max is reduced over the row's 16 threads by shuffles; each thread
+//     keeps its own share of the row sum, reduced once at the end.  The
+//     softcap is a uniform branch outside the per-element loop; the mask is
+//     applied only on tiles that straddle the diagonal, the window edge or
+//     the ragged Sk; the accumulator is rescaled only when some row of the
+//     warp has a new max.  The guards are the TPU kernel's: m_new >
+//     NEG_INF / 2, alpha = 0 on a row's first live tile, 0 for a row with
+//     no key.
+//   * O += P V: P goes to shared memory transposed (key-major; 16-byte
+//     stores) and stays inside the half-warp that owns the rows, so a
+//     __syncwarp orders it.  Per key a thread loads TM / 4 16-byte
+//     vectors of P and hd_pad / 16 scalars of V (16 consecutive floats per
+//     half-warp) and does TM hd_pad / 16 FFMAs (7 loads for 40 FFMAs at hd
+//     80).
+//   * K/V tiles arrive in a ring of two stages by 16-byte cp.async (.cg)
+//     copies: tile t + 1's copies are issued right after the one barrier
+//     of tile t, so they land while tile t is computed; rows past Sk and
+//     chunks past hd are zero-filled by a source size of 0.  hd % 4 != 0
+//     or a misaligned operand takes ordinary loads into the same layout.
+//   * kv tiles that the causal or window mask empties for the whole q tile
+//     are never visited (the TPU kernel's block skip), a warp skips a tile
+//     that is empty for its own rows, and heavy q tiles (late, under the
+//     causal mask) are scheduled first.
+//   * Shared memory: (BQ + 4 BK) (hd_pad + 4) + BK (BQ + 4) floats,
+//     159 KiB at hd 80, 203.5 KiB at hd 256: one block of 8 warps an SM,
+//     whose registers are not capped (228 a thread at hd 80; no
+//     instantiation spills).  Two blocks an SM, with 32-key tiles and 128
+//     registers, spilled and ran slower.
 //
 // bf16: flash_fwd_wgmma, on the tensor cores.  Both products are Hopper's
 // warpgroup MMA (wgmma.mma_async, bf16 operands, float32 accumulators in
@@ -103,259 +135,404 @@
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int R = BQ / WARPS;   // query rows per warp
-constexpr int KPL = BK / 32;    // keys per lane
 constexpr int MAX_HD = 256;
 constexpr float NEG_INF = -1e30f;
 constexpr int MAX_DEVICES = 64;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
+// ===========================================================================
+// float32: flash_fwd_f32, on the CUDA cores (see the header)
+// ===========================================================================
+
+namespace cc {
+
+constexpr int THREADS = 256;
+constexpr int STAGES = 2;               // K/V tiles in the ring
+// keys per K/V tile: 64 up to hd_pad 112, 32 above, which keeps hd_pad 128
+// and 256 within the 227 KiB a block may use
+template <int HDP>
+__host__ __device__ constexpr int bk() {
+  return HDP <= 112 ? 64 : 32;
+}
+constexpr float LOG2E = 1.4426950408889634f;
+
+// query rows per thread (TM) and per block (BQ = 16 TM): 128-row blocks up
+// to hd_pad 128, 64-row blocks above, which keeps hd 256 within 227 KiB
+template <int HDP>
+__host__ __device__ constexpr int tm() {
+  return HDP <= 128 ? 8 : 4;
 }
 
-__host__ __device__ __forceinline__ int row_stride(int hd) {
-  return ((hd + 7) / 8) * 8 + 4;
+template <int HDP>
+__host__ __device__ constexpr int bq() {
+  return 16 * tm<HDP>();
 }
 
-__host__ __device__ __forceinline__ size_t smem_bytes(int hd) {
-  return (size_t)(BQ + 2 * BK) * row_stride(hd) * sizeof(float) +
-         (size_t)WARPS * R * BK * sizeof(float);
+// Q (BQ rows), the K and V ring (STAGES x BK rows each), rows of hd_pad + 4
+// floats, and P^T (BK rows of BQ + 4 floats)
+template <int HDP>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return ((size_t)(bq<HDP>() + 2 * STAGES * bk<HDP>()) * (HDP + 4) +
+          (size_t)bk<HDP>() * (bq<HDP>() + 4)) * sizeof(float);
 }
 
-// Stage rows [row0, row0 + nrows) of one head of a (B, S, NH, hd) tensor
-// into a (nrows, stride) float32 tile; rows past S and columns past hd are 0.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
-                                      int b, int row0, int nrows, int S,
-                                      int NH, int head, int hd, int stride) {
-  for (int e = threadIdx.x; e < nrows * stride; e += THREADS) {
-    const int r = e / stride;
-    const int c = e - r * stride;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// 2^x on the special-function unit (MUFU.EX2, relative error ~2^-22);
+// x below -126 gives 0, as a probability that small should.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Rows [row0, row0 + ROWS) of one head of a (B, S, heads, hd) tensor into
+// a (ROWS, hd_pad + 4) float32 tile; rows past S and columns past hd are
+// zeros.  vec (hd % 4 == 0, 16-byte aligned operands): 16-byte cp.async
+// copies, which the caller commits, zero-filled by a source size of 0;
+// else ordinary loads and stores.  A thread's chunks sit at the same
+// places in every tile (a fixed trip count), so their offsets are
+// computed once.
+template <int ROWS, int HDP>
+__device__ __forceinline__ void load_rows(float* dst,
+                                          const float* __restrict__ src,
+                                          long long row_stride, int row0,
+                                          int S, int hd, bool vec) {
+  constexpr int LD = HDP + 4;
+  if (vec) {
+    constexpr int HC = HDP / 4;   // 16-byte chunks of a row
+    constexpr int CHUNKS = ROWS * HC;
+    constexpr int PER_THREAD = (CHUNKS + THREADS - 1) / THREADS;
+    const uint32_t base = smem_addr(dst);
+#pragma unroll
+    for (int i = 0; i < PER_THREAD; ++i) {
+      const int e = threadIdx.x + i * THREADS;
+      if (CHUNKS % THREADS == 0 || e < CHUNKS) {
+        const int r = e / HC;
+        const int c = e - r * HC;
+        const int s = row0 + r;
+        const bool ok = s < S && 4 * c < hd;
+        // a 32-bit offset from the tile's first row (r < 128 rows of at
+        // most 65,535 heads x 256 dims), so the offsets a thread keeps
+        // across the kv loop take one register each
+        const float* p = src + (long long)row0 * row_stride +
+                         (uint32_t)(r * (uint32_t)row_stride + 4 * c);
+        cp_async16(base + 4 * (r * LD + 4 * c), ok ? p : src, ok ? 16 : 0);
+      }
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < ROWS * HDP; e += THREADS) {
+    const int r = e / HDP;
+    const int c = e - r * HDP;
     const int s = row0 + r;
-    float val = 0.f;
-    if (s < S && c < hd)
-      val = to_f32(src[(((long long)b * S + s) * NH + head) * hd + c]);
-    dst[e] = val;
+    dst[r * LD + c] =
+        s < S && c < hd ? src[(long long)s * row_stride + c] : 0.f;
   }
 }
 
-template <typename T, int NSLOT>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int H, int KV,
-                 int Sq, int Sk, int hd, int causal, int window,
-                 float softcap, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int stride = row_stride(hd);
-  float* Qs = smem;
-  float* Ks = Qs + BQ * stride;
-  float* Vs = Ks + BK * stride;
-  float* Ps = Vs + BK * stride;          // (WARPS, R, BK)
+// one block an SM, stated: without it ptxas caps hd_pad 144-240 at 128
+// registers (two blocks) and spills
+template <int HDP>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ out, int H,
+              int KV, int Sq, int Sk, int hd, int causal, int window,
+              float softcap, float scale, int vec) {
+  constexpr int TM = tm<HDP>();
+  constexpr int BQ = bq<HDP>();
+  constexpr int BK = bk<HDP>();
+  constexpr int TN = BK / 16;      // keys per thread in S = Q K^T
+  constexpr int LD = HDP + 4;      // row stride of Q, K and V, floats
+  constexpr int PLD = BQ + 4;      // row stride of P^T
+  constexpr int TD = HDP / 16;     // head dims per thread in O
+  // P V unrolled in steps of 32 keys up to hd_pad 128, of 8 above (TM =
+  // 4, up to 16 head dims a thread): a 64-key tile unrolled whole ran
+  // slower at hd 80
+  constexpr int PV_UNROLL = HDP <= 128 ? 32 : 8;
+  extern __shared__ __align__(16) float smem_cc[];
+  float* Qs = smem_cc;
+  float* Ks = Qs + BQ * LD;
+  float* Vs = Ks + STAGES * BK * LD;
+  float* Pt = Vs + STAGES * BK * LD;
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int qt = gridDim.x - 1 - blockIdx.x;   // heavy (late) tiles first
-  const int q0 = qt * BQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heavy (late) first
   const int kvh = h / (H / KV);
+  const int tx = threadIdx.x & 15;   // keys tx + 16 j of S, dims tx + 16 i
+  const int ty = threadIdx.x >> 4;   // rows ty TM .. ty TM + TM - 1
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* Pw = Ps + warp * R * BK;
-
-  stage(Qs, q, b, q0, BQ, Sq, H, h, hd, stride);
-
-  const int wq0 = q0 + warp * R;                     // the warp's first row
-  const int wq1 = min(wq0 + R - 1, Sq - 1);          // and its last
+  const int row0 = q0 + ty * TM;                     // this thread's rows
+  const int wq0 = q0 + warp * 2 * TM;                // and its warp's
+  const int wq1 = min(wq0 + 2 * TM - 1, Sq - 1);
   const int blk_q1 = min(q0 + BQ - 1, Sq - 1);
   const int k_end = causal ? min(Sk, blk_q1 + 1) : Sk;
   int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   k_begin = (k_begin / BK) * BK;
-  const int cols = ((hd + 3) / 4) * 4;
+  const int ntiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
-  float m[R], l[R], acc[R][NSLOT];
+  // each operand's row 0 of this (batch, head)
+  const float* qh = q + ((long long)b * Sq * H + h) * hd;
+  const float* kh = k + ((long long)b * Sk * KV + kvh) * hd;
+  const float* vh = v + ((long long)b * Sk * KV + kvh) * hd;
+  const long long q_stride = (long long)H * hd;
+  const long long kv_stride = (long long)KV * hd;
+  // prologue: Q with K/V tile 0 in one copy group
+  load_rows<BQ, HDP>(Qs, qh, q_stride, q0, Sq, hd, vec);
+  if (ntiles > 0) {
+    load_rows<BK, HDP>(Ks, kh, kv_stride, k_begin, Sk, hd, vec);
+    load_rows<BK, HDP>(Vs, vh, kv_stride, k_begin, Sk, hd, vec);
+  }
+  cp_async_commit();
+
+  // The scores go to the exp2 domain as x * mult: x is s itself, or
+  // tanh(s * scale / softcap) under a softcap.
+  const float mult = softcap > 0.f ? softcap * LOG2E : scale * LOG2E;
+  const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
+  float o[TM][TD];
+  float m[TM], l[TM];   // row maxima (exp2 domain); this thread's row sums
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
+  for (int r = 0; r < TM; ++r) {
     m[r] = NEG_INF;
     l[r] = 0.f;
 #pragma unroll
-    for (int i = 0; i < NSLOT; ++i) acc[r][i] = 0.f;
+    for (int i = 0; i < TD; ++i) o[r][i] = 0.f;
   }
 
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    __syncthreads();                                 // last tile's reads done
-    stage(Ks, k, b, k0, BK, Sk, KV, kvh, hd, stride);
-    stage(Vs, v, b, k0, BK, Sk, KV, kvh, hd, stride);
-    __syncthreads();
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = k_begin + t * BK;
+    const float* Kt = Ks + (t % STAGES) * BK * LD;
+    const float* Vt = Vs + (t % STAGES) * BK * LD;
+    cp_async_wait_all();
+    __syncthreads();   // tile t is in; every warp is done with tile t - 1
+    if (t + 1 < ntiles) {   // into the stage that tile t - 1 used
+      const int st = (t + 1) % STAGES;
+      load_rows<BK, HDP>(Ks + st * BK * LD, kh, kv_stride, k0 + BK, Sk, hd,
+                         vec);
+      load_rows<BK, HDP>(Vs + st * BK * LD, vh, kv_stride, k0 + BK, Sk, hd,
+                         vec);
+    }
+    cp_async_commit();
 
     bool run = wq0 < Sq;
     if (causal) run = run && k0 <= wq1;
     if (window > 0) run = run && (k0 + BK - 1) > wq0 - window;
-    if (!run) continue;                              // warp-uniform
+    if (!run) continue;   // warp-uniform
 
-    // ---- scores s[r][j] = q_r . k_(lane + 32 j) -------------------------
-    float s[R][KPL];
+    // ---- S = Q K^T: TM rows x TN keys a thread, 16-byte loads along hd ----
+    float s[TM][TN];
 #pragma unroll
-    for (int r = 0; r < R; ++r)
+    for (int r = 0; r < TM; ++r)
 #pragma unroll
-      for (int j = 0; j < KPL; ++j) s[r][j] = 0.f;
-    for (int c = 0; c < cols; c += 4) {
-      float4 kv[KPL];
+      for (int j = 0; j < TN; ++j) s[r][j] = 0.f;
 #pragma unroll
-      for (int j = 0; j < KPL; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(
-            &Ks[(lane + 32 * j) * stride + c]);
+    for (int c = 0; c < HDP; c += 4) {
+      float4 kf[TN];
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(
-            &Qs[(warp * R + r) * stride + c]);
+      for (int j = 0; j < TN; ++j)
+        kf[j] = *reinterpret_cast<const float4*>(Kt + (tx + 16 * j) * LD + c);
 #pragma unroll
-        for (int j = 0; j < KPL; ++j) {
+      for (int r = 0; r < TM; ++r) {
+        const float4 qf =
+            *reinterpret_cast<const float4*>(Qs + (ty * TM + r) * LD + c);
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
           float a = s[r][j];
-          a = fmaf(qv.x, kv[j].x, a);
-          a = fmaf(qv.y, kv[j].y, a);
-          a = fmaf(qv.z, kv[j].z, a);
-          a = fmaf(qv.w, kv[j].w, a);
+          a = fmaf(qf.x, kf[j].x, a);
+          a = fmaf(qf.y, kf[j].y, a);
+          a = fmaf(qf.z, kf[j].z, a);
+          a = fmaf(qf.w, kf[j].w, a);
           s[r][j] = a;
         }
       }
     }
 
-    // ---- mask, online softmax, P to shared memory -------------------------
+    // ---- softcap, mask, online softmax --------------------------------------
+    if (softcap > 0.f) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int qp = wq0 + r;
-      float mx = NEG_INF;
+      for (int r = 0; r < TM; ++r)
 #pragma unroll
-      for (int j = 0; j < KPL; ++j) {
-        const int kp = k0 + lane + 32 * j;
-        float x = s[r][j] * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        bool ok = kp < Sk && qp < Sq;
-        if (causal) ok = ok && kp <= qp;
-        if (window > 0) ok = ok && kp > qp - window;
-        x = ok ? x : NEG_INF;
-        s[r][j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[r], mx);
-      const bool live = m_new > NEG_INF / 2;
-      const float alpha = m[r] > NEG_INF / 2 ? expf(m[r] - m_new) : 0.f;
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < KPL; ++j) {
-        const float p = live ? expf(s[r][j] - m_new) : 0.f;
-        Pw[r * BK + lane + 32 * j] = p;
-        psum += p;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      l[r] = alpha * l[r] + psum;
-#pragma unroll
-      for (int i = 0; i < NSLOT; ++i) acc[r][i] *= alpha;
-      m[r] = m_new;
+        for (int j = 0; j < TN; ++j) s[r][j] = tanhf(s[r][j] * cap_in);
     }
-    __syncwarp();
-
-    // ---- acc += P V: lane owns head dims lane + 32 i ----------------------
-    for (int jj = 0; jj < BK; jj += 4) {
-      float4 p4[R];
+    if (k0 + BK > Sk || (causal && k0 + BK - 1 > wq0) ||
+        (window > 0 && k0 <= wq1 - window)) {   // the tile straddles an edge
 #pragma unroll
-      for (int r = 0; r < R; ++r)
-        p4[r] = *reinterpret_cast<const float4*>(&Pw[r * BK + jj]);
+      for (int r = 0; r < TM; ++r) {
+        const int qp = row0 + r;
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-#pragma unroll
-        for (int i = 0; i < NSLOT; ++i) {
-          const int dd = lane + 32 * i;
-          const float vv = dd < hd ? Vs[(jj + t) * stride + dd] : 0.f;
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            const float p = t == 0 ? p4[r].x : t == 1 ? p4[r].y
-                          : t == 2 ? p4[r].z : p4[r].w;
-            acc[r][i] = fmaf(p, vv, acc[r][i]);
-          }
+        for (int j = 0; j < TN; ++j) {
+          const int kp = k0 + tx + 16 * j;
+          bool ok = kp < Sk;
+          if (causal) ok = ok && kp <= qp;
+          if (window > 0) ok = ok && kp > qp - window;
+          s[r][j] = ok ? s[r][j] : NEG_INF;
         }
       }
     }
+    bool moved = false;
+    float alpha[TM];
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      float mx = s[r][0];
+#pragma unroll
+      for (int j = 1; j < TN; ++j) mx = fmaxf(mx, s[r][j]);
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)   // the row's 16 threads
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[r], mx > NEG_INF / 2 ? mx * mult : NEG_INF);
+      alpha[r] = m[r] > NEG_INF / 2 ? fast_exp2(m[r] - m_new) : 0.f;
+      moved = moved || alpha[r] != 1.f;
+      // a row with no live key yet: every x is NEG_INF and p = 2^-huge = 0
+      const float msub = m_new > NEG_INF / 2 ? m_new : 0.f;
+      m[r] = m_new;
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        s[r][j] = fast_exp2(fmaf(s[r][j], mult, -msub));
+        psum += s[r][j];
+      }
+      l[r] = alpha[r] * l[r] + psum;
+    }
+    // P^T to shared memory: the rows of a thread are its half-warp's, so
+    // the exchange stays inside the warp
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+#pragma unroll
+      for (int r = 0; r < TM; r += 4)
+        *reinterpret_cast<float4*>(Pt + (tx + 16 * j) * PLD + ty * TM + r) =
+            make_float4(s[r][j], s[r + 1][j], s[r + 2][j], s[r + 3][j]);
+    // the accumulator needs rescaling only where a row's max moved
+    if (__any_sync(0xffffffffu, moved)) {
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+#pragma unroll
+        for (int i = 0; i < TD; ++i) o[r][i] *= alpha[r];
+    }
     __syncwarp();
+
+    // ---- O += P V: TM rows x TD head dims (tx + 16 i) a thread -----------
+#pragma unroll PV_UNROLL
+    for (int kk = 0; kk < BK; ++kk) {
+      float p[TM];
+#pragma unroll
+      for (int r = 0; r < TM; r += 4) {
+        const float4 pf =
+            *reinterpret_cast<const float4*>(Pt + kk * PLD + ty * TM + r);
+        p[r] = pf.x;
+        p[r + 1] = pf.y;
+        p[r + 2] = pf.z;
+        p[r + 3] = pf.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TD; ++i) {
+        const float vv = Vt[kk * LD + tx + 16 * i];
+#pragma unroll
+        for (int r = 0; r < TM; ++r) o[r][i] = fmaf(p[r], vv, o[r][i]);
+      }
+    }
   }
+  cp_async_wait_all();   // no copy outlives the block
 
   // ---- out = acc / l (0 for a row with no key) -----------------------------
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int qp = wq0 + r;
-    if (qp >= Sq) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-    T* orow = out + (((long long)b * Sq + qp) * H + h) * hd;
+  for (int r = 0; r < TM; ++r) {
+    float lsum = l[r];
 #pragma unroll
-    for (int i = 0; i < NSLOT; ++i) {
-      const int dd = lane + 32 * i;
-      if (dd < hd) orow[dd] = from_f32<T>(acc[r][i] / denom);
+    for (int off = 1; off < 16; off <<= 1)
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, off);
+    const int qp = row0 + r;
+    if (qp >= Sq) continue;
+    const float denom = fmaxf(lsum, 1e-30f);
+    float* orow = out + (((long long)b * Sq + qp) * H + h) * hd;
+#pragma unroll
+    for (int i = 0; i < TD; ++i) {
+      const int dd = tx + 16 * i;
+      if (dd < hd) orow[dd] = o[r][i] / denom;
     }
   }
 }
 
-template <typename T, int NSLOT>
-int launch_nslot(const void* q, const void* k, const void* v, void* out,
-                 int B, int H, int KV, int Sq, int Sk, int hd, int causal,
-                 int window, float softcap, float scale, cudaStream_t s) {
-  const size_t smem = smem_bytes(hd);
-  auto kernel = flash_fwd_kernel<T, NSLOT>;
-  // Allow the largest tile this instantiation uses (hd = 32 * NSLOT), once
-  // per device: the first launch on a device sets it, so a launch captured
-  // into a CUDA graph later makes no attribute call.
+template <int HDP>
+int launch_hdp(const void* q, const void* k, const void* v, void* out, int B,
+               int H, int KV, int Sq, int Sk, int hd, int causal, int window,
+               float softcap, float scale, cudaStream_t s) {
+  constexpr size_t smem = smem_bytes<HDP>();
+  static_assert(smem <= 227 * 1024, "a block takes at most 227 KiB");
+  auto kernel = flash_fwd_f32<HDP>;
+  // once per device: a launch captured into a CUDA graph later makes no
+  // attribute call
   static bool configured[MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= MAX_DEVICES) return -1;
   if (!configured[dev]) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_bytes(32 * NSLOT));
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     configured[dev] = true;
   }
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  const uintptr_t addr_bits = reinterpret_cast<uintptr_t>(q) |
+                              reinterpret_cast<uintptr_t>(k) |
+                              reinterpret_cast<uintptr_t>(v);
+  const int vec = hd % 4 == 0 && addr_bits % 16 == 0;
+  dim3 grid((Sq + bq<HDP>() - 1) / bq<HDP>(), H, B);
   kernel<<<grid, THREADS, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), H, KV, Sq, Sk, hd,
-      causal, window, softcap, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), H, KV, Sq, Sk,
+      hd, causal, window, softcap, scale, vec);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_typed(const void* q, const void* k, const void* v, void* out,
-                 int B, int H, int KV, int Sq, int Sk, int hd, int causal,
-                 int window, float softcap, float scale, cudaStream_t s) {
-#define FLASH_CASE(N)                                                        \
-  case N:                                                                    \
-    return launch_nslot<T, N>(q, k, v, out, B, H, KV, Sq, Sk, hd, causal,    \
-                              window, softcap, scale, s);
-  switch ((hd + 31) / 32) {
-    FLASH_CASE(1)
-    FLASH_CASE(2)
-    FLASH_CASE(3)
-    FLASH_CASE(4)
-    FLASH_CASE(5)
-    FLASH_CASE(6)
-    FLASH_CASE(7)
-    FLASH_CASE(8)
+// one instantiation per hd_pad = round_up(hd, 16)
+int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
+               int H, int KV, int Sq, int Sk, int hd, int causal, int window,
+               float softcap, float scale, cudaStream_t s) {
+#define FLASH_CC_CASE(N)                                                    \
+  case N / 16:                                                              \
+    return launch_hdp<N>(q, k, v, out, B, H, KV, Sq, Sk, hd, causal, window, \
+                         softcap, scale, s);
+  switch ((hd + 15) / 16) {
+    FLASH_CC_CASE(16)
+    FLASH_CC_CASE(32)
+    FLASH_CC_CASE(48)
+    FLASH_CC_CASE(64)
+    FLASH_CC_CASE(80)
+    FLASH_CC_CASE(96)
+    FLASH_CC_CASE(112)
+    FLASH_CC_CASE(128)
+    FLASH_CC_CASE(144)
+    FLASH_CC_CASE(160)
+    FLASH_CC_CASE(176)
+    FLASH_CC_CASE(192)
+    FLASH_CC_CASE(208)
+    FLASH_CC_CASE(224)
+    FLASH_CC_CASE(240)
+    FLASH_CC_CASE(256)
     default:
       return -1;
   }
-#undef FLASH_CASE
+#undef FLASH_CC_CASE
 }
 
+}  // namespace cc
 
 // ===========================================================================
 // bf16: flash_fwd_wgmma, on the tensor cores (see the header)
@@ -897,7 +1074,7 @@ extern "C" {
 int flash_attention_max_head_dim() { return MAX_HD; }
 
 // q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd); out: (B, Sq, H, hd); all
-// contiguous.  dtype: 0 = float32 (flash_fwd_kernel), 1 = bf16
+// contiguous.  dtype: 0 = float32 (flash_fwd_f32), 1 = bf16
 // (flash_fwd_wgmma).  window <= 0: no window; softcap <= 0: no softcap.
 // Returns 0, a CUDA error code, or -1 for arguments the kernel does not
 // take.
@@ -909,8 +1086,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   if (B == 0 || H == 0 || Sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_typed<float>(q, k, v, out, B, H, KV, Sq, Sk, hd, causal,
-                               window, softcap, scale, s);
+    return cc::launch_f32(q, k, v, out, B, H, KV, Sq, Sk, hd, causal,
+                          window, softcap, scale, s);
   if (dtype == 1)
     return tc::launch_bf16(q, k, v, out, B, H, KV, Sq, Sk, hd, causal,
                            window, softcap, scale, s);

@@ -18,7 +18,8 @@ import torch
 
 from .. import _build
 
-__all__ = ["SOURCE", "DTYPES", "library", "max_d", "rmsnorm_launch"]
+__all__ = ["SOURCE", "DTYPES", "library", "max_d", "max_register_d",
+           "rmsnorm_launch"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu"
 
@@ -38,13 +39,21 @@ def library() -> ctypes.CDLL:
     lib.rmsnorm_launch.restype = ctypes.c_int
     lib.rmsnorm_max_d.argtypes = [ctypes.c_int]
     lib.rmsnorm_max_d.restype = ctypes.c_int
+    lib.rmsnorm_max_register_d.argtypes = [ctypes.c_int]
+    lib.rmsnorm_max_register_d.restype = ctypes.c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def max_d(dtype: torch.dtype) -> int:
-    """The widest row the kernel takes (the row lives in shared memory)."""
+    """The widest row the kernel takes."""
     return library().rmsnorm_max_d(torch.finfo(dtype).bits // 8)
+
+
+@functools.lru_cache(maxsize=None)
+def max_register_d(dtype: torch.dtype) -> int:
+    """The widest row held in registers; wider rows take two passes."""
+    return library().rmsnorm_max_register_d(torch.finfo(dtype).bits // 8)
 
 
 def rmsnorm_launch(x2: torch.Tensor, weight: torch.Tensor, out: torch.Tensor,

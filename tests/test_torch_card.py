@@ -28,6 +28,7 @@ from repro_torch.data import synthetic
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.fused_update import kernel, ops, ref
+from repro_torch.kernels.rmsnorm import kernel as rn_kernel
 from repro_torch.kernels.rmsnorm import ops as rn_ops, ref as rn_ref
 from repro_torch.models import transformer
 from repro_torch.serve.engine import ResidentEngine
@@ -292,6 +293,43 @@ def test_rmsnorm_kernel_matches_plain_version_on_card(cuda_device, rows, d,
     torch.testing.assert_close(got, rn_ref.rmsnorm_ref(x, w), **RMS_TOL[dtype])
 
 
+# the row widths around the kernel's register tiles: the models' widths
+# (minicpm 2304, h2o-danube 2560, gemma2 3584, the smoke variants 128), a
+# ragged d (1, 7: the scalar two-pass path), one vector of float32 (4) or
+# one bf16 vector (8), the widest rows of the two-warp tile of 4 vectors a
+# lane (1024 float32, 2048 bf16), and by name the widest row held in
+# registers, the first one past it (two passes) and the widest the kernel
+# takes
+RMS_EDGE_DIMS = [1, 7, 8, 128, 1024, 2048, 2304, 2560, 3584, "register",
+                 "register+8", "max"]
+
+
+def _rms_width(d, dtype):
+    if d == "register":
+        return rn_kernel.max_register_d(dtype)
+    if d == "register+8":
+        return rn_kernel.max_register_d(dtype) + 8
+    if d == "max":
+        return rn_kernel.max_d(dtype)
+    return d
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 4, 133, 6144])
+@pytest.mark.parametrize("d", RMS_EDGE_DIMS)
+def test_rmsnorm_kernel_matches_plain_version_at_the_tile_edges(
+        cuda_device, d, rows, dtype):
+    d = _rms_width(d, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + d)
+    x = torch.randn(rows, d, generator=gen, device=cuda_device).to(dtype)
+    w = (0.1 * torch.randn(d, generator=gen, device=cuda_device)).to(dtype)
+    before = rn_ops.launches
+    got = rn_ops.rmsnorm(x, w)
+    assert rn_ops.launches == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, rn_ref.rmsnorm_ref(x, w), **RMS_TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_takes_strided_rows(cuda_device, dtype):
     x = torch.randn(3, 9, 256, device=cuda_device).to(dtype)
@@ -299,6 +337,26 @@ def test_rmsnorm_kernel_takes_strided_rows(cuda_device, dtype):
     torch.testing.assert_close(rn_ops.rmsnorm(x[:, -1:], w),
                                rn_ref.rmsnorm_ref(x[:, -1:], w),
                                **RMS_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [2304, 2560, 3584])
+def test_rmsnorm_kernel_takes_strided_and_misaligned_rows_of_model_width(
+        cuda_device, d, dtype):
+    """x[:, -1] of a (B, L, d) batch read in place (the register tiles), and
+    rows that start one element into a buffer (not 16-byte aligned: the
+    scalar two-pass path)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    x = torch.randn(5, 3, d, generator=gen, device=cuda_device).to(dtype)
+    w = (0.1 * torch.randn(d, generator=gen, device=cuda_device)).to(dtype)
+    torch.testing.assert_close(rn_ops.rmsnorm(x[:, -1], w),
+                               rn_ref.rmsnorm_ref(x[:, -1], w),
+                               **RMS_TOL[dtype])
+    flat = torch.randn(133 * d + 1, generator=gen, device=cuda_device)
+    odd = flat.to(dtype)[1:].view(133, d)
+    assert odd.data_ptr() % 16 != 0
+    torch.testing.assert_close(rn_ops.rmsnorm(odd, w),
+                               rn_ref.rmsnorm_ref(odd, w), **RMS_TOL[dtype])
 
 
 def test_rmsnorm_kernel_rejects_what_it_does_not_take(cuda_device):
@@ -344,6 +402,25 @@ FLASH_CARD_CASES = [
 ]
 
 
+# the float32 kernel's edges: hd_pad = round_up(hd, 16) buckets (1, 3, 33
+# and 255 take ordinary loads: hd % 4 != 0), 128-row q blocks (64 above
+# hd_pad 128), kv tiles of 64 keys (32 above hd_pad 112), GQA 1/2/4/8, a
+# window narrower than a tile, the softcap
+FLASH_F32_CARD_CASES = [
+    (1, 2, 2, 130, 130, 1, True, None, None),       # hd 1, GQA 1
+    (1, 4, 2, 97, 97, 3, True, None, None),         # hd 3
+    (1, 4, 1, 129, 161, 4, True, None, None),       # hd 4, GQA 4, sk > sq
+    (1, 8, 1, 200, 200, 33, True, None, None),      # hd 33, GQA 8
+    (2, 8, 1, 150, 150, 64, True, 20, None),        # window 20 < 64 keys
+    (1, 4, 2, 257, 257, 80, True, None, 30.0),      # softcap, two q blocks
+    (1, 4, 2, 300, 300, 80, True, 4096, None),      # danube's shape, short
+    (1, 4, 4, 131, 95, 96, False, None, None),      # bidirectional, sk < sq
+    (1, 4, 2, 140, 140, 128, True, 48, None),       # hd 128, 128-row block
+    (1, 2, 1, 70, 70, 255, True, None, None),       # hd 255, 64-row block
+    (1, 2, 2, 65, 200, 256, False, 17, 20.0),       # hd 256, narrow window
+]
+
+
 def _flash_check(got, q, k, v, kw):
     """got against the plain version on the float32 values of q, k, v:
     float32 at FLASH_F32_TOL, bf16 within fa_ref.bf16_bound."""
@@ -363,6 +440,11 @@ def _flash_check(got, q, k, v, kw):
 @pytest.mark.parametrize("case", FLASH_CARD_CASES)
 def test_flash_kernel_matches_plain_version_on_card(cuda_device, case,
                                                     dtype):
+    _flash_case(cuda_device, case, dtype)
+
+
+def _flash_case(cuda_device, case, dtype):
+    """One launch on the case's seeded inputs, held by _flash_check."""
     b, h, kv, sq, sk, hd, causal, win, cap = case
     gen = torch.Generator(device=cuda_device).manual_seed(sq * hd)
     q, k, v = (torch.randn(b, s, n, hd, generator=gen,
@@ -374,6 +456,27 @@ def test_flash_kernel_matches_plain_version_on_card(cuda_device, case,
     assert fa_ops.launches == before + 1
     torch.cuda.synchronize()
     assert got.dtype == dtype
+    _flash_check(got, q, k, v, kw)
+
+
+@pytest.mark.parametrize("case", FLASH_F32_CARD_CASES)
+def test_flash_f32_kernel_matches_plain_version_at_its_tile_edges(
+        cuda_device, case):
+    _flash_case(cuda_device, case, torch.float32)
+
+
+@pytest.mark.parametrize("hd", [16, 80, 256])
+def test_flash_f32_kernel_gives_zero_for_rows_with_no_key(cuda_device, hd):
+    """Bidirectional with a window: rows past Sk + window - 1 keep no key;
+    they span whole q blocks and kv tiles."""
+    q, k, v = (torch.randn(1, s, 4, hd, device=cuda_device)
+               for s in (300, 40, 40))
+    kw = dict(causal=False, sliding_window=10)
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    dead = ~fa_ref.mask(300, 40, causal=False, sliding_window=10,
+                        device=cuda_device).any(dim=-1)
+    assert int(dead.sum()) == 300 - 49
+    assert torch.equal(got[0, dead], torch.zeros_like(got[0, dead]))
     _flash_check(got, q, k, v, kw)
 
 

@@ -56,6 +56,21 @@ def test_plain_version_matches_the_jax_oracle(shape, dtype):
                                np.asarray(want, np.float32), **TOL[dtype])
 
 
+# the widths around the CUDA kernel's register tiles (tests/test_torch_card.py
+# :RMS_EDGE_DIMS): ragged 1 and 7, one bf16 vector 8, the models' 2304, 2560
+# and 3584, and the first row past the float32 register tile
+@pytest.mark.parametrize("shape", [(4, 1), (4, 7), (4, 8), (4, 2304),
+                                   (133, 2560), (4, 3584), (1, 10248)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wrapper_matches_the_jax_oracle_at_the_tile_edge_widths(shape, dtype):
+    x, w = _inputs(shape, dtype, seed=2)
+    got = ops.rmsnorm(_torch(x, dtype), _torch(w, dtype))
+    want = jref.rmsnorm_ref(_jax(x, dtype), _jax(w, dtype))
+    assert tuple(got.shape) == shape and got.dtype == TORCH_DTYPES[dtype]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **TOL[dtype])
+
+
 @pytest.mark.parametrize("shape", [(8, 128), (3, 7, 64), (5, 256)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_wrapper_matches_the_jax_kernel_in_interpret_mode(shape, dtype):

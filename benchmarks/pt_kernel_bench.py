@@ -29,9 +29,17 @@ bytes each call must move over the H100's 3.35 TB/s.
   lowers to the fused kernel's mix matrix, and the fused run's launch
   count (on a card) equals its inner steps;
 
+* large d, moving: the same loopless DPSVRG runs on the same stack with
+  l1 at ``MOVING_LAM`` = 1e-4 (untimed).  At the reference's lam = 0.01
+  every coordinate's step stays under the l1 threshold at d = 131,072 and
+  the iterate never leaves 0, so that row's histories compare zeros; at
+  1e-4 it moves, and ``nonzero`` counts the fused run's nonzero final
+  parameters (the section raises if it is 0);
+
 with the fused histories held to the plain ones at rtol 1e-4 / atol 1e-6,
 as the reference holds them, plus the buffer-level step (``_step_buf_
-stats``).  ``--json`` MERGES that dict as a ``"kernels"`` section into
+stats``).  Each fused run reports its CUDA graphs (``graphs_built``,
+``replays``; 0 off the card).  ``--json`` MERGES that dict as a ``"kernels"`` section into
 PATH (default ``BENCH_torch.json``), keeping the file's other sections.
 
 Runs on the CUDA device by default; without a card it raises unless given
@@ -56,6 +64,7 @@ from repro_torch.kernels.fused_update import ops as fu_ops, ref as fu_ref
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 LARGE_D = 131072
+MOVING_LAM = 1e-4             # an l1 weight at which the large-d iterate moves
 ROWS = 2048                   # (2048, 1024) float32: 8 MiB per stream
 ALPHA, THRESH = 0.05, 0.01
 W_MIX = (1 / 3, 1 / 3, 1 / 3)
@@ -169,6 +178,12 @@ def run(scale: float = 0.02, device="cuda", rows: int = ROWS,
         f"{ld['speedup_fused_vs_plain']:.2f}x vs plain "
         f"({ld['plain_ms_per_step']:.3f} ms/step), hist_diff="
         f"{ld['history_max_abs_diff']:.1e}", ld))
+    mv = ks["large_d_moving"]
+    out.append(common.Row(
+        "kernel/resident_large_d_moving", 0.0,
+        f"d={mv['param_dim']} lam={mv['lam']} nonzero={mv['nonzero']}/"
+        f"{mv['params']} fused vs plain hist_diff="
+        f"{mv['history_max_abs_diff']:.1e}", mv))
     out.append(common.Row("kernel/step_buf", 0.0,
                           json.dumps(ks["step_buf"]), ks["step_buf"]))
     return out
@@ -293,9 +308,7 @@ def kernel_stats(scale: float = 0.02, device="cuda", *,
                                                           obj["auto"])),
         "history_max_abs_diff": float(np.max(np.abs(obj["plain"]
                                                     - obj["fused"]))),
-        "fused_launches": r["fused"][1],
-        "transfers_h2d": int(r["fused"][0].extras["transfers_h2d"]),
-        "transfers_d2h": int(r["fused"][0].extras["transfers_d2h"]),
+        **_run_figures(r["fused"]),
         "objective": {k: v.tolist() for k, v in obj.items()},
     }
 
@@ -332,13 +345,49 @@ def kernel_stats(scale: float = 0.02, device="cuda", *,
                                    if timed else None),
         "history_max_abs_diff": float(np.max(np.abs(objL["plain"]
                                                     - objL["fused"]))),
-        "fused_launches": rL["fused"][1],
-        "transfers_h2d": int(rL["fused"][0].extras["transfers_h2d"]),
-        "transfers_d2h": int(rL["fused"][0].extras["transfers_d2h"]),
+        **_run_figures(rL["fused"]),
         "objective": {k: v.tolist() for k, v in objL.items()},
     }
-    return {"paper_scale": paper, "large_d": large,
+
+    # --- large d at an l1 weight where the iterate moves --------------------
+    problemM = large_problem(device, large_d, m, lam=MOVING_LAM)
+
+    def makeM():
+        return algorithm.loopless_dpsvrg_algorithm(
+            problemM, 0.05, stepsL, consensus_rounds=1, batch_size=1)
+
+    rM = {k: _run_counted(makeM(), problemM, schedL,
+                          specL.replace(kernel=k), 20)
+          for k in ("plain", "fused")}
+    objM = {k: v[0].history.objective for k, v in rM.items()}
+    np.testing.assert_allclose(objM["fused"], objM["plain"], rtol=1e-4,
+                               atol=1e-6)
+    nonzero = int(torch.count_nonzero(rM["fused"][0].params))
+    if nonzero == 0:
+        raise RuntimeError(
+            f"the large-d run at lam={MOVING_LAM} never left 0: its "
+            f"fused-against-plain check compares zeros")
+    moving = {
+        "algorithm": "loopless_dpsvrg", "steps": stepsL, "m": m,
+        "param_dim": int(large_d), "lam": MOVING_LAM, "gossip": "banded",
+        "device": str(device), "nonzero": nonzero,
+        "params": m * int(large_d),
+        "history_max_abs_diff": float(np.max(np.abs(objM["plain"]
+                                                    - objM["fused"]))),
+        **_run_figures(rM["fused"]),
+        "objective": {k: v.tolist() for k, v in objM.items()},
+    }
+    return {"paper_scale": paper, "large_d": large, "large_d_moving": moving,
             "step_buf": _step_buf_stats(device, large_d) if timed else None}
+
+
+def _run_figures(counted) -> dict:
+    """The fused run's launches, transfer ledger and CUDA graphs."""
+    res, launches = counted
+    return {"fused_launches": launches,
+            **{k: int(res.extras[k]) for k in (
+                "transfers_h2d", "transfers_d2h", "graphs_built",
+                "replays")}}
 
 
 def main(argv=None) -> None:

@@ -17,7 +17,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    on the card for both rules x three proxes at four shapes, and times
    kernel, plain version, ``torch.matmul(W, q)`` (``library_ms``: no single
    PyTorch call computes the fused function; the matrix product is its
-   largest part) and the bound;
+   largest part), the bound and the launch floor (``floor_ms``: an empty
+   kernel of ``fused_step.cu``, timed the same way);
 4. holds ``svrg_step`` and ``mix_prox`` against their plain versions on the
    card (lengths 1, 7, 1000, 8 x 1024 and 2048 x 1024, and views at an odd
    offset; alpha in {0, 0.05, 1} by value and from device memory; the
@@ -30,10 +31,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 6. drives the logistic-regression path at full width: DPSVRG then DSPG
    with the same step count on ``cifar10_like`` at scale 1.0 (n = 50,000,
    d = 1,024), m = 8, a b=1 ring, the paper's hyper-parameters, through
-   ``ExecSpec(resident=True, kernel="fused", gossip="dense")``.  The fused
+   ``ExecSpec(resident=True, kernel="fused", gossip="dense")``, which on
+   the card replays CUDA graphs of the chunks' pieces.  The fused
    kernel's launch count is set to 0 before and read after: it must equal
-   the inner steps run.  Histories must be finite, the objective must
-   fall, and both runs must match the same runs of the port on the CPU;
+   the inner steps run.  Each run must build at most ceil(log2(longest
+   chunk)) + 1 graphs and report the transfer ledger (1, 1).  Histories
+   must be finite, the objective must fall, and both runs must match the
+   same runs of the port on the CPU and the same runs through the eager
+   executor on the card (``max_abs_graph_vs_eager``);
 7. traces a shorter logistic-regression run (DPSVRG, 10 outer rounds) with
    ``torch.profiler``: the card's busy time, idle share, kernels per step;
 8. runs the kernel bench at full width (``benchmarks/pt_kernel_bench``):
@@ -41,9 +46,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    after (svrg_step and mix_prox must equal the calls the bench made; the
    banded d = 131,072 loopless DPSVRG fused run must launch fused_step
    once per inner step), its histories held to the same bench run on the
-   CPU; then a DVR fused run on the same banded stack (launches equal to
-   steps), and DSPG on the paper's b=1 ring through ``gossip="auto"``,
-   which must pick ``banded``, both held to their CPU runs;
+   CPU, the bench's moving-iterate twin of that row (l1 at 1e-4) among
+   them; then a DVR fused run on the same banded stack (launches equal to
+   steps), the same DVR at l1 1e-4, where the iterate moves (its nonzero
+   count printed, held to its CPU run and to the plain step on the card),
+   and DSPG on the paper's b=1 ring through ``gossip="auto"``, which must
+   pick ``banded``, all held to their CPU runs.  Every resident run of
+   phases 6-8 must replay CUDA graphs;
 9. holds the RMSNorm and flash attention kernels against their plain
    versions on the card (RMSNorm: rows in {1, 3, 4, 8, 6144}, d in {1, 7,
    128, 2304, 2560, 3584} and the first width past the register tiles;
@@ -84,6 +93,7 @@ around it.
 """
 
 import json
+import math
 import os
 import shutil
 import statistics
@@ -217,9 +227,20 @@ def fused_bound(m: int, d: int, rule: str, prox_kind: str):
     return bound(nbytes, flops)
 
 
+def noop_floor_ms() -> float:
+    """The launch floor: an empty kernel of fused_step.cu (one block),
+    timed as the kernel is (``graph_ms``)."""
+    def noop():
+        rc = kernel.noop_launch()
+        if rc != 0:
+            fail(f"the empty kernel did not launch (status {rc})")
+    return graph_ms(noop)
+
+
 def check_kernel(device) -> dict:
     alpha, lam = 0.05, 0.01
     rows = {}
+    floor = noop_floor_ms()
     for m, d in KERNEL_SHAPES:
         for rule in ref.FUSED_RULES:
             for prox_kind in ref.FUSED_PROXES:
@@ -261,6 +282,7 @@ def check_kernel(device) -> dict:
                     "ms": graph_ms(kern), "plain_ms": graph_ms(plain_fn),
                     "library_ms": graph_ms(lambda: torch.matmul(w, q)),
                     "bound_ms": bound, "bound_by": bound_by,
+                    "floor_ms": floor,
                     "call_ms": time_ms(kern), "plain_call_ms": time_ms(plain_fn),
                     "launches": ops.launches,
                 }
@@ -433,9 +455,29 @@ def time_auto(device) -> None:
 # phase 6: the main path at full width
 # ---------------------------------------------------------------------------
 
+def max_graphs(meta, record_every: int) -> int:
+    """ceil(log2(longest chunk)) + 1: the most CUDA graphs a resident run
+    of ``meta`` at ``record_every`` may build (a chunk never outruns a
+    record interval, an inner round or the run)."""
+    longest = (max(meta.outer_lengths) if meta.outer_lengths is not None
+               else meta.num_steps)
+    if record_every:
+        longest = min(longest, record_every)
+    return math.ceil(math.log2(longest)) + 1
+
+
+def check_graphs(name: str, extras: dict, bound: int) -> None:
+    """A resident run on the card replays CUDA graphs, at most ``bound``."""
+    if extras["replays"] < 1:
+        fail(f"{name}: the resident run replayed no CUDA graph")
+    if not 1 <= extras["graphs_built"] <= bound:
+        fail(f"{name}: {extras['graphs_built']} CUDA graphs built, at most "
+             f"{bound} allowed")
+
+
 def main_path_runs(device, parts, dim, kernel_mode):
     """DPSVRG then DSPG with the same step count, resident, on ``device``.
-    Returns [(name, result, steps, launches, seconds)]."""
+    Returns [(name, result, steps, launches, seconds, most graphs)]."""
     cfg = paper_logreg.CONFIG
     m = cfg.num_nodes
     data = params_from_numpy(parts, device)
@@ -458,7 +500,7 @@ def main_path_runs(device, parts, dim, kernel_mode):
         if device != "cpu":
             torch.cuda.synchronize()
         out.append((name, res, steps, ops.launches - before,
-                    time.perf_counter() - t0))
+                    time.perf_counter() - t0, max_graphs(algo.meta, every)))
     return out
 
 
@@ -495,11 +537,14 @@ def profile_main_path(parts, dim: int) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        runner.run(algo, problem, sched, spec, record_every=0)
+        res = runner.run(algo, problem, sched, spec, record_every=0)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    check_graphs("profile", res.extras, max_graphs(algo.meta, 0))
     steps = sum(algo.meta.outer_lengths)
-    out = {"steps": steps}
+    out = {"steps": steps, "graphs_built": res.extras["graphs_built"],
+           "replays": res.extras["replays"],
+           "capture_s": res.extras["capture_s"]}
     out.update(device_busy(prof, wall_us))
     out["kernels_per_step"] = out["device_kernels"] / steps
     return out
@@ -585,15 +630,21 @@ def kernel_bench_phase() -> dict:
              f"{errs}")
     ps = by_name["kernel/resident_paper_scale_auto"].data
     ld = by_name["kernel/resident_large_d_fused"].data
-    for sec in (ps, ld):
+    mv = by_name["kernel/resident_large_d_moving"].data
+    for sec, every in ((ps, 100), (ld, 20), (mv, 20)):
         if sec["fused_launches"] != sec["steps"]:
             fail(f"kernel bench {sec['algorithm']}: {sec['fused_launches']} "
                  f"fused_step launches for {sec['steps']} steps")
+        check_graphs(f"kernel bench {sec['algorithm']}", sec,
+                     math.ceil(math.log2(min(every, sec["steps"]))) + 1)
+    if mv["nonzero"] == 0:
+        fail("kernel bench: the moving large-d run never left 0")
     t1 = time.perf_counter()
     cpu = pt_kernel_bench.kernel_stats(BENCH_SCALE, "cpu", timed=False)
     cpu_s = time.perf_counter() - t1
     diffs = {}
-    for key, sec in (("paper_scale", ps), ("large_d", ld)):
+    for key, sec in (("paper_scale", ps), ("large_d", ld),
+                     ("large_d_moving", mv)):
         for kind, hist in sec["objective"].items():
             diffs[f"{key}/{kind}"] = _held_to_cpu(
                 f"{key} {kind}", hist, cpu[key]["objective"][kind])
@@ -604,6 +655,7 @@ def kernel_bench_phase() -> dict:
                   "derived": r.derived} for r in rows],
         "paper_scale": {k: v for k, v in ps.items() if k != "objective"},
         "large_d": {k: v for k, v in ld.items() if k != "objective"},
+        "large_d_moving": {k: v for k, v in mv.items() if k != "objective"},
     }
     print("kernel_bench " + json.dumps(summary), flush=True)
     return summary
@@ -613,8 +665,9 @@ def profile_large_d() -> dict:
     """Where the banded d = 131,072 fused run's time goes: one run of the
     bench's loopless DPSVRG traced by ``torch.profiler`` after a warm run.
     Besides the card's busy time, the runner's own spans split the host's
-    wall time: the plan (dataset pull and minibatch gather), the staging
-    copy, issuing the steps, and the history pull."""
+    wall time: the plan (minibatch indices, gossip products), the staging
+    copy, issuing the pieces (graph replays, captures and the transitions
+    between them), and the history pull."""
     from torch.profiler import ProfilerActivity, profile
 
     problem = pt_kernel_bench.large_problem("cuda")
@@ -630,10 +683,12 @@ def profile_large_d() -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        runner.run(make(), problem, sched, spec, record_every=20)
+        res = runner.run(make(), problem, sched, spec, record_every=20)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    out = {"steps": 40}
+    check_graphs("profile_large_d", res.extras, max_graphs(make().meta, 20))
+    out = {"steps": 40, "graphs_built": res.extras["graphs_built"],
+           "replays": res.extras["replays"]}
     out.update(device_busy(prof, wall_us))
     spans = {}
     for e in prof.events():
@@ -656,15 +711,20 @@ def _counted_run(algo, problem, sched, spec, record_every):
 
 
 def dvr_and_auto_phase() -> None:
-    """DVR fused on the banded d = 131,072 stack, and DSPG on the paper's
-    b=1 ring with the default ``gossip="auto"``; each against its CPU run."""
+    """DVR fused on the banded d = 131,072 stack, at the reference bench's
+    l1 weight and at ``pt_kernel_bench.MOVING_LAM`` (where the iterate
+    moves: there the fused run is also held to the plain one on the card,
+    and its nonzero parameters are counted), and DSPG on the paper's b=1
+    ring with the default ``gossip="auto"``; each against its CPU run."""
     sched = pt_kernel_bench._circulant8()
     out = {}
 
-    def dvr(device):
-        problem = pt_kernel_bench.large_problem(device)
-        return (algorithm.dvr_algorithm(problem, 0.05, DVR_STEPS, rho=0.5),
-                problem)
+    def dvr(lam):
+        def make(device):
+            problem = pt_kernel_bench.large_problem(device, lam=lam)
+            return (algorithm.dvr_algorithm(problem, 0.05, DVR_STEPS,
+                                            rho=0.5), problem)
+        return make
 
     data, _, h, x0, _ = pt_common.setup_problem("adult_like", BENCH_SCALE,
                                                 device="cuda")
@@ -682,7 +742,9 @@ def dvr_and_auto_phase() -> None:
             DSPG_AUTO_STEPS), problem)
 
     for name, make, schedule, spec_kw, every in (
-            ("dvr_banded_fused", dvr, sched, dict(gossip="banded"), 20),
+            ("dvr_banded_fused", dvr(0.01), sched, dict(gossip="banded"), 20),
+            ("dvr_banded_moving", dvr(pt_kernel_bench.MOVING_LAM), sched,
+             dict(gossip="banded"), 20),
             ("dspg_ring_auto", dspg, ring, {}, 100)):
         algo, problem = make("cuda")
         spec = ExecSpec(resident=True, kernel="fused", **spec_kw)
@@ -695,6 +757,7 @@ def dvr_and_auto_phase() -> None:
         steps = int(res.history.steps[-1])
         if launches != steps:
             fail(f"{name}: {launches} fused_step launches for {steps} steps")
+        check_graphs(name, res.extras, max_graphs(algo.meta, every))
         calgo, cproblem = make("cpu")
         cres = runner.run(calgo, cproblem, schedule,
                           spec.replace(device="cpu"), seed=0,
@@ -706,12 +769,30 @@ def dvr_and_auto_phase() -> None:
         out[name] = {"backend": backend.name, "steps": steps,
                      "launches": launches, "run_s": secs,
                      "ms_per_step": secs / steps * 1e3,
+                     "graphs_built": res.extras["graphs_built"],
+                     "replays": res.extras["replays"],
+                     "capture_s": res.extras["capture_s"],
                      "transfers_h2d": res.extras["transfers_h2d"],
                      "transfers_d2h": res.extras["transfers_d2h"],
                      "wire_bytes_last": int(res.extras["wire_bytes"][-1]),
                      "objective_first": float(res.history.objective[0]),
                      "objective_last": float(res.history.objective[-1]),
+                     "nonzero": int(torch.count_nonzero(res.params)),
+                     "params": res.params.numel(),
                      "max_abs_objective_vs_cpu": diff}
+        if name == "dvr_banded_moving":
+            if out[name]["nonzero"] == 0:
+                fail(f"{name}: the iterate never left 0")
+            palgo, _ = make("cuda")
+            plain = runner.run(palgo, problem, schedule,
+                               spec.replace(kernel="plain"), seed=0,
+                               record_every=every)
+            np.testing.assert_allclose(
+                res.history.objective, plain.history.objective,
+                rtol=HISTORY_RTOL, atol=HISTORY_ATOL,
+                err_msg=f"{name}: fused vs plain on the card")
+            out[name]["max_abs_objective_fused_vs_plain"] = float(np.max(
+                np.abs(res.history.objective - plain.history.objective)))
         print(f"{name} " + json.dumps(out[name]), flush=True)
 
 
@@ -1213,7 +1294,9 @@ def main() -> None:
     logs = _build.build(SOURCES)
     build_s = time.perf_counter() - t0
     for source, log in logs.items():
-        print(f"--- ptxas: {source.name}", flush=True)
+        print(f"--- ptxas: {source.name} "
+              f"({log.count('Compiling entry function')} kernels)",
+              flush=True)
         print(log.strip(), flush=True)
     print(f"build: {', '.join(s.name for s in SOURCES)} in {build_s:.1f} s "
           f"(fused_step max m {kernel.max_m()})", flush=True)
@@ -1250,16 +1333,40 @@ def main() -> None:
     gpu = main_path_runs(device, parts, ds.dim, "fused")
     main_launches = ops.launches
     cpu = main_path_runs("cpu", parts, ds.dim, "fused")
-    for (name, res, steps, launches, secs), (_, cres, _, _, csecs) in zip(
-            gpu, cpu):
-        if launches != steps:
-            fail(f"{name}: {launches} kernel launches for {steps} steps")
+    # the same runs through the eager executor on the card
+    runner.CUDA_GRAPHS = False
+    eager = main_path_runs(device, parts, ds.dim, "fused")
+    runner.CUDA_GRAPHS = True
+    for (name, res, steps, launches, secs, most), (_, cres, _, _, csecs, _), \
+            (_, eres, _, elaunches, esecs, _) in zip(gpu, cpu, eager):
+        if launches != steps or elaunches != steps:
+            fail(f"{name}: {launches} kernel launches (eager {elaunches}) "
+                 f"for {steps} steps")
         check_history(name, res)
+        check_graphs(name, res.extras, most)
+        if eres.extras["replays"] != 0:
+            fail(f"{name}: the eager executor replayed graphs")
+        ledger = (res.extras["transfers_h2d"], res.extras["transfers_d2h"])
+        if ledger != (1, 1):
+            fail(f"{name}: transfer ledger {ledger}, want (1, 1)")
         for col in ("objective", "consensus"):
             np.testing.assert_allclose(
                 getattr(res.history, col), getattr(cres.history, col),
                 rtol=HISTORY_RTOL, atol=HISTORY_ATOL,
                 err_msg=f"{name} {col}: card vs CPU")
+        graph_vs_eager = 0.0
+        for got, want in ((res.history.objective, eres.history.objective),
+                          (res.history.consensus, eres.history.consensus),
+                          (res.params.cpu().numpy(),
+                           eres.params.cpu().numpy())):
+            graph_vs_eager = max(graph_vs_eager,
+                                 float(np.max(np.abs(got - want))))
+        print(f"{name}: max_abs_graph_vs_eager {graph_vs_eager}", flush=True)
+        for col in ("objective", "consensus"):
+            np.testing.assert_allclose(
+                getattr(res.history, col), getattr(eres.history, col),
+                rtol=HISTORY_RTOL, atol=HISTORY_ATOL,
+                err_msg=f"{name} {col}: graphs vs eager on the card")
         np.testing.assert_array_equal(res.history.steps, cres.history.steps)
         print("main_path " + json.dumps({
             "algorithm": name, "steps": steps, "launches": launches,
@@ -1269,8 +1376,13 @@ def main() -> None:
             "consensus_last": float(res.history.consensus[-1]),
             "max_abs_objective_vs_cpu": float(np.max(np.abs(
                 res.history.objective - cres.history.objective))),
+            "max_abs_graph_vs_eager": graph_vs_eager,
             "run_s": secs, "ms_per_step": secs / steps * 1e3,
             "cpu_run_s": csecs,
+            "eager_run_s": esecs, "eager_ms_per_step": esecs / steps * 1e3,
+            "graphs_built": res.extras["graphs_built"],
+            "max_graphs": most, "replays": res.extras["replays"],
+            "capture_s": res.extras["capture_s"],
             "transfers_h2d": res.extras["transfers_h2d"],
             "transfers_d2h": res.extras["transfers_d2h"]}), flush=True)
 

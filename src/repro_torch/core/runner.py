@@ -14,29 +14,35 @@ ExecSpec`:
   mixing matrix copied to the device each step, metrics pulled to the host
   at every record — the reference's host loop, step for step.
 * **resident** (``resident=True``): the run is PLANNED on the host first
-  (chunk schedule with the reference's power-of-two bucket padding, gossip
-  products, step sizes, minibatch indices drawn from the same
-  ``np.random`` stream in the same order, the minibatches gathered on the
-  host), staged to the device in ONE transfer, and executed from the staged
-  tensors.  Metrics are written into preallocated device buffers (objective
-  via the vmapped loss + prox value, consensus via device norms) and pulled
-  to the host ONCE at the end.  A chunk is a Python loop over its staged
-  steps: padded steps are skipped, and the outer-round transitions are
-  applied where the host-side plan's flags say.  ``kernel="fused"|"auto"``
-  swaps in the algorithm's fused step, whose update runs through the fused
-  resident-step CUDA kernel on the card.
+  (chunk schedule, gossip products, step sizes, minibatch indices drawn
+  from the same ``np.random`` stream in the same order), the plan is staged
+  to the device in ONE transfer, and executed from the staged tensors: each
+  chunk gathers its minibatches from the resident dataset on the device.
+  Metrics are written into preallocated device buffers (objective via the
+  vmapped loss + prox value, consensus via device norms) and pulled to the
+  host ONCE at the end.  A chunk runs as pieces whose lengths are powers of
+  two up to ``MAX_PIECE``, cut wherever an outer-round transition applies;
+  the transitions run eagerly between pieces.  On the CUDA device every
+  piece replays a CUDA graph (``core.cuda_graphs``, one per piece length);
+  on the CPU the pieces run eagerly.  ``kernel="fused"|
+  "auto"`` swaps in the algorithm's fused step, whose update runs through
+  the fused resident-step CUDA kernel on the card.
 
 Coin-flip snapshot methods (``AlgoMeta.snapshot_prob``: loopless DPSVRG,
 DVR) draw their coin from the same ``np.random`` stream as the reference,
 after each step's minibatch indices, on both paths.  Stateful transports
 (``compressed``) get their mix state through ``Algorithm.init_mix_state``.
 
-``RunResult.extras['transfers_h2d'/'transfers_d2h']`` counts the
-driver-initiated transfer events of either path, by the reference's rules.
+``RunResult.extras['transfers_h2d'/'transfers_d2h']`` counts the transfer
+events that either path starts itself, by the reference's rules, with one
+departure: the resident path gathers its minibatches on the
+device, so it does not pull the dataset to the host (the reference does).
+A resident run's ``extras`` also report ``graphs_built``, ``replays`` and
+``capture_s`` (0 on the CPU).
 
-Not ported yet: the compiled ``scan=True`` path, in-chunk device sampling
-(``sampling="device"``), CUDA graphs of the resident chunks (ROADMAP
-Queue 1 item 5), and batched sweeps (``run_sweep``, Queue 1 item 8).  The
+Not ported yet: the compiled ``scan=True`` path and in-chunk device
+sampling (``sampling="device"``) (ROADMAP Queue 1 item 5), and batched
+sweeps (``run_sweep``, Queue 1 item 8).  The
 reference's executable caches (``_shared_exec``) kept XLA programs warm
 across runs; eager PyTorch has nothing to keep warm, so they are gone.
 """
@@ -50,13 +56,24 @@ import torch
 from torch.profiler import record_function
 from torch.utils import _pytree as pytree
 
-from . import algorithm as algorithm_lib, gossip, graphs, transport
+from . import algorithm as algorithm_lib, cuda_graphs, gossip, graphs, \
+    transport
 from ..convert import params_to_numpy
 from .exec_spec import ExecSpec
 
 __all__ = ["RunHistory", "RunResult", "Recorder", "run", "run_sweep",
            "ExecSpec", "sample_batch", "objective_value",
-           "traceable_consensus"]
+           "traceable_consensus", "gather_batches", "CUDA_GRAPHS"]
+
+# The resident path on the CUDA device replays CUDA graphs of its pieces.
+# False runs the same pieces eagerly there, as on the CPU: the executor that
+# the graphs are held to on the card.
+CUDA_GRAPHS = True
+# The longest piece, a power of two.  Capturing a piece costs the host about
+# as long as issuing its steps eagerly, once per length; a replay costs a few
+# tens of us, about a step's work on the card.  Short pieces keep the
+# captures cheap and the card busy.
+MAX_PIECE = 4
 
 
 class RunHistory(NamedTuple):
@@ -141,15 +158,6 @@ class Recorder:
         return out
 
 
-def _bucket_length(chunk: int, record_every: int) -> int:
-    """Pad-to-bucket policy of the reference: the steady-state chunk (==
-    record_every) keeps its exact length; every other length rounds up to
-    the next power of two."""
-    if record_every and chunk == record_every:
-        return chunk
-    return 1 << max(chunk - 1, 0).bit_length()
-
-
 # ---------------------------------------------------------------------------
 # Device-resident path: plan on host, stage once, execute on the device,
 # pull the history once
@@ -214,9 +222,12 @@ def _resolve_kernel_step(algo, kernel: str):
 
 
 class _Chunk(NamedTuple):
-    xs: tuple                      # host (batch tree | None, phis, alphas)
-    keep: np.ndarray               # (bucket,) False on padded steps
+    xs: tuple                      # host (indices | None, phis, alphas)
     flags: tuple | None            # host (o_pre, o_post, e_post, e_k) or None
+
+    @property
+    def length(self) -> int:
+        return len(self.xs[2])
 
 
 class _Plan(NamedTuple):
@@ -229,11 +240,11 @@ class _Plan(NamedTuple):
 
 
 def _plan_resident(meta, rng, backend, aux, *, m: int, n: int,
-                   param_count: int, record_every: int, host_data,
+                   param_count: int, record_every: int,
                    transitions: bool) -> _Plan:
     """Walk the run's data-independent control flow without touching the
-    device: chunk boundaries, bucket padding, gossip products, step sizes,
-    minibatch indices (same ``np.random`` draw order as the host loop) and
+    device: chunk boundaries, gossip products, step sizes, minibatch
+    indices (same ``np.random`` draw order as the host loop) and
     every host-computable history column.  With ``transitions=True`` the
     plan holds no ``outer``/``end_outer`` ops: per-step flags say where the
     algorithm's traced transitions apply (before a step: a new outer round;
@@ -273,36 +284,20 @@ def _plan_resident(meta, rng, backend, aux, *, m: int, n: int,
         cols["steps"].append(t)
         wire_col.append(wire)
 
-    def finish_chunk(idxs, phis, alphas, flags, chunk):
-        """Bucket-pad one chunk and gather its minibatches on the host (one
-        vectorized take per leaf — the same indices as per-step sampling).
-        Transition flags pad with False so padded steps fire nothing."""
-        bucket = _bucket_length(chunk, record_every)
-        pad = bucket - chunk
-        if pad:
-            idxs.extend(idxs[-1:] * pad)
-            phis.extend(phis[-1:] * pad)
-            alphas.extend(alphas[-1:] * pad)
-        keep = np.array([True] * chunk + [False] * pad, np.bool_)
-        phis_st = _stack_wire(phis)
-        alphas_st = np.asarray(alphas, np.float32)
-        batch = None
-        if has_batch:
-            idx = np.stack(idxs)              # (bucket, m, bsz)
-            batch = pytree.tree_map(
-                lambda a: np.take_along_axis(
-                    a[None], idx.reshape(bucket, m, bsz,
-                                         *([1] * (a.ndim - 2))), axis=2),
-                host_data)
+    def finish_chunk(idxs, phis, alphas, flags):
+        """Stack one chunk's step inputs: the minibatch indices as one
+        (chunk, m, bsz) int array (the batches are gathered on the device),
+        the wire representations and the step sizes."""
+        idx = np.stack(idxs) if has_batch else None
         chunk_flags = None
         if transitions:
-            fpad = [False] * pad
-            chunk_flags = (np.array(flags["o_pre"] + fpad, np.bool_),
-                           np.array(flags["o_post"] + fpad, np.bool_),
-                           np.array(flags["e_post"] + fpad, np.bool_),
-                           np.array(flags["e_k"] + [0.0] * pad, np.float32))
+            chunk_flags = (np.array(flags["o_pre"], np.bool_),
+                           np.array(flags["o_post"], np.bool_),
+                           np.array(flags["e_post"], np.bool_),
+                           np.array(flags["e_k"], np.float32))
         ops.append(("chunk", len(chunks)))
-        chunks.append(_Chunk((batch, phis_st, alphas_st), keep, chunk_flags))
+        chunks.append(_Chunk((idx, _stack_wire(phis),
+                              np.asarray(alphas, np.float32)), chunk_flags))
 
     def draw_idx():
         return rng.integers(0, n, size=(m, bsz))
@@ -339,7 +334,7 @@ def _plan_resident(meta, rng, backend, aux, *, m: int, n: int,
                         flags["o_post"].append(False)
                         flags["e_post"].append(k + j + 1 == K)
                         flags["e_k"].append(float(K))
-                finish_chunk(idxs, phis, alphas, flags, chunk)
+                finish_chunk(idxs, phis, alphas, flags)
                 k += chunk
                 t += chunk
                 grad_evals += chunk * meta.step_grad_factor * m * bsz
@@ -386,7 +381,7 @@ def _plan_resident(meta, rng, backend, aux, *, m: int, n: int,
                 elif flip:
                     refresh = True   # the snapshot lands here: cut the chunk
                     break
-            finish_chunk(idxs, phis, alphas, flags, chunk)
+            finish_chunk(idxs, phis, alphas, flags)
             t += chunk
             grad_evals += chunk * meta.step_grad_factor * m * bsz
             if refresh:
@@ -420,8 +415,8 @@ def _stack_wire(phis):
 
 
 def _stage(chunks, device) -> list:
-    """Ship every chunk's (batch, phis, alphas) to the device as one tensor
-    per leaf; returns each chunk's device xs as views of those."""
+    """Ship every chunk's (indices, phis, alphas) to the device as one
+    tensor per leaf; returns each chunk's device xs as views of those."""
     specs = [pytree.tree_flatten(c.xs) for c in chunks]
     spec = specs[0][1]
     staged = [None if col[0] is None
@@ -429,29 +424,96 @@ def _stage(chunks, device) -> list:
               for col in zip(*(leaves for leaves, _ in specs))]
     out, start = [], 0
     for c in chunks:
-        stop = start + len(c.keep)
+        stop = start + c.length
         views = [None if s is None else s[start:stop] for s in staged]
         out.append(pytree.tree_unflatten(views, spec))
         start = stop
     return out
 
 
-def _exec_chunk(state, chunk: _Chunk, xs, step_fn, algo, data_dev,
-                has_batch: bool):
-    """Run one staged chunk: skip padded steps, apply the traced outer
-    transitions where the host-side flags say."""
-    batch, phis, alphas = xs
-    for j in map(int, np.flatnonzero(chunk.keep)):
-        if chunk.flags is not None and chunk.flags[0][j]:
+def gather_batches(data, idx: torch.Tensor):
+    """The minibatches of a run of steps, gathered from the resident
+    dataset on its device: ``data`` leaves (m, n, ...), ``idx`` the (steps,
+    m, bsz) int64 indices -> leaves (steps, m, bsz, ...), element for
+    element what a host ``np.take_along_axis`` of the same indices gives."""
+    steps, m, bsz = idx.shape
+    return pytree.tree_map(
+        lambda a: torch.take_along_dim(
+            a[None], idx.reshape(steps, m, bsz, *([1] * (a.ndim - 2))),
+            dim=2), data)
+
+
+def _slice(xs, start: int, stop: int):
+    leaves, spec = pytree.tree_flatten(xs)
+    return pytree.tree_unflatten(
+        [None if a is None else a[start:stop] for a in leaves], spec)
+
+
+def _pieces(chunk: _Chunk) -> list:
+    """(start, length) pieces that cover the chunk's steps in order: a cut
+    before every step whose ``o_pre`` flag fires and after every step whose
+    ``o_post`` or ``e_post`` flag fires, and each stretch between cuts split
+    into pieces of ``MAX_PIECE`` steps, then the binary digits of what is
+    left, largest first.  Every length is a power of two, so a run's pieces
+    take at most min(ceil(log2(longest chunk)), log2(MAX_PIECE)) + 1
+    distinct lengths."""
+    cuts = {0, chunk.length}
+    if chunk.flags is not None:
+        o_pre, o_post, e_post, _ = chunk.flags
+        cuts.update(int(j) for j in np.flatnonzero(o_pre))
+        cuts.update(int(j) + 1 for j in np.flatnonzero(o_post | e_post))
+    bounds = sorted(cuts)
+    out = []
+    for start, stop in zip(bounds, bounds[1:]):
+        while stop - start > MAX_PIECE:
+            out.append((start, MAX_PIECE))
+            start += MAX_PIECE
+        for bit in reversed(range((stop - start).bit_length())):
+            if (stop - start) >> bit & 1:
+                out.append((start, 1 << bit))
+                start += 1 << bit
+    return out
+
+
+def _piece_body(step_fn, data_dev, has_batch: bool):
+    """``body(state, xs, length) -> state``: ``length`` staged steps, their
+    minibatches gathered from the resident dataset in one take per leaf."""
+    def body(state, xs, length: int):
+        idx, phis, alphas = xs
+        batches = gather_batches(data_dev, idx) if has_batch else None
+        for j in range(length):
+            b = pytree.tree_map(lambda a: a[j], batches) if has_batch \
+                else None
+            phi = pytree.tree_map(lambda a: a[j], phis)
+            state = step_fn(state, b, phi, alphas[j])
+        return state
+
+    return body
+
+
+def _exec_chunk(state, chunk: _Chunk, xs, algo, data_dev, run_piece):
+    """Run one staged chunk piece by piece, applying the traced outer
+    transitions between pieces where the host-side flags say."""
+    flags = chunk.flags
+    for start, length in _pieces(chunk):
+        last = start + length - 1
+        if flags is not None and flags[0][start]:
             state = algo.outer_traced(state, data_dev)
-        b = pytree.tree_map(lambda a: a[j], batch) if has_batch else None
-        phi = pytree.tree_map(lambda a: a[j], phis)
-        state = step_fn(state, b, phi, alphas[j])
-        if chunk.flags is not None and chunk.flags[1][j]:
+        state = run_piece(state, _slice(xs, start, start + length), length)
+        if flags is not None and flags[1][last]:
             state = algo.outer_traced(state, data_dev)
-        if chunk.flags is not None and chunk.flags[2][j]:
-            state = algo.end_outer_traced(state, float(chunk.flags[3][j]))
+        if flags is not None and flags[2][last]:
+            state = algo.end_outer_traced(state, float(flags[3][last]))
     return state
+
+
+def _piece_runner(device: torch.device, body):
+    """-> (run_piece, its ``PieceGraphs`` or None): graph replays on the
+    CUDA device, the body itself (eager) on the CPU."""
+    if device.type == "cuda" and CUDA_GRAPHS:
+        pieces = cuda_graphs.PieceGraphs(body)
+        return pieces.run, pieces
+    return body, None
 
 
 def _run_resident(algo, problem, backend, aux, rng, *, m: int, n: int,
@@ -469,25 +531,21 @@ def _run_resident(algo, problem, backend, aux, rng, *, m: int, n: int,
     # spans for torch.profiler (nothing is recorded when it is off): the
     # host's plan and its staging copy, issuing the chunks, the pull
     with record_function("resident.plan"):
-        # one host copy of the dataset for index gathering
-        host_data = None
-        if has_batch:
-            host_data = params_to_numpy(problem.full_data)
-            transfers["d2h"] += 1
         plan = _plan_resident(
             meta, rng, backend, aux, m=m, n=n, param_count=param_count,
-            record_every=record_every, host_data=host_data,
-            transitions=transitions)
+            record_every=record_every, transitions=transitions)
     step_fn = _resolve_kernel_step(algo, kernel)
     objective = _resolved_objective(meta, problem)
 
-    # the dataset already lies on the device (runner.run checks it), so
-    # only the plan is staged
+    # the dataset already lies on the device (runner.run checks it): only
+    # the plan is staged, and the chunks gather their minibatches from it
     data_dev = problem.full_data
     with record_function("resident.stage"):
         staged = _stage(plan.chunks, device)   # ONE staging transfer
     transfers["h2d"] += 1
 
+    run_piece, piece_graphs = _piece_runner(
+        device, _piece_body(step_fn, data_dev, has_batch))
     with record_function("resident.execute"):
         state = inject_mix_state(algo, backend, aux, algo.init())
         if transitions and algo.device_state is not None:
@@ -499,8 +557,7 @@ def _run_resident(algo, problem, backend, aux, rng, *, m: int, n: int,
             kind = op[0]
             if kind == "chunk":
                 state = _exec_chunk(state, plan.chunks[op[1]],
-                                    staged[op[1]], step_fn, algo, data_dev,
-                                    has_batch)
+                                    staged[op[1]], algo, data_dev, run_piece)
             elif kind == "record":
                 params = algo.get_params(state)
                 bufs[0, slot] = objective(params, data_dev)
@@ -524,7 +581,12 @@ def _run_resident(algo, problem, backend, aux, rng, *, m: int, n: int,
         steps=plan.cols["steps"])
     extras = {"wire_bytes": plan.wire,
               "transfers_h2d": transfers["h2d"],
-              "transfers_d2h": transfers["d2h"]}
+              "transfers_d2h": transfers["d2h"],
+              "graphs_built": 0, "replays": 0, "capture_s": 0.0}
+    if piece_graphs is not None:
+        extras.update(graphs_built=piece_graphs.graphs_built,
+                      replays=piece_graphs.replays,
+                      capture_s=piece_graphs.capture_s)
     return RunResult(params=algo.get_params(state), history=history,
                      extras=extras)
 

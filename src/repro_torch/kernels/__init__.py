@@ -23,8 +23,29 @@ Each kernel package mirrors its counterpart in ``repro.kernels``:
 
 from . import flash_attention, fused_update, rmsnorm
 
-__all__ = ["flash_attention", "fused_update", "rmsnorm", "SOURCES"]
+__all__ = ["flash_attention", "fused_update", "rmsnorm", "SOURCES",
+           "launch_counts", "set_launch_counts"]
 
 # every CUDA source of the port, for building them all at once
 SOURCES = (fused_update.kernel.SOURCE, fused_update.kernel.SVRG_MIX_SOURCE,
            rmsnorm.kernel.SOURCE, flash_attention.kernel.SOURCE)
+
+# every wrapper's launch count, as (module, attribute)
+_COUNTERS = ((fused_update.ops, "launches"),
+             (fused_update.ops, "launches_svrg_step"),
+             (fused_update.ops, "launches_mix_prox"),
+             (rmsnorm.ops, "launches"),
+             (flash_attention.ops, "launches"))
+
+
+def launch_counts() -> tuple:
+    """Every wrapper's launch count, in a fixed order."""
+    return tuple(getattr(mod, name) for mod, name in _COUNTERS)
+
+
+def set_launch_counts(counts) -> None:
+    """Set every wrapper's launch count (the order of ``launch_counts``).
+    A replayed CUDA graph runs no wrapper, so whoever replays one adds the
+    launches it captured."""
+    for (mod, name), value in zip(_COUNTERS, counts):
+        setattr(mod, name, value)

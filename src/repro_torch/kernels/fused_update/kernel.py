@@ -25,7 +25,7 @@ import torch
 from .. import _build
 
 __all__ = ["SOURCE", "SVRG_MIX_SOURCE", "RULES", "PROXES", "library",
-           "max_m", "fused_step_launch", "svrg_mix_library",
+           "max_m", "fused_step_launch", "noop_launch", "svrg_mix_library",
            "svrg_step_launch", "mix_prox_launch"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_step.cu"
@@ -49,6 +49,8 @@ def library() -> ctypes.CDLL:
     lib.fused_step_launch.restype = ctypes.c_int
     lib.fused_step_max_m.argtypes = []
     lib.fused_step_max_m.restype = ctypes.c_int
+    lib.fused_step_noop_launch.argtypes = [ptr]
+    lib.fused_step_noop_launch.restype = ctypes.c_int
     return lib
 
 
@@ -77,6 +79,14 @@ def fused_step_launch(w: torch.Tensor, streams, out: torch.Tensor, alpha,
             w.data_ptr(), ptrs[0], ptrs[1], ptrs[2], ptrs[3], out.data_ptr(),
             m, d, alpha_ptr, alpha_val, float(lam), RULES[rule],
             PROXES[prox_kind], stream)
+
+
+def noop_launch() -> int:
+    """Launch the empty kernel of ``fused_step.cu`` (one block) on the
+    current stream: the launch floor that fused_step's time is read
+    against.  Returns the C entry point's status."""
+    return library().fused_step_noop_launch(
+        torch.cuda.current_stream().cuda_stream)
 
 
 @functools.lru_cache(maxsize=None)

@@ -91,16 +91,22 @@ HISTORY_RTOL = 1e-4
 HISTORY_ATOL = 1e-6
 
 
-def assert_histories_match(want, got):
+def assert_histories_match(want, got, *, device_gather=False):
     """Counting columns and ledgers exactly; objective and consensus to f32
-    tolerance."""
+    tolerance.  ``device_gather``: ``got`` is a resident run of the port
+    that samples minibatches, which it gathers on the device: it skips the
+    reference's pull of the dataset to the host, one d2h transfer fewer."""
     for field in ("epochs", "comm_rounds", "steps"):
         np.testing.assert_array_equal(getattr(got.history, field),
                                       getattr(want.history, field),
                                       err_msg=field)
-    for key in ("wire_bytes", "transfers_h2d", "transfers_d2h"):
+    for key in ("wire_bytes", "transfers_h2d"):
         np.testing.assert_array_equal(got.extras[key], want.extras[key],
                                       err_msg=key)
+    np.testing.assert_array_equal(
+        got.extras["transfers_d2h"],
+        want.extras["transfers_d2h"] - int(device_gather),
+        err_msg="transfers_d2h")
     np.testing.assert_allclose(got.history.objective, want.history.objective,
                                rtol=HISTORY_RTOL, atol=HISTORY_ATOL,
                                err_msg="objective")

@@ -95,8 +95,7 @@ def test_resident_matches_host_loop(name, gossip):
     resident = run_torch(name, gossip, resident=True, kernel="fused")
     _same_run(host, resident)
     assert (resident.extras["transfers_h2d"],
-            resident.extras["transfers_d2h"]) == (
-        (1, 1) if name == "dpg" else (1, 2))
+            resident.extras["transfers_d2h"]) == (1, 1)
 
 
 @pytest.mark.parametrize("name", ["loopless_dpsvrg", "dvr", "gt_svrg"])
@@ -121,7 +120,8 @@ def test_resident_matches_reference_resident(name):
     transport, ledger included."""
     assert_histories_match(
         run_jax(name, "banded", resident=True, kernel="pallas"),
-        run_torch(name, "banded", resident=True, kernel="fused"))
+        run_torch(name, "banded", resident=True, kernel="fused"),
+        device_gather=True)
 
 
 @pytest.mark.parametrize("gossip", ["dense", "banded"])
@@ -218,4 +218,4 @@ def test_dspg_auto_picks_banded_on_the_ring_as_the_reference():
         got = trunner.run(build(talgorithm, "dspg", tp), tp, sched,
                           TExecSpec(device="cpu", resident=True,
                                     kernel=kernel), seed=0, record_every=10)
-        assert_histories_match(want, got)
+        assert_histories_match(want, got, device_gather=True)

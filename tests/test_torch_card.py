@@ -1,14 +1,16 @@
 """Tests of the port that need a CUDA card: the hand-written kernels
 (fused_step, svrg_step, mix_prox, RMSNorm, flash attention) against their
 plain versions on the card, their operand checks, the resident
-logistic-regression path through fused_step (dense and banded gossip), the
-kernel bench, and a served model through RMSNorm and flash.  They skip, with
+logistic-regression path through fused_step (dense and banded gossip), its
+CUDA graph replays against the eager executor, the kernel bench, and a
+served model through RMSNorm and flash.  They skip, with
 the reason, where there is no card.  This file imports neither JAX nor the JAX package, so it also
 runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest tests/test_torch_card.py
 """
 
+import math
 import os
 import sys
 
@@ -118,6 +120,33 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
     assert ops.launches == before
 
 
+# the layouts of the redesigned kernel: m as a template parameter (8, 16)
+# and at run time (64); the 16-byte vector path (d % 4 == 0, aligned
+# buffers) and the scalar path (ragged d, or views one element into their
+# buffers)
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("d", [1, 7, 30, 1000, 1024, 1031, 8192])
+@pytest.mark.parametrize("m", [8, 16, 64])
+def test_kernel_layouts_match_plain_version_on_card(cuda_device, m, d,
+                                                    offset):
+    alpha = torch.tensor([0.05], dtype=torch.float32, device=cuda_device)
+    for rule in ref.FUSED_RULES:
+        w, streams = _case(m, d, rule, m * d + offset, cuda_device)
+        if offset:
+            streams = [torch.cat([s.new_zeros(1), s.reshape(-1)])[1:]
+                       .view(m, d) for s in streams]
+        for prox_kind in ref.FUSED_PROXES:
+            before = ops.launches
+            got = ops.fused_step_buf(w, streams, alpha[0], 0.01, rule=rule,
+                                     prox_kind=prox_kind)
+            assert ops.launches == before + 1
+            want = ref.fused_step_math(w, streams, alpha[0], 0.01, rule=rule,
+                                       prox_kind=prox_kind)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=CARD_RTOL,
+                                       atol=CARD_ATOL)
+
+
 def _loss(w, batch):
     z = batch["features"] @ w
     return torch.mean(-batch["labels"] * z + torch.log1p(torch.exp(z)))
@@ -156,6 +185,80 @@ def test_resident_main_path_on_card_matches_cpu(cuda_device):
                                        rtol=HISTORY_RTOL, atol=HISTORY_ATOL)
         np.testing.assert_array_equal(res.history.steps, cpu.history.steps)
         assert res.extras["transfers_h2d"] == cpu.extras["transfers_h2d"]
+
+
+def _algo(name, problem):
+    return {
+        "dpsvrg": lambda: algorithm.dpsvrg_algorithm(
+            problem, algorithm.DPSVRGHyperParams(alpha=0.2, beta=1.2, n0=4,
+                                                 num_outer=6)),
+        "dspg": lambda: algorithm.dspg_algorithm(
+            problem, algorithm.DSPGHyperParams(alpha0=0.2), 150),
+        "loopless_dpsvrg": lambda: algorithm.loopless_dpsvrg_algorithm(
+            problem, 0.2, 60, snapshot_prob=0.1),
+        "dvr": lambda: algorithm.dvr_algorithm(problem, 0.2, 60, rho=0.6,
+                                               snapshot_prob=0.1),
+        "dpg": lambda: algorithm.dpg_algorithm(problem, 0.2, 30),
+        "gt_svrg": lambda: algorithm.gt_svrg_algorithm(
+            problem, 0.05, num_outer=3, inner_steps=10),
+    }[name]()
+
+
+GRAPH_CASES = [(name, gossip, transitions)
+               for name in ("dpsvrg", "dspg", "loopless_dpsvrg", "dvr", "dpg",
+                            "gt_svrg")
+               for gossip in ("dense", "banded", "compressed")
+               for transitions in ("auto", False)
+               # DSPG and DPG thread no mix state: no compressed run
+               if not (name in ("dspg", "dpg") and gossip == "compressed")]
+
+
+@pytest.mark.parametrize("name,gossip,transitions", GRAPH_CASES)
+def test_graph_replay_matches_eager_execution_on_card(cuda_device,
+                                                      monkeypatch, name,
+                                                      gossip, transitions):
+    """Every resident run on the card replays CUDA graphs of its pieces:
+    at most ceil(log2(longest chunk)) + 1 of them, the launch counts exact
+    under replay, and the histories those of the eager executor."""
+    ds = synthetic.make_paper_dataset("adult_like", scale=0.05)
+    data = params_from_numpy(synthetic.partition_per_node(ds, 8), "cuda")
+    problem = algorithm.Problem(_loss, prox.l1(0.01),
+                                torch.zeros(8, ds.dim, device="cuda"), data)
+    sched = graphs.b_connected_ring_schedule(8, 1)
+    every = 0 if name == "dpsvrg" else 10
+    spec = ExecSpec(resident=True, kernel="fused", gossip=gossip,
+                    device_transitions=transitions)
+
+    def run():
+        before = ops.launches
+        res = runner.run(_algo(name, problem), problem, sched, spec,
+                         record_every=every)
+        torch.cuda.synchronize()
+        return res, ops.launches - before
+
+    graph, graph_launches = run()
+    monkeypatch.setattr(runner, "CUDA_GRAPHS", False)
+    eager, eager_launches = run()
+    steps = int(graph.history.steps[-1])
+    fused = gossip != "compressed" and name != "gt_svrg"
+    assert graph_launches == eager_launches == (steps if fused else 0)
+    meta = _algo(name, problem).meta
+    longest = (max(meta.outer_lengths) if meta.outer_lengths is not None
+               else meta.num_steps)
+    longest = min(longest, every) if every else longest
+    assert 1 <= graph.extras["graphs_built"] <= \
+        math.ceil(math.log2(longest)) + 1
+    assert graph.extras["replays"] >= graph.extras["graphs_built"]
+    assert eager.extras["graphs_built"] == eager.extras["replays"] == 0
+    assert (graph.extras["transfers_h2d"],
+            graph.extras["transfers_d2h"]) == (1, 1)
+    for col in ("objective", "consensus"):
+        np.testing.assert_allclose(getattr(graph.history, col),
+                                   getattr(eager.history, col),
+                                   rtol=HISTORY_RTOL, atol=HISTORY_ATOL)
+    np.testing.assert_allclose(graph.params.cpu().numpy(),
+                               eager.params.cpu().numpy(),
+                               rtol=HISTORY_RTOL, atol=HISTORY_ATOL)
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,8 @@ def test_run_on_cpu_gives_every_row_and_counts_its_calls():
                      "kernel/svrg_mix_check", "kernel/svrg_step",
                      "kernel/mix_prox", "kernel/svrg_mix_chain",
                      "kernel/resident_paper_scale_auto",
-                     "kernel/resident_large_d_fused", "kernel/step_buf"]
+                     "kernel/resident_large_d_fused",
+                     "kernel/resident_large_d_moving", "kernel/step_buf"]
     by_name = {r.name: r for r in rows}
     assert set(by_name["kernel/svrg_mix_check"].data["max_abs_err"]
                .values()) == {0.0}
@@ -65,7 +66,13 @@ def test_kernel_stats_on_cpu():
         assert sec["history_max_abs_diff"] <= 1e-5
         for kind, hist in sec["objective"].items():
             assert np.all(np.isfinite(hist)), kind
-    assert (ld["transfers_h2d"], ld["transfers_d2h"]) == (1, 2)
+    assert (ld["transfers_h2d"], ld["transfers_d2h"]) == (1, 1)
+    # the moving-iterate twin of the large-d row: the iterate leaves 0
+    mv = ks["large_d_moving"]
+    assert (mv["param_dim"], mv["lam"]) == (256, pt_kernel_bench.MOVING_LAM)
+    assert 0 < mv["nonzero"] <= mv["params"] == 8 * 256
+    assert mv["fused_launches"] == 0 and mv["history_max_abs_diff"] <= 1e-5
+    assert (mv["graphs_built"], mv["replays"]) == (0, 0)  # none on the CPU
     assert set(ks["step_buf"]) == {"paper", "large"}
     assert ks["step_buf"]["large"]["plain_max_abs_diff"] == 0.0
     untimed = pt_kernel_bench.kernel_stats(0.02, "cpu", timed=False, **TINY)

@@ -1,12 +1,16 @@
 """Shared harness of the PyTorch port's benchmarks (``benchmarks/pt_*.py``).
 
-The port of what ``benchmarks/common.py`` and ``benchmarks/runner_bench.py``
-give the kernel bench: the ``Row`` record, the paper's Eq. 26 logistic loss
-in torch, ``setup_problem`` (a Table-I-shaped dataset partitioned over m
-nodes, on a device) and ``_time_run`` (best-of-N wall time of a whole
-``runner.run``).  Nothing here imports JAX or the JAX package, so
-``python -m benchmarks.pt_kernel_bench`` runs where only PyTorch is
-installed.
+The port of ``benchmarks/common.py`` (and of what ``benchmarks/
+runner_bench.py`` gives the kernel bench): the ``Row`` record, the paper's
+Eq. 26 logistic loss in torch, ``setup_problem`` (one of the four Table I
+datasets at a scale, partitioned over m nodes, on a device), ``f_star``
+(F(x*) by centralized proximal gradient, on the data's device),
+``run_algorithm`` and ``run_sweep`` (the figure drivers' one calling
+convention, the reference's signatures plus ``device`` and ``kernel``),
+``Sweep`` (one figure sweep, so that ``chip_smoke.py`` runs the figures'
+own grids in every mode) and ``_time_run`` (best-of-N wall time of a whole
+``runner.run``).  Nothing here imports JAX or the JAX package, so the
+``benchmarks/pt_*.py`` drivers run where only PyTorch is installed.
 
 Every entry point runs on the CUDA device unless it is asked for the CPU;
 without a card it raises instead of measuring the CPU under a card's name.
@@ -18,7 +22,9 @@ import dataclasses
 import os
 import sys
 import time
+from typing import Any, Callable
 
+import numpy as np
 import torch
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -27,12 +33,14 @@ if _SRC not in sys.path:
     sys.path.insert(0, _SRC)
 
 from repro_torch.convert import params_from_numpy  # noqa: E402
-from repro_torch.core import gossip, prox, runner  # noqa: E402
+from repro_torch.core import (algorithm, dpsvrg, gossip, prox,  # noqa: E402
+                              runner, sweep)
 from repro_torch.core.exec_spec import ExecSpec  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 
 __all__ = ["Row", "logreg_loss", "require_device", "setup_problem",
-           "sync", "_time_run"]
+           "make_problem", "run_algorithm", "run_sweep", "Sweep", "f_star",
+           "timed", "sync", "_time_run"]
 
 
 @dataclasses.dataclass
@@ -82,6 +90,87 @@ def setup_problem(dataset: str, scale: float, m: int = 8, lam: float = 0.01,
     d = ds.dim
     x0 = gossip.stack_tree(torch.zeros(d, device=device), m).contiguous()
     return data, flat, h, x0, d
+
+
+def make_problem(data, h, x0, objective_fn=None) -> algorithm.Problem:
+    return algorithm.Problem(logreg_loss, h, x0, data, objective_fn)
+
+
+def _spec(*, resident, sampling="host", gossip="dense", device="cuda",
+          kernel="plain", scan=False) -> ExecSpec:
+    """The figures' ExecSpec: ``kernel`` applies to resident runs only (the
+    host loop has no fused step)."""
+    return ExecSpec(scan=scan, resident=resident, sampling=sampling,
+                    gossip=gossip, device=device,
+                    kernel=kernel if resident else "plain")
+
+
+def run_algorithm(name: str, problem, sched, *factory_args, seed=0,
+                  record_every=1, scan=False, resident=False,
+                  sampling="host", gossip="dense", device="cuda",
+                  kernel="plain", **factory_kw) -> runner.RunResult:
+    """Build ``ALGORITHMS[name]`` and drive it through ``runner.run`` — the
+    one calling convention every figure script shares.  ``gossip`` pins the
+    dense wire format, as the reference's figures do; ``device`` is where
+    the problem's tensors lie; ``kernel`` picks the resident step."""
+    algo = algorithm.ALGORITHMS[name](problem, *factory_args, **factory_kw)
+    return runner.run(algo, problem, sched,
+                      _spec(scan=scan, resident=resident, sampling=sampling,
+                            gossip=gossip, device=device, kernel=kernel),
+                      seed=seed, record_every=record_every)
+
+
+def run_sweep(build, grid, sched=None, *, seed=0, record_every=1,
+              resident=False, sweep_batched=False, mode="product",
+              gossip="dense", device="cuda",
+              kernel="plain") -> sweep.SweepResult:
+    """Drive a figure's grid through ``core.sweep.run_sweep``.  Default
+    (``resident=False, sweep_batched=False``): the cells one after another
+    on the host loop; ``resident=True``: sequential resident cells;
+    ``sweep_batched=True``: the WHOLE grid as one batched resident run (one
+    staging step and one history pull for the figure)."""
+    return sweep.run_sweep(
+        build, grid, sched,
+        _spec(resident=resident or sweep_batched, gossip=gossip,
+              device=device, kernel=kernel),
+        seed=seed, record_every=record_every, batched=sweep_batched,
+        mode=mode)
+
+
+@dataclasses.dataclass
+class Sweep:
+    """One figure sweep as ``run_sweep`` takes it: a cell factory over a
+    grid, its schedule (None for a ``"schedule"`` axis), cadence and grid
+    mode.  ``run(**kw)`` passes the execution keywords of ``run_sweep``."""
+    build: Callable
+    grid: dict
+    sched: Any = None
+    record_every: int = 1
+    mode: str = "product"
+
+    def run(self, **kw) -> sweep.SweepResult:
+        return run_sweep(self.build, self.grid, self.sched,
+                         record_every=self.record_every, mode=self.mode, **kw)
+
+
+def f_star(flat, h, d, alpha=0.4, steps=4000) -> float:
+    """F(x*) for the optimality gap (paper Section V-B): the least
+    objective of centralized full-batch proximal gradient, on the device
+    the node-flattened data lie on."""
+    device = next(iter(flat.values())).device
+    _, hist = dpsvrg.centralized_prox_gd(logreg_loss, h,
+                                         torch.zeros(d, device=device), flat,
+                                         alpha, steps)
+    return float(np.min(hist))
+
+
+def timed(fn, device="cuda"):
+    """(fn(), its wall time in us, ended by a device synchronize)."""
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, (time.perf_counter() - t0) * 1e6
 
 
 def _time_run(algo, problem, sched, *, record_every, iters=3, **kw) -> float:

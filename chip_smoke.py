@@ -7,8 +7,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch / CUDA
    versions;
-2. builds the six CUDA kernels of the port (four sources; flash
-   attention is two kernels, float32 and bf16, behind one entry point)
+2. builds the CUDA kernels of the port (four sources; flash attention is
+   two kernels, float32 and bf16, behind one entry point, and fused_step
+   one kernel for one run or the cells of a sweep)
    from this checkout (``nvcc``, sm_90a, one process each, all started
    together), prints the build time and each ptxas report, and a
    ``flash_sass`` line: the number of ``HGMMA`` (wgmma) instructions in the
@@ -84,8 +85,27 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 12. replays a seeded Poisson stream through the same model (TTFT / TPOT);
 13. runs ``repro_torch.launch.serve --arch h2o-danube-1.8b --stream`` at the
     launcher's smoke size;
-14. prints the card, a ``{"kernels": [...]}`` line (all six kernels, each
-    with its ``share_of_bound``), and last ``{"ok": true, "device":
+14. holds fused_step's cell-batched launch (one launch for the B cells of
+    a sweep) bitwise to B single-cell launches at (B, 8, d), d in {30, 54,
+    784, 1024, 131072}, B in {1, 3, 4, 16}, both rules, three proxes, W
+    and alpha / lam shared and per cell, and times it in a CUDA graph at
+    (3, 8, 784), (4, 8, 784) and (4, 8, 1024) beside its bound, the same
+    cells as single launches, the plain version and ``torch.bmm(W, q)``;
+15. runs the paper's figures at scale 1.0 (Table I sizes, m = 8) as
+    batched sweeps through the kernel (``core/sweep.py``, CUDA graphs):
+    Fig. 4 (three lambdas), Fig. 5 (four connectivities, one schedule a
+    cell) and Fig. 1 (four seeds on each of the four datasets), DPSVRG then
+    DSPG.  Every launch count is set to 0 before and read after: the
+    cell-batched kernel must launch once per inner step of each sweep.
+    Each sweep is held to its sequential resident runs and to the batched
+    plain step (counting columns exact, objective rtol 1e-4 / atol 1e-6,
+    consensus rtol 1e-3), with the ledger (1, 1) and at most
+    ceil(log2(longest chunk)) + 1 graphs; one Fig. 4 cell is held to the
+    CPU's host loop.  Prints ms per cell-step batched and sequential, the
+    figures' derived columns and whether the paper's orderings hold
+    (recorded, not asserted);
+16. prints the card, a ``{"kernels": [...]}`` line (all seven kernels,
+    each with its ``share_of_bound``), and last ``{"ok": true, "device":
     {...}}``.
 
 Needs one card; exits non-zero without one, and without the repository
@@ -586,13 +606,14 @@ DSPG_AUTO_STEPS = 600
 
 def _reset_launches() -> None:
     ops.launches = ops.launches_svrg_step = ops.launches_mix_prox = 0
-    rn_ops.launches = fa_ops.launches = 0
+    ops.launches_cells = rn_ops.launches = fa_ops.launches = 0
 
 
 def _launch_counts() -> dict:
     return {"fused_step": ops.launches, "svrg_step": ops.launches_svrg_step,
             "mix_prox": ops.launches_mix_prox, "rmsnorm": rn_ops.launches,
-            "flash_attention": fa_ops.launches}
+            "flash_attention": fa_ops.launches,
+            "fused_step_cells": ops.launches_cells}
 
 
 def _held_to_cpu(name: str, card, cpu) -> float:
@@ -1274,6 +1295,387 @@ def serve_danube() -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 14: fused_step over the cells of a sweep, against single launches
+# ---------------------------------------------------------------------------
+
+# the figures' widths (Table I: 784, 1024, 30, 54) and the bench's 131,072;
+# grids of 1, 3 (Fig. 4), 4 (Figs. 1 and 5) and 16 cells
+CELL_DIMS = [30, 54, 784, 1024, 131072]
+CELL_COUNTS = [1, 3, 4, 16]
+# the shapes of the kernels line: Fig. 4 and Fig. 5 / Fig. 1 on mnist_like,
+# and Fig. 1 on cifar10_like
+CELL_TIMED = [(3, 8, 784), (4, 8, 784), (4, 8, 1024)]
+
+
+def cells_case(cells: int, m: int, d: int, rule: str, seed: int, device,
+               w_shared: bool, scalars_shared: bool):
+    """Seeded operands of a cell-batched launch: streams (cells, m, d), W
+    (m, m) or one ring product a cell, alpha and lam as Python floats or
+    one value a cell on the card."""
+    rng = np.random.default_rng(seed)
+    n_streams = 4 if rule == "svrg" else 2
+    streams = [torch.as_tensor(rng.normal(size=(cells, m, d)),
+                               dtype=torch.float32, device=device)
+               for _ in range(n_streams)]
+    ws = [graphs.b_connected_ring_schedule(m, 2, seed=seed + c)
+          .consensus_rounds(0, 3) for c in range(1 if w_shared else cells)]
+    w = torch.as_tensor(ws[0] if w_shared else np.stack(ws),
+                        dtype=torch.float32, device=device)
+    if scalars_shared:
+        alpha, lam = 0.05, 0.01
+    else:
+        alpha = torch.as_tensor(rng.uniform(0.01, 0.3, cells),
+                                dtype=torch.float32, device=device)
+        lam = torch.as_tensor(rng.uniform(1e-3, 0.1, cells),
+                              dtype=torch.float32, device=device)
+    return w, streams, alpha, lam
+
+
+def single_launches(w, streams, alpha, lam, rule, prox_kind):
+    """The same step as B single-cell launches of ``fused_step_buf``."""
+    def pick(v, c):
+        return v[c] if isinstance(v, torch.Tensor) else v
+    lam_host = lam.tolist() if isinstance(lam, torch.Tensor) else None
+    return [ops.fused_step_buf(
+        w[c] if w.ndim == 3 else w, [s[c] for s in streams],
+        pick(alpha, c), lam if lam_host is None else lam_host[c],
+        rule=rule, prox_kind=prox_kind) for c in range(streams[0].shape[0])]
+
+
+def cells_bound(cells: int, m: int, d: int, rule: str, prox_kind: str,
+                w_cells: int):
+    """(bound ms, what bounds it) of a cell-batched launch: B times the
+    single step's bytes and operations, with ``w_cells`` mixing matrices."""
+    n_streams = 4 if rule == "svrg" else 2
+    nbytes = (n_streams + 1) * cells * m * d * 4 + w_cells * m * m * 4 \
+        + 2 * cells * 4
+    flops = cells * (m * d * ((2 if rule == "svrg" else 0) + 2)
+                     + 2 * m * m * d
+                     + m * d * {"l1": 4, "sql2": 1, "none": 0}[prox_kind])
+    return bound(nbytes, flops)
+
+
+def check_cells_kernel(device) -> dict:
+    """Hold the cell-batched launch bitwise to single launches at every
+    listed shape, rule, prox and sharing of W and of alpha / lam, then time
+    it at ``CELL_TIMED`` (svrg l1, per-cell W, alpha and lam, as a Fig. 5
+    sweep calls it) beside its bound, the same cells as single launches, the
+    plain version and ``torch.bmm(W, q)``."""
+    m, cases = 8, 0
+    for d in CELL_DIMS:
+        for cells in CELL_COUNTS:
+            for rule in ref.FUSED_RULES:
+                for prox_kind in ref.FUSED_PROXES:
+                    for w_shared in (True, False):
+                        for shared in (True, False):
+                            w, streams, alpha, lam = cells_case(
+                                cells, m, d, rule, cells * d, device,
+                                w_shared, shared)
+                            out = ops.fused_step_cells_buf(
+                                w, streams, alpha, lam, rule=rule,
+                                prox_kind=prox_kind)
+                            want = torch.stack(single_launches(
+                                w, streams, alpha, lam, rule, prox_kind))
+                            if not torch.equal(out, want):
+                                fail(f"fused_step over {cells} cells differs "
+                                     f"from single launches: d={d} {rule} "
+                                     f"{prox_kind} w_shared={w_shared} "
+                                     f"scalars_shared={shared}")
+                            cases += 1
+    torch.cuda.synchronize()
+    print(f"fused_step_cells: {cases} cases bitwise equal to single "
+          f"launches", flush=True)
+    rows = {}
+    for cells, m, d in CELL_TIMED:
+        rule, prox_kind = "svrg", "l1"
+        w, streams, alpha, lam = cells_case(cells, m, d, rule, d, device,
+                                            False, False)
+        plain = ref.fused_step_cells_math(w, streams, alpha, lam, rule=rule,
+                                          prox_kind=prox_kind)
+        out = ops.fused_step_cells_buf(w, streams, alpha, lam, rule=rule,
+                                       prox_kind=prox_kind)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, plain, rtol=KERNEL_RTOL,
+                                   atol=KERNEL_ATOL)
+        q = streams[0] - alpha[:, None, None] * streams[1]
+        bound_ms, bound_by = cells_bound(cells, m, d, rule, prox_kind, cells)
+        lam_host = lam.tolist()
+
+        def kern():
+            return ops.fused_step_cells_buf(w, streams, alpha, lam,
+                                            rule=rule, prox_kind=prox_kind)
+
+        def singles():
+            for c in range(cells):
+                ops.fused_step_buf(w[c], [s[c] for s in streams], alpha[c],
+                                   lam_host[c], rule=rule,
+                                   prox_kind=prox_kind)
+
+        row = {"shape": [cells, m, d], "rule": rule, "prox": prox_kind,
+               "max_abs_err": float((out - plain).abs().max()),
+               "ms": graph_ms(kern), "single_launches_ms": graph_ms(singles),
+               "plain_ms": graph_ms(lambda: ref.fused_step_cells_math(
+                   w, streams, alpha, lam, rule=rule, prox_kind=prox_kind)),
+               "library_ms": graph_ms(lambda: torch.bmm(w, q)),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        row["share_of_bound"] = bound_ms / row["ms"]
+        rows[(cells, m, d)] = row
+        print("cells_kernel_case " + json.dumps(row), flush=True)
+    return {"cases": cases, "rows": rows}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the paper's figures as batched sweeps at full scale
+# ---------------------------------------------------------------------------
+
+FIG_SCALE = 1.0
+FIG1_SEEDS = 4
+# batched vs sequential, fused vs plain: the tolerances of the reference's
+# batched-vs-sequential tests (tests/test_runner_sweep.py): the same float32
+# arithmetic in other orders (a vmapped product over the cells, a library
+# sum order); the consensus distance, a norm of differences of nearly equal
+# iterates, loses digits to cancellation
+SWEEP_OBJ_TOL = dict(rtol=1e-4, atol=1e-6)
+SWEEP_CONS_TOL = dict(rtol=1e-3, atol=1e-6)
+
+
+def figure_sweeps(device, scale: float) -> list:
+    """[(figure, method, Sweep, F(x*) or None)]: the paper's figure grids as
+    the port's figure drivers define them, Fig. 4 (three lambdas), Fig. 5
+    (four connectivities, one schedule a cell) and Fig. 1 (four seeds on
+    each Table I dataset), each DPSVRG then DSPG."""
+    from benchmarks import (pt_fig1_convergence, pt_fig4_lambda,
+                            pt_fig5_connectivity)
+    out = []
+    for method, sw in pt_fig4_lambda.sweeps(scale, device).items():
+        out.append(("fig4", method, sw, None))
+    exps, fs = pt_fig5_connectivity.sweeps(scale, device)
+    for method, sw in exps.items():
+        out.append(("fig5", method, sw, fs))
+    for dataset in pt_fig1_convergence.DATASETS:
+        exps, fs = pt_fig1_convergence.sweeps(dataset, scale, device,
+                                              seeds=FIG1_SEEDS)
+        for method, sw in exps.items():
+            out.append((f"fig1/{dataset}", method, sw, fs))
+    return out
+
+
+def _sweeps_agree(name: str, want, got) -> float:
+    """Assert two sweeps' histories agree (counting columns exact); returns
+    the objective's max abs difference."""
+    for field in ("steps", "epochs", "comm_rounds"):
+        np.testing.assert_array_equal(getattr(got.history, field),
+                                      getattr(want.history, field),
+                                      err_msg=f"{name} {field}")
+    np.testing.assert_array_equal(got.extras["wire_bytes"],
+                                  want.extras["wire_bytes"],
+                                  err_msg=f"{name} wire_bytes")
+    np.testing.assert_allclose(got.history.objective, want.history.objective,
+                               **SWEEP_OBJ_TOL, err_msg=f"{name} objective")
+    np.testing.assert_allclose(got.history.consensus, want.history.consensus,
+                               **SWEEP_CONS_TOL, err_msg=f"{name} consensus")
+    return float(np.max(np.abs(got.history.objective
+                               - want.history.objective)))
+
+
+def _timed_sweep(sw, device, **kw):
+    """(result, seconds, peak device memory in GB above what was allocated
+    before; 0 on the CPU)."""
+    base = 0
+    if device != "cpu":
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = sw.run(device=device, **kw)
+    peak = 0.0
+    if device != "cpu":
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    return res, time.perf_counter() - t0, peak
+
+
+def paper_figures_phase(device="cuda", scale: float = FIG_SCALE) -> dict:
+    """The figures' grids as batched fused sweeps on ``device`` (every
+    launch count set to 0 before, read after: the cell-batched fused_step
+    must launch once per inner step of each sweep, not once per cell),
+    each held to its sequential resident runs and to the batched plain
+    step, one Fig. 4 cell held to the CPU's host loop; ms per cell-step
+    batched and sequential, the figures' derived columns and whether the
+    paper's orderings hold.  Returns the launch counts and rows."""
+    from benchmarks import (pt_fig1_convergence, pt_fig4_lambda,
+                            pt_fig5_connectivity)
+    t_setup = time.perf_counter()
+    exps = figure_sweeps(device, scale)
+    setup_s = time.perf_counter() - t_setup
+
+    # the main path of this phase: every grid batched through the kernel
+    _reset_launches()
+    batched = {}
+    for fig, method, sw, _ in exps:
+        before = ops.launches_cells
+        res, secs, peak = _timed_sweep(sw, device, sweep_batched=True,
+                                       kernel="fused")
+        batched[(fig, method)] = (res, secs, ops.launches_cells - before,
+                                  peak)
+    counts = _launch_counts()
+
+    results, total_steps = [], 0
+    for fig, method, sw, _ in exps:
+        res, secs, launches, peak = batched[(fig, method)]
+        name = f"{fig}/{method}"
+        cells = res.history.objective.shape[1]
+        steps = int(res.history.steps[-1, 0])
+        total_steps += steps
+        algo0, problem0 = sw.build(**{k: v[0] for k, v in sw.grid.items()
+                                      if k not in ("seed", "schedule")})
+        meta = algo0.meta
+        if device != "cpu":
+            if launches != steps:
+                fail(f"{name}: {launches} cell-batched fused_step launches "
+                     f"for {steps} steps of {cells} cells")
+            check_graphs(name, res.extras, max_graphs(meta, sw.record_every))
+        ledger = (res.extras["transfers_h2d"], res.extras["transfers_d2h"])
+        if ledger != (1, 1):
+            fail(f"{name}: transfer ledger {ledger}, want (1, 1)")
+        for col in ("objective", "consensus"):
+            if not np.all(np.isfinite(getattr(res.history, col))):
+                fail(f"{name}: non-finite {col}")
+        # timed in turns: batched (the counted run above), sequential,
+        # sequential, batched, so that a drift weighs on both alike
+        seq, seq_s, seq_peak = _timed_sweep(sw, device, resident=True,
+                                            kernel="fused")
+        _, seq_s2, _ = _timed_sweep(sw, device, resident=True,
+                                    kernel="fused")
+        again, secs2, _ = _timed_sweep(sw, device, sweep_batched=True,
+                                       kernel="fused")
+        plain, plain_s, _ = _timed_sweep(sw, device, sweep_batched=True,
+                                         kernel="plain")
+        data_gb = sum(leaf.numel() * leaf.element_size() for leaf in
+                      pytree.tree_leaves(problem0.full_data)) / 1e9
+        bat_s, sq_s = (secs + secs2) / 2, (seq_s + seq_s2) / 2
+        row = {"sweep": name, "cells": cells, "steps": steps,
+               "launches": launches,
+               "max_abs_objective_vs_sequential": _sweeps_agree(
+                   f"{name} batched vs sequential", seq, res),
+               "max_abs_objective_vs_plain": _sweeps_agree(
+                   f"{name} fused vs plain", plain, res),
+               "max_abs_objective_rerun": _sweeps_agree(
+                   f"{name} batched rerun", again, res),
+               "batched_s": [secs, secs2], "sequential_s": [seq_s, seq_s2],
+               "batched_plain_s": plain_s,
+               "batched_ms_per_cell_step": bat_s / (steps * cells) * 1e3,
+               "sequential_ms_per_cell_step": sq_s / (steps * cells) * 1e3,
+               "batched_plain_ms_per_cell_step":
+                   plain_s / (steps * cells) * 1e3,
+               "batched_speedup": sq_s / bat_s,
+               "dataset_gb": data_gb, "batched_peak_gb": peak,
+               "sequential_peak_gb": seq_peak,
+               "graphs_built": res.extras["graphs_built"],
+               "max_graphs": max_graphs(meta, sw.record_every),
+               "replays": res.extras["replays"],
+               "capture_s": res.extras["capture_s"],
+               "transfers": list(ledger)}
+        results.append(row)
+        print("figure_sweep " + json.dumps(row), flush=True)
+    if device != "cpu" and counts["fused_step_cells"] != total_steps:
+        fail(f"figures: {counts['fused_step_cells']} cell-batched launches "
+             f"for {total_steps} inner steps")
+
+    # one Fig. 4 cell (lambda = 0.01) against the CPU's host loop
+    cpu_exps = pt_fig4_lambda.sweeps(scale, "cpu")
+    for method, sw in cpu_exps.items():
+        t0 = time.perf_counter()
+        algo, problem = sw.build(lam=pt_fig4_lambda.LAMBDAS[1])
+        host = runner.run(algo, problem, sw.sched, ExecSpec(
+            gossip="dense", device="cpu"), seed=0,
+            record_every=sw.record_every)
+        card = batched[("fig4", method)][0].cell(1)
+        np.testing.assert_array_equal(card.history.steps, host.history.steps)
+        np.testing.assert_allclose(card.history.objective,
+                                   host.history.objective, **SWEEP_OBJ_TOL,
+                                   err_msg=f"fig4 {method}: card vs CPU")
+        print("fig4_cell_vs_cpu " + json.dumps({
+            "method": method, "lam": pt_fig4_lambda.LAMBDAS[1],
+            "max_abs_objective": float(np.max(np.abs(
+                card.history.objective - host.history.objective))),
+            "cpu_host_loop_s": time.perf_counter() - t0}), flush=True)
+
+    # the figures' derived columns, and the paper's orderings at this scale
+    def res_of(fig, method):
+        return batched[(fig, method)][0]
+
+    rows = pt_fig4_lambda.rows(res_of("fig4", "dpsvrg"),
+                               res_of("fig4", "dspg"))
+    fs5 = next(fs for fig, _, _, fs in exps if fig == "fig5")
+    rows += pt_fig5_connectivity.rows(res_of("fig5", "dpsvrg"),
+                                      res_of("fig5", "dspg"), fs5)
+    for dataset in pt_fig1_convergence.DATASETS:
+        fig = f"fig1/{dataset}"
+        fs = next(f for g, _, _, f in exps if g == fig)
+        steps = [r for r in results if r["sweep"].startswith(fig)]
+        rows += pt_fig1_convergence.rows(
+            dataset, res_of(fig, "dpsvrg"), res_of(fig, "dspg"), fs,
+            steps[0]["batched_ms_per_cell_step"] * 1e3,
+            steps[1]["batched_ms_per_cell_step"] * 1e3)
+    for r in rows:
+        print(f"figure_row {r.name},{r.us_per_call:.1f},{r.derived}",
+              flush=True)
+    by = {r.name: r.data for r in rows}
+    orderings = {
+        "fig1_dpsvrg_gap_below_dspg": {
+            ds: by[f"fig1/{ds}/dpsvrg"]["gap"] < by[f"fig1/{ds}/dspg"]["gap"]
+            for ds in pt_fig1_convergence.DATASETS},
+        "fig4_dpsvrg_loss_below_dspg": {
+            str(lam): by[f"fig4/lambda={lam}"]["loss_dpsvrg"]
+            < by[f"fig4/lambda={lam}"]["loss_dspg"]
+            for lam in pt_fig4_lambda.LAMBDAS},
+        "fig5_dpsvrg_gap_below_dspg": {
+            str(b): by[f"fig5/b={b}"]["gap_dpsvrg"]
+            < by[f"fig5/b={b}"]["gap_dspg"]
+            for b in pt_fig5_connectivity.BS},
+    }
+    print("paper_orderings " + json.dumps(orderings), flush=True)
+    if device != "cpu":
+        fig5 = next(sw for fig, method, sw, _ in exps
+                    if (fig, method) == ("fig5", "dpsvrg"))
+        print("profile_figure_sweep " + json.dumps(
+            profile_sweep(fig5, "fig5/dpsvrg")), flush=True)
+    return {"launches": counts, "sweeps": results, "setup_s": setup_s,
+            "orderings": orderings}
+
+
+def profile_sweep(sw, name: str) -> dict:
+    """Where the card's time goes in a batched sweep: the sweep traced by
+    ``torch.profiler`` after a warm run, with the sweep driver's own host
+    spans (plan, staging, issuing the pieces, the pull)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sw.run(device="cuda", sweep_batched=True, kernel="fused")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = sw.run(device="cuda", sweep_batched=True, kernel="fused")
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    out = {"sweep": name, "cells": res.history.objective.shape[1],
+           "steps": int(res.history.steps[-1, 0]),
+           "graphs_built": res.extras["graphs_built"],
+           "replays": res.extras["replays"],
+           "capture_s": res.extras["capture_s"]}
+    out.update(device_busy(prof, wall_us))
+    spans = {}
+    for e in prof.events():
+        if (e.name.startswith("sweep.")
+                and e.device_type == torch.autograd.DeviceType.CPU):
+            spans[e.name] = spans.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+    out["host_spans_ms"] = spans
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
@@ -1423,6 +1825,18 @@ def main() -> None:
     if summary["requests"] != 16:
         fail(f"launch.serve: {summary['requests']} requests finished")
 
+    # phase 14: fused_step over a sweep's cells against single launches
+    t0 = time.perf_counter()
+    cells_kernel = check_cells_kernel(device)
+    print(f"phase 14 (fused_step over cells): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # phase 15: the paper's figures as batched sweeps at full scale
+    t0 = time.perf_counter()
+    figures = paper_figures_phase(device)
+    print(f"phase 15 (paper figures): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
     main_row = rows[(8, 1024, "svrg", "l1")]
     # the shape the kernel bench gives svrg_step and mix_prox
     svrg_row = svrg_mix_rows[("svrg_step", pt_kernel_bench.ROWS)]
@@ -1432,6 +1846,9 @@ def main() -> None:
     flash_bf16_row = flash_rows[(DANUBE_FLASH_CASE, "bfloat16")]
     flash_bf16_err = max(r["max_abs_err"] for r in flash_rows.values()
                          if r["dtype"] == "bfloat16")
+    # Fig. 5's and Fig. 1's shape on mnist_like: four cells of (8, 784);
+    # the error is the bitwise check's against single launches
+    cells_row = cells_kernel["rows"][(4, 8, 784)]
 
     def line(name, source, replaces, launches, err, row):
         return {"name": name, "route": "cuda", "source": source,
@@ -1472,6 +1889,11 @@ def main() -> None:
              "src/repro/kernels/flash_attention/kernel.py:106",
              bf16_prefill["launches"]["flash_attention"], flash_bf16_err,
              flash_bf16_row),
+        line("fused_step_cells",
+             "src/repro_torch/kernels/fused_update/csrc/fused_step.cu",
+             "src/repro/kernels/fused_update/kernel.py:108",
+             figures["launches"]["fused_step_cells"],
+             cells_row["max_abs_err"], cells_row),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,13 +14,15 @@ The port of ``repro.core`` on one device:
                fused twins
   exec_spec  — ``ExecSpec``: path / kernel / transport / device
   runner     — the generic driver: host loop and the resident path
+  sweep      — batched sweeps: a hyperparameter grid as one resident run
   dpsvrg     — hyper-parameters + centralized prox-GD reference
+  inexact    — Algorithm 2 (inexact Prox-SVRG) and an executable Theorem 1
 """
 
 from . import (algorithm, compression, dpsvrg, exec_spec, gossip, graphs,
-               prox, runner, schedules, svrg, transport)
+               inexact, prox, runner, schedules, svrg, sweep, transport)
 from .exec_spec import ExecSpec
 
 __all__ = ["algorithm", "compression", "dpsvrg", "exec_spec", "ExecSpec",
-           "gossip", "graphs", "prox", "runner", "schedules", "svrg",
-           "transport"]
+           "gossip", "graphs", "inexact", "prox", "runner", "schedules",
+           "svrg", "sweep", "transport"]

@@ -14,7 +14,8 @@ What a captured piece bakes in, and how the run feeds it:
   mixing matrices and step sizes; :meth:`PieceGraphs.run` copies the
   piece's staged slices into them on the card before the replay.
 * **State.**  The run's state lives in ONE set of buffers on the card,
-  cloned from the state of the first piece.  Every graph reads its first
+  cloned from the state of the first piece (a batched sweep's state is the
+  same tree with a leading cell axis).  Every graph reads its first
   step's state from them and, at its end, copies the new state back into
   them (a leaf a step passes through is not copied).  Between replays the
   runner applies the outer-round transitions eagerly; :meth:`run` copies

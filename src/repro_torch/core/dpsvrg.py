@@ -47,7 +47,8 @@ def centralized_prox_gd(loss_fn: Callable, prox: prox_lib.Prox, x0,
                         full_data_flat, alpha: float,
                         num_steps: int) -> tuple[Any, np.ndarray]:
     """Centralized full-batch proximal gradient — used to estimate F(x*) for
-    the optimality-gap metric (paper Section V-B)."""
+    the optimality-gap metric (paper Section V-B).  The objective history
+    stays on the data's device until one pull at the end."""
     g = torch.func.grad(loss_fn)
     hist = []
     x = x0
@@ -55,5 +56,5 @@ def centralized_prox_gd(loss_fn: Callable, prox: prox_lib.Prox, x0,
         gr = g(x, full_data_flat)
         z = pytree.tree_map(lambda xi, gi: xi - alpha * gi, x, gr)
         x = prox.apply(z, alpha)
-        hist.append(float(loss_fn(x, full_data_flat) + prox.value(x)))
-    return x, np.array(hist)
+        hist.append(loss_fn(x, full_data_flat) + prox.value(x))
+    return x, torch.stack(hist).double().cpu().numpy()

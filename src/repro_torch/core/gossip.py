@@ -36,6 +36,7 @@ __all__ = [
     "BandedPhi",
     "mix_stacked_banded",
     "stack_tree",
+    "unstack_tree",
     "node_mean",
 ]
 
@@ -43,6 +44,11 @@ __all__ = [
 def stack_tree(tree, m: int):
     """Replicate a tree along a new leading node axis of size m."""
     return pytree.tree_map(lambda x: x[None].expand((m,) + x.shape), tree)
+
+
+def unstack_tree(tree, i: int = 0):
+    """Node ``i``'s parameters of a stacked tree."""
+    return pytree.tree_map(lambda x: x[i], tree)
 
 
 def node_mean(tree):

@@ -9,9 +9,13 @@ so that training loops can report the full composite objective F = f + h.
 
 The port of ``repro.core.prox``: the same registry, the same formulas.
 ``alpha`` may be a Python float or a 0-d float32 tensor (the resident
-runner keeps its step sizes on the device).  Thresholds such as
-``alpha * lam`` are formed in float32, as the reference forms them, so
-coordinates that sit at the l1 threshold land on the same side.
+runner keeps its step sizes on the device).  The weights of ``l1``,
+``squared_l2`` and ``elastic_net`` may be Python floats or float32 tensors:
+a batched sweep rebuilds each cell's prox from that cell's 0-d value under
+``torch.func.vmap``.  Thresholds such as ``alpha * lam`` are formed as one
+float32 product either way, as the reference forms them, so coordinates
+that sit at the l1 threshold land on the same side in a batched sweep and
+in a run of one cell.
 """
 
 from __future__ import annotations
@@ -62,13 +66,23 @@ class Prox:
         return self.apply(tree, alpha)
 
 
+def _f32(v):
+    return v if isinstance(v, torch.Tensor) else float(np.float32(v))
+
+
 def f32_product(a, b):
-    """``a * b`` rounded as a float32 product.  Tensors multiply in their
-    own float32 arithmetic; Python numbers are rounded to float32 first,
-    so the result is the same in both cases."""
+    """``a * b`` rounded as a float32 product: ``np.float32(a) *
+    np.float32(b)`` for Python numbers, and the same bits when either is a
+    float32 tensor (a number is rounded to float32 before it multiplies)."""
     if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
-        return a * b
+        return _f32(a) * _f32(b)
     return float(np.float32(a) * np.float32(b))
+
+
+def _label(v) -> str:
+    """A weight in a prox's name: a tensor (a sweep cell's traced value,
+    which cannot be printed under vmap) reads as ``cell``."""
+    return "cell" if isinstance(v, torch.Tensor) else f"{v}"
 
 
 def _treewise(fn):
@@ -94,7 +108,7 @@ def _soft_threshold(z, t):
 # l1 (the paper's regularizer): soft-thresholding
 # ---------------------------------------------------------------------------
 
-def l1(lam: float) -> Prox:
+def l1(lam) -> Prox:
     def _apply(z, alpha):
         return _soft_threshold(z, f32_product(alpha, lam))
 
@@ -104,12 +118,12 @@ def l1(lam: float) -> Prox:
     def _subgrad(z):
         return lam * torch.sign(z)
 
-    return Prox(name=f"l1({lam})", apply=_treewise(_apply),
+    return Prox(name=f"l1({_label(lam)})", apply=_treewise(_apply),
                 value=_treesum(_value), subgrad=_treewise(_subgrad),
                 fused_spec=("l1", lam))
 
 
-def squared_l2(lam: float) -> Prox:
+def squared_l2(lam) -> Prox:
     """h(x) = (lam/2)||x||^2 — shrinkage (smooth, but prox-able for testing)."""
     def _apply(z, alpha):
         return z / (1.0 + f32_product(alpha, lam))
@@ -117,13 +131,13 @@ def squared_l2(lam: float) -> Prox:
     def _value(leaf):
         return 0.5 * lam * torch.sum(leaf * leaf)
 
-    return Prox(name=f"sql2({lam})", apply=_treewise(_apply),
+    return Prox(name=f"sql2({_label(lam)})", apply=_treewise(_apply),
                 value=_treesum(_value),
                 subgrad=_treewise(lambda z: lam * z),
                 fused_spec=("sql2", lam))
 
 
-def elastic_net(lam1: float, lam2: float) -> Prox:
+def elastic_net(lam1, lam2) -> Prox:
     """h(x) = lam1 ||x||_1 + (lam2/2) ||x||^2."""
     def _apply(z, alpha):
         soft = _soft_threshold(z, f32_product(alpha, lam1))
@@ -136,7 +150,8 @@ def elastic_net(lam1: float, lam2: float) -> Prox:
     def _subgrad(z):
         return lam1 * torch.sign(z) + lam2 * z
 
-    return Prox(name=f"enet({lam1},{lam2})", apply=_treewise(_apply),
+    return Prox(name=f"enet({_label(lam1)},{_label(lam2)})",
+                apply=_treewise(_apply),
                 value=_treesum(_value), subgrad=_treewise(_subgrad))
 
 

@@ -40,11 +40,13 @@ device, so it does not pull the dataset to the host (the reference does).
 A resident run's ``extras`` also report ``graphs_built``, ``replays`` and
 ``capture_s`` (0 on the CPU).
 
-Not ported yet: the compiled ``scan=True`` path and in-chunk device
-sampling (``sampling="device"``) (ROADMAP Queue 1 item 5), and batched
-sweeps (``run_sweep``, Queue 1 item 8).  The
-reference's executable caches (``_shared_exec``) kept XLA programs warm
-across runs; eager PyTorch has nothing to keep warm, so they are gone.
+Batched sweeps (``run_sweep``, re-exported from ``core.sweep``) plan
+every cell of a grid with the same planner (a single run is its one-cell
+case) and run them as one resident program.  Not ported yet: the compiled
+``scan=True`` path and in-chunk device sampling (``sampling="device"``)
+(ROADMAP Queue 1 item 5).  The reference's executable caches
+(``_shared_exec``) kept XLA programs warm across runs; eager PyTorch has
+nothing to keep warm, so they are gone.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ from ..convert import params_to_numpy
 from .exec_spec import ExecSpec
 
 __all__ = ["RunHistory", "RunResult", "Recorder", "run", "run_sweep",
-           "ExecSpec", "sample_batch", "objective_value",
+           "SweepResult", "ExecSpec", "sample_batch", "objective_value",
            "traceable_consensus", "gather_batches", "CUDA_GRAPHS"]
 
 # The resident path on the CUDA device replays CUDA graphs of its pieces.
@@ -237,11 +239,22 @@ class _Plan(NamedTuple):
     cols: dict                     # host-computable history columns
     wire: np.ndarray               # cumulative wire bytes per record
     num_records: int
+    phi_batched: bool = False      # batched plans: phis carry a cell axis
+    opost_batched: bool = False    # batched plans: coin flips per cell
 
 
-def _plan_resident(meta, rng, backend, aux, *, m: int, n: int,
-                   param_count: int, record_every: int,
-                   transitions: bool) -> _Plan:
+class _PlanCell(NamedTuple):
+    """One sweep cell's planning inputs.  A single resident run is the
+    one-cell case."""
+    meta: Any
+    rng: Any
+    backend: Any
+    aux: Any
+
+
+def _plan_resident(cells: "list[_PlanCell]", *, m: int, n: int,
+                   param_count: int, record_every: int, transitions: bool,
+                   batched: bool = False) -> _Plan:
     """Walk the run's data-independent control flow without touching the
     device: chunk boundaries, gossip products, step sizes, minibatch
     indices (same ``np.random`` draw order as the host loop) and
@@ -249,40 +262,66 @@ def _plan_resident(meta, rng, backend, aux, *, m: int, n: int,
     plan holds no ``outer``/``end_outer`` ops: per-step flags say where the
     algorithm's traced transitions apply (before a step: a new outer round;
     after it: a coin-flip snapshot, or the end of a round).  Without them a
-    coin flip cuts the chunk and an ``outer`` op follows it."""
-    has_batch = meta.batch_size > 0
-    bsz = meta.batch_size
-    has_snapshot = meta.snapshot_prob is not None
+    coin flip cuts the chunk and an ``outer`` op follows it.
+
+    ``cells`` holds one entry per sweep cell; their metas share the loop
+    structure (``sweep`` validates it), while step sizes, rng streams and
+    snapshot probabilities may differ.  With ``batched=True`` the chunk
+    inputs grow a cell axis after the step axis: indices (T, B, m, bsz),
+    step sizes (T, B), phis only when the cells gossip over different
+    schedules (``phi_batched``) and coin flips when the method has them
+    (``opost_batched``); the history columns become (records, B)."""
+    meta0 = cells[0].meta
+    B = len(cells)
+    if batched and not transitions:
+        raise ValueError("batched plans apply the outer transitions from "
+                         "per-step flags; transitions=False plans a single "
+                         "cell only")
+    has_batch = meta0.batch_size > 0
+    bsz = meta0.batch_size
+    has_snapshot = meta0.snapshot_prob is not None
+    opost_batched = batched and has_snapshot
+    phi_batched = batched and len({id(c.aux) for c in cells}) > 1
 
     ops: list = []
     chunks: list = []
     cols = {"epochs": [], "comm_rounds": [], "steps": []}
     wire_col: list = []
 
-    grad_evals = m * n if meta.init_full_grad else 0
+    grad_evals = [m * n if c.meta.init_full_grad else 0 for c in cells]
     full_grad_cost = m * n
     comm = 0
-    wire = 0
-    slot = meta.slot_start
+    wire = [0] * B
+    slot = meta0.slot_start
     t = 0
 
     def phi_for(rounds: int):
-        nonlocal slot, comm, wire
-        phi = backend.phi_for(aux, slot, rounds)
-        wire += (backend.bytes_per_step(aux, phi, param_count)
-                 * meta.gossip_payloads)
+        nonlocal slot, comm
+        by_aux: dict = {}
+        per_cell = []
+        for i, c in enumerate(cells):
+            phi = by_aux.get(id(c.aux))
+            if phi is None:
+                phi = by_aux[id(c.aux)] = c.backend.phi_for(c.aux, slot,
+                                                            rounds)
+            per_cell.append(phi)
+            wire[i] += (c.backend.bytes_per_step(c.aux, phi, param_count)
+                        * c.meta.gossip_payloads)
         slot += rounds
         comm += rounds
-        return phi
+        return transport.batch_phis(per_cell) if phi_batched else per_cell[0]
 
     def plan_record():
         ops.append(("record",))
-        cols["epochs"].append(grad_evals / float(m * n)
-                              if meta.epoch_metric == "grad" else float(t))
-        cols["comm_rounds"].append(comm if meta.comm_metric == "gossip"
+        if meta0.epoch_metric == "grad":
+            ep = [g / float(m * n) for g in grad_evals]
+        else:
+            ep = [float(t)] * B
+        cols["epochs"].append(ep if batched else ep[0])
+        cols["comm_rounds"].append(comm if meta0.comm_metric == "gossip"
                                    else t)
         cols["steps"].append(t)
-        wire_col.append(wire)
+        wire_col.append(list(wire) if batched else wire[0])
 
     def finish_chunk(idxs, phis, alphas, flags):
         """Stack one chunk's step inputs: the minibatch indices as one
@@ -300,24 +339,32 @@ def _plan_resident(meta, rng, backend, aux, *, m: int, n: int,
                               np.asarray(alphas, np.float32)), chunk_flags))
 
     def draw_idx():
-        return rng.integers(0, n, size=(m, bsz))
+        per_cell = [c.rng.integers(0, n, size=(m, bsz)) for c in cells]
+        return np.stack(per_cell) if batched else per_cell[0]
+
+    def draw_alpha(step_t: int):
+        per_cell = [c.meta.stepsize(step_t) for c in cells]
+        return per_cell if batched else per_cell[0]
+
+    def no_flip():
+        return np.zeros(B, np.bool_) if opost_batched else False
 
     plan_record()
 
-    if meta.outer_lengths is not None:
+    if meta0.outer_lengths is not None:
         # ---- outer/inner structure (DPSVRG) --------------------------------
         just_recorded = False
         pending_outer = False
-        for K in meta.outer_lengths:
+        for K in meta0.outer_lengths:
             if transitions:
                 pending_outer = True
             else:
                 ops.append(("outer",))
-            if meta.outer_full_grad:
-                grad_evals += full_grad_cost
+            if meta0.outer_full_grad:
+                grad_evals = [g + full_grad_cost for g in grad_evals]
             k = 0
             while k < K:
-                key0 = k if meta.record_key == "round" else t
+                key0 = k if meta0.record_key == "round" else t
                 until = (record_every - key0 % record_every
                          if record_every else K - k)
                 chunk = min(K - k, until)
@@ -326,19 +373,20 @@ def _plan_resident(meta, rng, backend, aux, *, m: int, n: int,
                 for j in range(chunk):
                     if has_batch:
                         idxs.append(draw_idx())
-                    phis.append(phi_for(meta.gossip_rounds(k + j + 1)))
-                    alphas.append(meta.stepsize(t + j + 1))
+                    phis.append(phi_for(meta0.gossip_rounds(k + j + 1)))
+                    alphas.append(draw_alpha(t + j + 1))
                     if transitions:
                         flags["o_pre"].append(pending_outer)
                         pending_outer = False
-                        flags["o_post"].append(False)
+                        flags["o_post"].append(no_flip())
                         flags["e_post"].append(k + j + 1 == K)
                         flags["e_k"].append(float(K))
                 finish_chunk(idxs, phis, alphas, flags)
                 k += chunk
                 t += chunk
-                grad_evals += chunk * meta.step_grad_factor * m * bsz
-                key = k if meta.record_key == "round" else t
+                grad_evals = [g + chunk * meta0.step_grad_factor * m * bsz
+                              for g in grad_evals]
+                key = k if meta0.record_key == "round" else t
                 if record_every and key % record_every == 0:
                     plan_record()
                     just_recorded = True
@@ -348,15 +396,15 @@ def _plan_resident(meta, rng, backend, aux, *, m: int, n: int,
                 ops.append(("end_outer", K))
             if not record_every:
                 plan_record()
-        if record_every and meta.final_record and not just_recorded:
+        if record_every and meta0.final_record and not just_recorded:
             plan_record()
     else:
         # ---- flat loop (DSPG) ----------------------------------------------
         if record_every < 1:
             raise ValueError(
-                f"{meta.name}: flat loops need record_every >= 1")
-        while t < meta.num_steps:
-            chunk_max = min(meta.num_steps - t,
+                f"{meta0.name}: flat loops need record_every >= 1")
+        while t < meta0.num_steps:
+            chunk_max = min(meta0.num_steps - t,
                             record_every - t % record_every)
             idxs, phis, alphas = [], [], []
             flags = {"o_pre": [], "o_post": [], "e_post": [], "e_k": []}
@@ -365,37 +413,46 @@ def _plan_resident(meta, rng, backend, aux, *, m: int, n: int,
             for j in range(chunk_max):
                 if has_batch:
                     idxs.append(draw_idx())
-                phis.append(phi_for(meta.gossip_rounds(t + j + 1)))
-                alphas.append(meta.stepsize(t + j + 1))
+                phis.append(phi_for(meta0.gossip_rounds(t + j + 1)))
+                alphas.append(draw_alpha(t + j + 1))
                 chunk += 1
                 # the coin of a snapshot method comes after the step's
-                # indices, as in the host loop
-                flip = has_snapshot and rng.random() < meta.snapshot_prob
+                # indices, as in the host loop, one a cell
+                flips = [has_snapshot
+                         and c.rng.random() < c.meta.snapshot_prob
+                         for c in cells]
                 if transitions:
                     flags["o_pre"].append(False)
-                    flags["o_post"].append(flip)
+                    flags["o_post"].append(np.array(flips, np.bool_)
+                                           if opost_batched else flips[0])
                     flags["e_post"].append(False)
                     flags["e_k"].append(0.0)
-                    if flip and meta.outer_full_grad:
-                        grad_evals += full_grad_cost
-                elif flip:
+                    if meta0.outer_full_grad:
+                        grad_evals = [g + full_grad_cost * f
+                                      for g, f in zip(grad_evals, flips)]
+                elif flips[0]:
                     refresh = True   # the snapshot lands here: cut the chunk
                     break
             finish_chunk(idxs, phis, alphas, flags)
             t += chunk
-            grad_evals += chunk * meta.step_grad_factor * m * bsz
+            grad_evals = [g + chunk * meta0.step_grad_factor * m * bsz
+                          for g in grad_evals]
             if refresh:
                 ops.append(("outer",))
-                if meta.outer_full_grad:
-                    grad_evals += full_grad_cost
-            if t % record_every == 0 or t == meta.num_steps:
+                if meta0.outer_full_grad:
+                    grad_evals[0] += full_grad_cost
+            if t % record_every == 0 or t == meta0.num_steps:
                 plan_record()
 
     num_records = sum(1 for op in ops if op[0] == "record")
-    return _Plan(ops=ops, chunks=chunks,
-                 cols={k: np.array(v) for k, v in cols.items()},
+    cols_np = {k: np.array(v) for k, v in cols.items()}
+    if batched:
+        for k in ("comm_rounds", "steps"):
+            cols_np[k] = np.repeat(cols_np[k][:, None], B, axis=1)
+    return _Plan(ops=ops, chunks=chunks, cols=cols_np,
                  wire=np.array(wire_col, dtype=np.int64),
-                 num_records=num_records)
+                 num_records=num_records, phi_batched=phi_batched,
+                 opost_batched=opost_batched)
 
 
 def _stack_wire(phis):
@@ -435,12 +492,17 @@ def gather_batches(data, idx: torch.Tensor):
     """The minibatches of a run of steps, gathered from the resident
     dataset on its device: ``data`` leaves (m, n, ...), ``idx`` the (steps,
     m, bsz) int64 indices -> leaves (steps, m, bsz, ...), element for
-    element what a host ``np.take_along_axis`` of the same indices gives."""
-    steps, m, bsz = idx.shape
+    element what a host ``np.take_along_axis`` of the same indices gives.
+    Indices with more leading axes, (steps, cells, m, bsz) for a batched
+    sweep, gather every cell's batches from the one dataset, which is
+    broadcast (a view), never copied per cell."""
+    lead, (m, bsz) = idx.shape[:-2], idx.shape[-2:]
+    k = len(lead)
     return pytree.tree_map(
         lambda a: torch.take_along_dim(
-            a[None], idx.reshape(steps, m, bsz, *([1] * (a.ndim - 2))),
-            dim=2), data)
+            a.reshape((1,) * k + a.shape),
+            idx.reshape(*lead, m, bsz, *([1] * (a.ndim - 2))), dim=k + 1),
+        data)
 
 
 def _slice(xs, start: int, stop: int):
@@ -460,6 +522,8 @@ def _pieces(chunk: _Chunk) -> list:
     cuts = {0, chunk.length}
     if chunk.flags is not None:
         o_pre, o_post, e_post, _ = chunk.flags
+        if o_post.ndim == 2:           # a batched plan: flips per cell
+            o_post = o_post.any(axis=1)
         cuts.update(int(j) for j in np.flatnonzero(o_pre))
         cuts.update(int(j) + 1 for j in np.flatnonzero(o_post | e_post))
     bounds = sorted(cuts)
@@ -532,8 +596,9 @@ def _run_resident(algo, problem, backend, aux, rng, *, m: int, n: int,
     # host's plan and its staging copy, issuing the chunks, the pull
     with record_function("resident.plan"):
         plan = _plan_resident(
-            meta, rng, backend, aux, m=m, n=n, param_count=param_count,
-            record_every=record_every, transitions=transitions)
+            [_PlanCell(meta, rng, backend, aux)], m=m, n=n,
+            param_count=param_count, record_every=record_every,
+            transitions=transitions)
     step_fn = _resolve_kernel_step(algo, kernel)
     objective = _resolved_objective(meta, problem)
 
@@ -816,8 +881,6 @@ def run(algo: algorithm_lib.Algorithm,
                      extras=extras)
 
 
-def run_sweep(*args, **kwargs):
-    """Batched hyper-parameter sweeps: not ported yet."""
-    raise NotImplementedError(
-        "runner.run_sweep (batched sweeps) is not ported to PyTorch yet "
-        "(ROADMAP Queue 1 item 8); loop over runner.run")
+# the batched sweep driver lives in core/sweep.py, which builds on this
+# module's plan and executors
+from .sweep import SweepResult, run_sweep  # noqa: E402

@@ -52,6 +52,7 @@ __all__ = [
     "resolve_backend",
     "node_param_count",
     "mix_matrix",
+    "batch_phis",
 ]
 
 F32_BYTES = 4
@@ -106,6 +107,25 @@ def mix_matrix(phi):
     if isinstance(phi, compression.CompressedPhi):
         return None
     return phi if getattr(phi, "ndim", None) == 2 else None
+
+
+def batch_phis(phis: list) -> Any:
+    """Stack the cells' wire representations of one step along a new
+    leading cell axis (a batched sweep whose cells gossip over different
+    schedules).  Every phi must share its pytree structure, static parts
+    included (one ``BandedPhi`` offset union): cells whose schedules
+    decompose differently cannot share one batched program, and
+    ``gossip="dense"``, whose (m, m) wire format has no static part, batches
+    any topologies.  Leaf dtypes are kept."""
+    specs = {str(pytree.tree_structure(p)) for p in phis}
+    if len(specs) > 1:
+        raise ValueError(
+            f"cannot batch gossip wire representations with different "
+            f"static structure across sweep cells: {sorted(specs)}; cells "
+            f"whose schedules decompose into different band structures "
+            f"need gossip='dense' to share one batched program")
+    return pytree.tree_map(
+        lambda *leaves: np.stack([np.asarray(a) for a in leaves]), *phis)
 
 
 def _active_entries(offsets: tuple, coeffs, m: int) -> Iterator:

@@ -9,7 +9,8 @@ Each kernel package mirrors its counterpart in ``repro.kernels``:
               the kernel's oracle on the card.
 
   fused_update    — the fused resident step prox(W @ (x - alpha*v)) of
-                    DPSVRG / DSPG (replaces fused_step_kernel_call), and
+                    DPSVRG / DSPG, for one run or the cells of a batched
+                    sweep in one launch (replaces fused_step_kernel_call), and
                     the elementwise svrg_step and mix_prox (replace
                     svrg_step_kernel_call and mix_prox_kernel_call).
   rmsnorm         — RMSNorm with float32 statistics (replaces
@@ -32,6 +33,7 @@ SOURCES = (fused_update.kernel.SOURCE, fused_update.kernel.SVRG_MIX_SOURCE,
 
 # every wrapper's launch count, as (module, attribute)
 _COUNTERS = ((fused_update.ops, "launches"),
+             (fused_update.ops, "launches_cells"),
              (fused_update.ops, "launches_svrg_step"),
              (fused_update.ops, "launches_mix_prox"),
              (rmsnorm.ops, "launches"),

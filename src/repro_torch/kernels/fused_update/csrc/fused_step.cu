@@ -7,7 +7,9 @@
 //     out = prox(z)                    (l1 soft-threshold at alpha*lam,
 //                                       sql2 z / (1 + alpha*lam), or none)
 //
-// over contiguous row-major (m, d) float32 buffers, one row per node.
+// over contiguous row-major (m, d) float32 buffers, one row per node, for
+// one run or for B cells of a sweep at once: (B, m, d) streams, one W per
+// cell or one shared, alpha and lam per cell or shared.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/fused_update/kernel.py:fused_step_kernel_call (body
@@ -47,7 +49,8 @@
 // (one row a thread; the k loops unroll fully) and a runtime value for the
 // other m <= 64 (32 row threads, each over up to 2 rows: the row loop still
 // unrolls, guarded; with 4 rows a thread one instantiation spilled).  Rule, prox and VEC are template parameters too:
-// 3 x 2 x 2 x 3 = 36 instantiations behind one C entry point with plain int
+// 3 x 2 x 2 x 3 = 36 instantiations behind two C entry points (one run, B
+// cells) with plain int
 // selectors.  The ragged column edge is masked at VEC granularity.
 //
 // Rounding.  The elementwise steps use the _rn intrinsics so that nvcc does
@@ -60,7 +63,17 @@
 //
 // alpha comes either by value or, when alpha_ptr is not null, from device
 // memory: the resident runner keeps its staged step sizes on the card, so a
-// step never waits for the host.
+// step never waits for the host.  lam likewise (a sweep's per-cell l1
+// weights live on the card).
+//
+// Cells.  A batched sweep (core/sweep.py) runs B cells of a grid in lock
+// step; one launch serves all of them.  blockIdx.y is the cell: it offsets
+// every stream by cell * m * d, W by cell * w_stride (m * m, or 0 for one
+// shared matrix), and alpha and lam by their strides (1, or 0 for one
+// shared value).  Each cell's element takes exactly the single-cell op
+// sequence, so a B-cell launch gives the bits of B single launches; one run
+// is the launch with B = 1 and every stride 0.  More cells fill more of the
+// card: Fig. 4's (3, 8, 784) launches 3 x 25 tiles, against 25 for one run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -149,7 +162,9 @@ fused_step_kernel(const float* __restrict__ w, const float* __restrict__ x,
                   const float* __restrict__ g0, const float* __restrict__ g1,
                   const float* __restrict__ g2, float* __restrict__ out,
                   int m_arg, long long d, const float* __restrict__ alpha_ptr,
-                  float alpha_val, float lam) {
+                  float alpha_val, long long alpha_stride,
+                  const float* __restrict__ lam_ptr, float lam_val,
+                  long long lam_stride, long long w_stride) {
   using T = typename Vec<VEC>::T;
   constexpr int TX = COLS / VEC;
   constexpr int ROWS = Rows<M>::kRows;
@@ -157,6 +172,17 @@ fused_step_kernel(const float* __restrict__ w, const float* __restrict__ x,
   constexpr int TILE = Rows<M>::kTile;
   constexpr int THREADS = threads_of<M, VEC>();
   const int m = M > 0 ? M : m_arg;
+  // the cell: offsets into the (B, m, d) streams, W, alpha and lam
+  const long long cell = blockIdx.y;
+  const long long cell_off = cell * (long long)m * d;
+  x += cell_off;
+  g0 += cell_off;
+  if (RULE == kSvrg) {
+    g1 += cell_off;
+    g2 += cell_off;
+  }
+  out += cell_off;
+  w += cell * w_stride;
 
   __shared__ __align__(16) float w_s[TILE * TILE];
   __shared__ __align__(16) float q_s[TILE * COLS];
@@ -167,7 +193,11 @@ fused_step_kernel(const float* __restrict__ w, const float* __restrict__ x,
   const bool live = j < d;     // d % VEC == 0 on the vector path
 
   // ---- one round of loads: alpha, W and every stream of the tile --------
-  const float alpha = alpha_ptr != nullptr ? __ldg(alpha_ptr) : alpha_val;
+  const float alpha = alpha_ptr != nullptr
+                          ? __ldg(alpha_ptr + cell * alpha_stride)
+                          : alpha_val;
+  const float lam = lam_ptr != nullptr ? __ldg(lam_ptr + cell * lam_stride)
+                                       : lam_val;
   T xr[REPS], a0[REPS], a1[REPS], a2[REPS];
 #pragma unroll
   for (int r = 0; r < REPS; ++r) {
@@ -243,73 +273,80 @@ fused_step_kernel(const float* __restrict__ w, const float* __restrict__ x,
   }
 }
 
+// A launch's operands: B cells of (m, d) streams, and where each cell finds
+// its W, alpha and lam.
+struct Args {
+  const float* w;
+  const float* x;
+  const float* g0;
+  const float* g1;
+  const float* g2;
+  float* out;
+  int m;
+  long long d;
+  int cells;
+  long long w_stride;
+  const float* alpha_ptr;
+  float alpha_val;
+  long long alpha_stride;
+  const float* lam_ptr;
+  float lam_val;
+  long long lam_stride;
+  cudaStream_t stream;
+};
+
 template <int M, int VEC, int RULE, int PROX>
-void launch(const float* w, const float* x, const float* g0, const float* g1,
-            const float* g2, float* out, int m, long long d,
-            const float* alpha_ptr, float alpha_val, float lam,
-            cudaStream_t stream) {
-  const long long blocks = (d + COLS - 1) / COLS;
+void launch(const Args& a) {
+  const dim3 grid((unsigned)((a.d + COLS - 1) / COLS), (unsigned)a.cells);
   fused_step_kernel<M, VEC, RULE, PROX>
-      <<<(unsigned)blocks, threads_of<M, VEC>(), 0, stream>>>(
-          w, x, g0, g1, g2, out, m, d, alpha_ptr, alpha_val, lam);
+      <<<grid, threads_of<M, VEC>(), 0, a.stream>>>(
+          a.w, a.x, a.g0, a.g1, a.g2, a.out, a.m, a.d, a.alpha_ptr,
+          a.alpha_val, a.alpha_stride, a.lam_ptr, a.lam_val, a.lam_stride,
+          a.w_stride);
 }
 
 template <int M, int VEC, int RULE>
-int dispatch_prox(int prox, const float* w, const float* x, const float* g0,
-                  const float* g1, const float* g2, float* out, int m,
-                  long long d, const float* alpha_ptr, float alpha_val,
-                  float lam, cudaStream_t stream) {
+int dispatch_prox(int prox, const Args& a) {
   switch (prox) {
-    case kL1:
-      launch<M, VEC, RULE, kL1>(w, x, g0, g1, g2, out, m, d, alpha_ptr,
-                                alpha_val, lam, stream);
-      return 0;
-    case kSql2:
-      launch<M, VEC, RULE, kSql2>(w, x, g0, g1, g2, out, m, d, alpha_ptr,
-                                  alpha_val, lam, stream);
-      return 0;
-    case kNone:
-      launch<M, VEC, RULE, kNone>(w, x, g0, g1, g2, out, m, d, alpha_ptr,
-                                  alpha_val, lam, stream);
-      return 0;
+    case kL1: launch<M, VEC, RULE, kL1>(a); return 0;
+    case kSql2: launch<M, VEC, RULE, kSql2>(a); return 0;
+    case kNone: launch<M, VEC, RULE, kNone>(a); return 0;
   }
   return -1;
 }
 
 template <int M, int VEC>
-int dispatch_rule(int rule, int prox, const float* w, const float* x,
-                  const float* g0, const float* g1, const float* g2,
-                  float* out, int m, long long d, const float* alpha_ptr,
-                  float alpha_val, float lam, cudaStream_t stream) {
-  if (rule == kSvrg)
-    return dispatch_prox<M, VEC, kSvrg>(prox, w, x, g0, g1, g2, out, m, d,
-                                        alpha_ptr, alpha_val, lam, stream);
-  if (rule == kSgd)
-    return dispatch_prox<M, VEC, kSgd>(prox, w, x, g0, g1, g2, out, m, d,
-                                       alpha_ptr, alpha_val, lam, stream);
+int dispatch_rule(int rule, int prox, const Args& a) {
+  if (rule == kSvrg) return dispatch_prox<M, VEC, kSvrg>(prox, a);
+  if (rule == kSgd) return dispatch_prox<M, VEC, kSgd>(prox, a);
   return -1;
 }
 
 template <int VEC>
-int dispatch_m(int rule, int prox, const float* w, const float* x,
-               const float* g0, const float* g1, const float* g2, float* out,
-               int m, long long d, const float* alpha_ptr, float alpha_val,
-               float lam, cudaStream_t stream) {
-  switch (m) {
-    case 8:
-      return dispatch_rule<8, VEC>(rule, prox, w, x, g0, g1, g2, out, m, d,
-                                   alpha_ptr, alpha_val, lam, stream);
-    case 16:
-      return dispatch_rule<16, VEC>(rule, prox, w, x, g0, g1, g2, out, m, d,
-                                    alpha_ptr, alpha_val, lam, stream);
-    default:
-      return dispatch_rule<0, VEC>(rule, prox, w, x, g0, g1, g2, out, m, d,
-                                   alpha_ptr, alpha_val, lam, stream);
+int dispatch_m(int rule, int prox, const Args& a) {
+  switch (a.m) {
+    case 8: return dispatch_rule<8, VEC>(rule, prox, a);
+    case 16: return dispatch_rule<16, VEC>(rule, prox, a);
+    default: return dispatch_rule<0, VEC>(rule, prox, a);
   }
 }
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+int launch_checked(int rule, int prox, const Args& a) {
+  // 65535: the most blocks a grid takes along y
+  if (a.m < 1 || a.m > MAX_M || a.d < 1 || a.cells < 1 || a.cells > 65535)
+    return -1;
+  // with d % 4 == 0 every cell's rows start 16 bytes apart from the base
+  const bool vec = a.d % 4 == 0 && aligned16(a.x) && aligned16(a.g0) &&
+                   aligned16(a.out) &&
+                   (rule != kSvrg || (aligned16(a.g1) && aligned16(a.g2)));
+  const int rc = vec ? dispatch_m<4>(rule, prox, a)
+                     : dispatch_m<1>(rule, prox, a);
+  if (rc != 0) return rc;
+  return (int)cudaGetLastError();
 }
 
 __global__ void noop_kernel() {}
@@ -327,17 +364,27 @@ int fused_step_launch(const float* w, const float* x, const float* g0,
                       const float* g1, const float* g2, float* out, int m,
                       long long d, const float* alpha_ptr, float alpha_val,
                       float lam, int rule, int prox, void* stream) {
-  if (m < 1 || m > MAX_M || d < 1) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = d % 4 == 0 && aligned16(x) && aligned16(g0) &&
-                   aligned16(out) &&
-                   (rule != kSvrg || (aligned16(g1) && aligned16(g2)));
-  const int rc = vec ? dispatch_m<4>(rule, prox, w, x, g0, g1, g2, out, m, d,
-                                     alpha_ptr, alpha_val, lam, s)
-                     : dispatch_m<1>(rule, prox, w, x, g0, g1, g2, out, m, d,
-                                     alpha_ptr, alpha_val, lam, s);
-  if (rc != 0) return rc;
-  return (int)cudaGetLastError();
+  const Args a{w, x, g0, g1, g2, out, m, d, 1, 0, alpha_ptr, alpha_val, 0,
+               nullptr, lam, 0, static_cast<cudaStream_t>(stream)};
+  return launch_checked(rule, prox, a);
+}
+
+// The same step for B cells in one launch: streams (B, m, d) contiguous;
+// W at w + c * w_stride; alpha at alpha_ptr[c * alpha_stride] (or
+// alpha_val when alpha_ptr is null); lam likewise.  Returns as
+// fused_step_launch does.
+int fused_step_cells_launch(const float* w, const float* x, const float* g0,
+                            const float* g1, const float* g2, float* out,
+                            int cells, int m, long long d, long long w_stride,
+                            const float* alpha_ptr, float alpha_val,
+                            long long alpha_stride, const float* lam_ptr,
+                            float lam_val, long long lam_stride, int rule,
+                            int prox, void* stream) {
+  const Args a{w,        x,         g0,           g1,      g2,
+               out,      m,         d,            cells,   w_stride,
+               alpha_ptr, alpha_val, alpha_stride, lam_ptr, lam_val,
+               lam_stride, static_cast<cudaStream_t>(stream)};
+  return launch_checked(rule, prox, a);
 }
 
 // An empty kernel on one block: the launch floor that fused_step's time is

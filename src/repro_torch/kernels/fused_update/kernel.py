@@ -2,7 +2,9 @@
 
 * ``csrc/fused_step.cu`` — the fused resident step, the Hopper counterpart
   of the Pallas TPU kernel ``repro.kernels.fused_update.kernel.
-  fused_step_kernel_call``;
+  fused_step_kernel_call``, for one run or for the B cells of a batched
+  sweep in one launch (the reference ``vmap``s the Pallas call over its
+  cells);
 * ``csrc/svrg_mix.cu`` — the elementwise pipeline ``svrg_step`` and
   ``mix_prox``, the counterparts of ``svrg_step_kernel_call`` and
   ``mix_prox_kernel_call``.
@@ -25,8 +27,9 @@ import torch
 from .. import _build
 
 __all__ = ["SOURCE", "SVRG_MIX_SOURCE", "RULES", "PROXES", "library",
-           "max_m", "fused_step_launch", "noop_launch", "svrg_mix_library",
-           "svrg_step_launch", "mix_prox_launch"]
+           "max_m", "fused_step_launch", "fused_step_cells_launch",
+           "noop_launch", "svrg_mix_library", "svrg_step_launch",
+           "mix_prox_launch"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_step.cu"
 SVRG_MIX_SOURCE = Path(__file__).resolve().parent / "csrc" / "svrg_mix.cu"
@@ -47,6 +50,15 @@ def library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int,            # rule, prox
         ptr]                                   # stream
     lib.fused_step_launch.restype = ctypes.c_int
+    i64, f32 = ctypes.c_longlong, ctypes.c_float
+    lib.fused_step_cells_launch.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,          # w, x, g0, g1, g2, out
+        ctypes.c_int, ctypes.c_int, i64, i64,  # cells, m, d, w_stride
+        ptr, f32, i64,                         # alpha ptr / value / stride
+        ptr, f32, i64,                         # lam ptr / value / stride
+        ctypes.c_int, ctypes.c_int,            # rule, prox
+        ptr]                                   # stream
+    lib.fused_step_cells_launch.restype = ctypes.c_int
     lib.fused_step_max_m.argtypes = []
     lib.fused_step_max_m.restype = ctypes.c_int
     lib.fused_step_noop_launch.argtypes = [ptr]
@@ -79,6 +91,35 @@ def fused_step_launch(w: torch.Tensor, streams, out: torch.Tensor, alpha,
             w.data_ptr(), ptrs[0], ptrs[1], ptrs[2], ptrs[3], out.data_ptr(),
             m, d, alpha_ptr, alpha_val, float(lam), RULES[rule],
             PROXES[prox_kind], stream)
+
+
+def _scalar_operand(v, cells: int):
+    """(pointer, value, stride) of a scalar operand of the cells launch: a
+    Python number by value; a one-element tensor from device memory, shared
+    by every cell; a (cells,) tensor from device memory, one per cell."""
+    if not isinstance(v, torch.Tensor):
+        return None, float(v), 0
+    return v.data_ptr(), 0.0, (1 if v.numel() == cells > 1 else 0)
+
+
+def fused_step_cells_launch(w: torch.Tensor, streams, out: torch.Tensor,
+                            alpha, lam, *, rule: str, prox_kind: str) -> int:
+    """Launch the step for every cell of ``out`` (B, m, d) at once, on the
+    current stream of ``out``'s device; returns the C entry point's status.
+    ``w`` is (B, m, m) (one matrix a cell) or (m, m) (shared); ``alpha`` and
+    ``lam`` are each a Python number, a one-element float32 tensor or a
+    (B,) float32 tensor on the same device."""
+    cells, m, d = out.shape
+    ptrs = [s.data_ptr() for s in streams] + [None] * (4 - len(streams))
+    a_ptr, a_val, a_stride = _scalar_operand(alpha, cells)
+    l_ptr, l_val, l_stride = _scalar_operand(lam, cells)
+    w_stride = m * m if w.ndim == 3 else 0
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        return library().fused_step_cells_launch(
+            w.data_ptr(), ptrs[0], ptrs[1], ptrs[2], ptrs[3], out.data_ptr(),
+            cells, m, d, w_stride, a_ptr, a_val, a_stride, l_ptr, l_val,
+            l_stride, RULES[rule], PROXES[prox_kind], stream)
 
 
 def noop_launch() -> int:

@@ -1,13 +1,21 @@
 """Wrappers around the fused-update kernels: layouts, device routing, and
 the launch counts.
 
-``fused_step_buf`` is the one entry to the fused resident step, and
-``svrg_step`` / ``mix_prox`` are the entries to the elementwise pipeline.
-For tensors on the CPU each runs its plain PyTorch version (``ref``); for
-CUDA tensors it checks them, launches the CUDA kernel and adds one to its
-count (``launches`` for fused_step, ``launches_svrg_step`` and
-``launches_mix_prox``), or raises.  There is no fallback from a kernel to
-its plain version.
+``fused_step_buf`` is the entry to the fused resident step for one run,
+``fused_step_cells_buf`` for the B cells of a batched sweep in one launch,
+and ``svrg_step`` / ``mix_prox`` are the entries to the elementwise
+pipeline.  For tensors on the CPU each runs its plain PyTorch version
+(``ref``); for CUDA tensors it checks them, launches the CUDA kernel and
+adds one to its count (``launches`` for fused_step, ``launches_cells`` for
+its cell-batched launch, ``launches_svrg_step`` and ``launches_mix_prox``),
+or raises.  There is no fallback from a kernel to its plain version.
+
+``fused_resident_step``, the tree-level step the algorithms call, goes
+through a ``torch.autograd.Function`` whose vmap rule is the cell-batched
+launch: a batched sweep runs each cell's step under ``torch.func.vmap``
+over the cell axis, which cannot look into a ctypes launch (a batched
+tensor has no data pointer), and the rule turns the B cells' calls into one
+``fused_step_cells_buf``.
 
 The fused step's layout is the port's own: contiguous row-major ``(m, d)``
 float32, one row per node, no padding (the reference's (8, 128) tile
@@ -28,13 +36,15 @@ from . import kernel, ref
 
 __all__ = ["FUSED_MIN_D", "fused_wins", "flatten_stacked",
            "unflatten_stacked", "tree_node_dim", "fused_step_buf",
-           "fused_resident_step", "launches", "BLOCK_ROWS", "BLOCK_COLS",
+           "fused_step_cells_buf", "fused_resident_step", "launches",
+           "launches_cells", "BLOCK_ROWS", "BLOCK_COLS",
            "flatten_tree", "unflatten_tree", "svrg_step", "mix_prox",
            "launches_svrg_step", "launches_mix_prox"]
 
 # Launches of each CUDA kernel since its count was last set to 0: one per
 # kernel launch, counted by its wrapper and nowhere else.
 launches = 0                # fused_step (fused_step_buf)
+launches_cells = 0          # fused_step over B cells (fused_step_cells_buf)
 launches_svrg_step = 0      # svrg_step
 launches_mix_prox = 0       # mix_prox
 
@@ -83,7 +93,7 @@ def tree_node_dim(tree) -> int:
                for leaf in pytree.tree_leaves(tree))
 
 
-def _check_cuda_operands(w, streams, alpha, rule: str, prox_kind: str):
+def _check_selectors(streams, rule: str, prox_kind: str):
     if rule not in kernel.RULES:
         raise ValueError(f"unknown fused rule {rule!r}; have "
                          f"{ref.FUSED_RULES}")
@@ -94,6 +104,20 @@ def _check_cuda_operands(w, streams, alpha, rule: str, prox_kind: str):
     if len(streams) != want:
         raise ValueError(f"rule {rule!r} takes {want} streams, got "
                          f"{len(streams)}")
+
+
+def _check_tensors(tensors, like):
+    for t in tensors:
+        if t.device != like.device:
+            raise ValueError(f"operands on {t.device} and {like.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the fused kernel takes float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("the fused kernel takes contiguous tensors")
+
+
+def _check_cuda_operands(w, streams, alpha, rule: str, prox_kind: str):
+    _check_selectors(streams, rule, prox_kind)
     x = streams[0]
     if x.ndim != 2:
         raise ValueError(f"streams must be (m, d), got {tuple(x.shape)}")
@@ -103,13 +127,7 @@ def _check_cuda_operands(w, streams, alpha, rule: str, prox_kind: str):
         if alpha.numel() != 1:
             raise ValueError("alpha must be a scalar")
         tensors.append(alpha)
-    for t in tensors:
-        if t.device != x.device:
-            raise ValueError(f"operands on {t.device} and {x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the fused kernel takes float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("the fused kernel takes contiguous tensors")
+    _check_tensors(tensors, x)
     for s in streams:
         if tuple(s.shape) != (m, d):
             raise ValueError(f"stream shape {tuple(s.shape)} != {(m, d)}")
@@ -149,19 +167,117 @@ def fused_step_buf(w, streams, alpha, lam, *, rule: str = "svrg",
     return out
 
 
+def _check_cells_operands(w, streams, alpha, lam, rule: str,
+                          prox_kind: str):
+    _check_selectors(streams, rule, prox_kind)
+    x = streams[0]
+    if x.ndim != 3:
+        raise ValueError(f"cell streams must be (B, m, d), got "
+                         f"{tuple(x.shape)}")
+    cells, m, d = x.shape
+    tensors = list(streams) + [w]
+    for name, v in (("alpha", alpha), ("lam", lam)):
+        if isinstance(v, torch.Tensor):
+            if v.numel() not in (1, cells):
+                raise ValueError(f"{name} must hold 1 or {cells} values, "
+                                 f"got {v.numel()}")
+            tensors.append(v)
+    _check_tensors(tensors, x)
+    for s in streams:
+        if tuple(s.shape) != (cells, m, d):
+            raise ValueError(f"stream shape {tuple(s.shape)} != "
+                             f"{(cells, m, d)}")
+    if tuple(w.shape) not in ((cells, m, m), (m, m)):
+        raise ValueError(f"mixing matrices {tuple(w.shape)}: want "
+                         f"{(cells, m, m)} or {(m, m)}")
+    if m > kernel.max_m():
+        raise ValueError(f"the fused kernel takes at most {kernel.max_m()} "
+                         f"nodes, got m={m}")
+    if not 1 <= cells <= 65535:
+        raise ValueError(f"the fused kernel takes 1 to 65535 cells, got "
+                         f"{cells}")
+
+
+def fused_step_cells_buf(w, streams, alpha, lam, *, rule: str = "svrg",
+                         prox_kind: str = "l1"):
+    """``fused_step_buf`` for the B cells of a sweep in one launch.
+
+    ``streams``: (B, m, d) contiguous float32, as for ``fused_step_buf``;
+    ``w``: (B, m, m), one mixing matrix a cell, or (m, m), shared;
+    ``alpha`` and ``lam``: each a Python float, a one-element float32
+    tensor (shared) or a (B,) float32 tensor (one a cell), on the buffers'
+    device.  Each cell gets the bits of a single-cell call.  CPU tensors
+    run the plain version; CUDA tensors launch the kernel (one count);
+    any other device raises.
+    """
+    global launches_cells
+    streams = tuple(streams)
+    device = streams[0].device
+    if device.type == "cpu":
+        return ref.fused_step_cells_math(w, streams, alpha, lam, rule=rule,
+                                         prox_kind=prox_kind)
+    if device.type != "cuda":
+        raise ValueError(f"the fused step runs on CUDA (kernel) or CPU "
+                         f"(plain version), not on {device}")
+    _check_cells_operands(w, streams, alpha, lam, rule, prox_kind)
+    out = torch.empty_like(streams[0])
+    rc = kernel.fused_step_cells_launch(w, streams, out, alpha, lam,
+                                        rule=rule, prox_kind=prox_kind)
+    if rc != 0:
+        raise RuntimeError(f"fused_step kernel launch over {out.shape[0]} "
+                           f"cells failed with status {rc}")
+    launches_cells += 1
+    return out
+
+
+class _FusedStep(torch.autograd.Function):
+    """``fused_step_buf`` as a function that ``torch.func.vmap`` can batch:
+    under a vmap over cells its rule calls ``fused_step_cells_buf`` once
+    for all of them.  No gradient flows through the step."""
+
+    @staticmethod
+    def forward(w, alpha, lam, rule, prox_kind, *streams):
+        return fused_step_buf(w, streams, alpha, lam, rule=rule,
+                              prox_kind=prox_kind)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, w, alpha, lam, rule, prox_kind, *streams):
+        cells = info.batch_size
+
+        def cell_axis(t, dim, expand):
+            if dim is not None:
+                return t.movedim(dim, 0).contiguous()
+            return t.expand(cells, *t.shape).contiguous() if expand else t
+
+        w_dim, alpha_dim, lam_dim = in_dims[:3]
+        streams = [cell_axis(s, dim, True)
+                   for s, dim in zip(streams, in_dims[5:])]
+        out = fused_step_cells_buf(
+            cell_axis(w, w_dim, False), streams,
+            cell_axis(alpha, alpha_dim, False), cell_axis(lam, lam_dim, False),
+            rule=rule, prox_kind=prox_kind)
+        return out, 0
+
+
 def fused_resident_step(w, x_tree, grad_trees, alpha, lam, *, rule: str,
                         prox_kind: str):
     """Tree-level fused step: prox(W @ (x - alpha*v)).
 
     ``w``: dense (m, m) float32 mixing matrix on the parameters' device.
     ``grad_trees``: (g_now, g_snap, mu) for rule="svrg", (g,) for "sgd" —
-    all with the stacked (m, ...) structure of ``x_tree``.
+    all with the stacked (m, ...) structure of ``x_tree``.  ``alpha`` and
+    ``lam``: Python floats or 0-d float32 tensors.  Under ``torch.func.vmap``
+    over the cells of a sweep, one cell-batched launch serves every cell.
     """
     m = pytree.tree_leaves(x_tree)[0].shape[0]
     x_buf, aux = flatten_stacked(x_tree, m)
     streams = [x_buf] + [flatten_stacked(t, m)[0] for t in grad_trees]
-    out = fused_step_buf(w.contiguous(), streams, alpha, lam, rule=rule,
-                         prox_kind=prox_kind)
+    out = _FusedStep.apply(w.contiguous(), alpha, lam, rule, prox_kind,
+                           *streams)
     return unflatten_stacked(out, aux)
 
 

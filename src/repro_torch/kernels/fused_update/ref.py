@@ -3,7 +3,9 @@
 ``svrg_step_ref`` / ``mix_prox_ref`` / ``inner_step_ref`` are the ports of
 ``repro.kernels.fused_update.ref``'s elementwise pipeline and the oracles of
 the CUDA kernels in ``csrc/svrg_mix.cu``; ``fused_step_math`` is the port of
-the reference's ``fused_step_math`` and the oracle of ``csrc/fused_step.cu``.
+the reference's ``fused_step_math`` and the oracle of ``csrc/fused_step.cu``,
+and ``fused_step_cells_math`` (the same step for every cell of a sweep, the
+reference's ``vmap`` of it) the oracle of its cell-batched launch.
 The wrappers in ``ops`` run them for tensors on the CPU, and the tests and
 ``chip_smoke.py`` hold the kernels against them on the card.
 
@@ -20,8 +22,8 @@ import numpy as np
 import torch
 
 __all__ = ["svrg_step_ref", "mix_prox_ref", "inner_step_ref",
-           "fused_step_math", "fused_step_ref", "FUSED_RULES",
-           "FUSED_PROXES"]
+           "fused_step_math", "fused_step_ref", "fused_step_cells_math",
+           "FUSED_RULES", "FUSED_PROXES"]
 
 # static configuration space of the fused resident step
 FUSED_RULES = ("svrg", "sgd")
@@ -68,9 +70,9 @@ def fused_step_math(w, streams, alpha, lam, *, rule: str, prox_kind: str):
         z   = W @ q                      (gossip mix over the node axis)
         out = prox(z, alpha, lam)        (l1 soft-threshold | sql2 | none)
 
-    ``w`` is the (m, m) mixing matrix.  ``alpha`` is a 0-d float32 tensor
-    or a Python float, ``lam`` a Python float; both are rounded to float32,
-    so the threshold ``alpha * lam`` is a float32 product as in the kernel.
+    ``w`` is the (m, m) mixing matrix.  ``alpha`` and ``lam`` are each a
+    0-d float32 tensor or a Python float; both are rounded to float32, so
+    the threshold ``alpha * lam`` is a float32 product as in the kernel.
     No scalar is copied to the device.
     """
     if rule == "svrg":
@@ -81,11 +83,10 @@ def fused_step_math(w, streams, alpha, lam, *, rule: str, prox_kind: str):
         v = g_now
     else:
         raise ValueError(f"unknown fused rule {rule!r}; have {FUSED_RULES}")
-    if isinstance(alpha, torch.Tensor):
-        alpha = alpha.to(torch.float32)
-        t = alpha * lam        # float32 product: lam is rounded to float32
+    alpha, lam = _f32(alpha), _f32(lam)
+    if isinstance(alpha, torch.Tensor) or isinstance(lam, torch.Tensor):
+        t = alpha * lam        # one float32 product
     else:
-        alpha = float(np.float32(alpha))
         t = float(np.float32(alpha) * np.float32(lam))
     q = x - alpha * v
     z = w @ q
@@ -104,3 +105,23 @@ def fused_step_ref(w, streams, alpha, lam, *, rule: str = "svrg",
     """Whole-buffer oracle with the reference's default rule and prox."""
     return fused_step_math(w, streams, alpha, lam, rule=rule,
                            prox_kind=prox_kind)
+
+
+def fused_step_cells_math(w, streams, alpha, lam, *, rule: str,
+                          prox_kind: str):
+    """``fused_step_math`` for every cell of a sweep: streams (B, m, d); ``w``
+    (B, m, m), one matrix a cell, or (m, m), shared; ``alpha`` and ``lam``
+    each a Python float, a 0-d tensor (shared) or a (B,) tensor (one a
+    cell).  Cell by cell, so each cell's result is the single-cell one."""
+    cells = streams[0].shape[0]
+
+    def pick(v, b):
+        if isinstance(v, torch.Tensor) and v.ndim > 0:
+            return v.reshape(-1)[b] if v.numel() == cells else v.reshape(())
+        return v
+
+    return torch.stack([
+        fused_step_math(w[b] if w.ndim == 3 else w,
+                        [s[b] for s in streams], pick(alpha, b),
+                        pick(lam, b), rule=rule, prox_kind=prox_kind)
+        for b in range(cells)])

@@ -2,8 +2,10 @@
 (fused_step, svrg_step, mix_prox, RMSNorm, flash attention) against their
 plain versions on the card, their operand checks, the resident
 logistic-regression path through fused_step (dense and banded gossip), its
-CUDA graph replays against the eager executor, the kernel bench, and a
-served model through RMSNorm and flash.  They skip, with
+CUDA graph replays against the eager executor, fused_step over the cells of
+a sweep against single launches (bitwise) and batched sweeps against
+sequential ones, the kernel bench, and a served model through RMSNorm and
+flash.  They skip, with
 the reason, where there is no card.  This file imports neither JAX nor the JAX package, so it also
 runs on a machine that has only PyTorch:
 
@@ -145,6 +147,127 @@ def test_kernel_layouts_match_plain_version_on_card(cuda_device, m, d,
             torch.cuda.synchronize()
             torch.testing.assert_close(got, want, rtol=CARD_RTOL,
                                        atol=CARD_ATOL)
+
+
+def _cells_case(cells, m, d, rule, seed, device, shared):
+    rng = np.random.default_rng(seed)
+    n = 4 if rule == "svrg" else 2
+    streams = [torch.as_tensor(rng.normal(size=(cells, m, d)),
+                               dtype=torch.float32, device=device)
+               for _ in range(n)]
+    ws = np.stack([graphs.b_connected_ring_schedule(m, 2, seed=seed + c)
+                   .consensus_rounds(0, 3) for c in range(cells)])
+    w = torch.as_tensor(ws[0] if shared else ws, dtype=torch.float32,
+                        device=device)
+    if shared:
+        return w, streams, 0.05, 0.01
+    alpha = torch.as_tensor(rng.uniform(0.01, 0.3, cells),
+                            dtype=torch.float32, device=device)
+    lam = torch.as_tensor(rng.uniform(1e-3, 0.1, cells),
+                          dtype=torch.float32, device=device)
+    return w, streams, alpha, lam
+
+
+# the figures' widths (784, 1024, 30, 54) and the bench's, over grids of 1
+# to 16 cells: one launch gives the bits of single-cell launches
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("cells,d", [(1, 30), (3, 54), (4, 784),
+                                     (16, 1024), (3, 131072)])
+@pytest.mark.parametrize("prox_kind", ref.FUSED_PROXES)
+@pytest.mark.parametrize("rule", ref.FUSED_RULES)
+def test_cells_kernel_is_bitwise_single_launches_on_card(
+        cuda_device, rule, prox_kind, cells, d, shared):
+    w, streams, alpha, lam = _cells_case(cells, 8, d, rule, cells * d,
+                                         cuda_device, shared)
+    before = ops.launches_cells
+    got = ops.fused_step_cells_buf(w, streams, alpha, lam, rule=rule,
+                                   prox_kind=prox_kind)
+    assert ops.launches_cells == before + 1
+    lam_host = lam if shared else lam.tolist()
+    for c in range(cells):
+        want = ops.fused_step_buf(
+            w if shared else w[c], [s[c] for s in streams],
+            alpha if shared else alpha[c],
+            lam_host if shared else lam_host[c], rule=rule,
+            prox_kind=prox_kind)
+        assert torch.equal(got[c], want)
+    plain = ref.fused_step_cells_math(w, streams, alpha, lam, rule=rule,
+                                      prox_kind=prox_kind)
+    torch.testing.assert_close(got, plain, rtol=CARD_RTOL, atol=CARD_ATOL)
+
+
+def test_cells_kernel_rejects_what_it_does_not_take(cuda_device):
+    before = ops.launches_cells
+    w = torch.eye(4, device=cuda_device)
+    streams = [torch.zeros(3, 4, 8, device=cuda_device)] * 2
+    with pytest.raises(ValueError, match="1 or 3 values"):
+        ops.fused_step_cells_buf(w, streams, torch.ones(2, device=cuda_device),
+                                 0.01, rule="sgd")
+    with pytest.raises(ValueError, match="mixing matrices"):
+        ops.fused_step_cells_buf(torch.eye(4, device=cuda_device)[None]
+                                 .expand(2, 4, 4).contiguous(), streams, 0.1,
+                                 0.01, rule="sgd")
+    with pytest.raises(ValueError, match=r"\(B, m, d\)"):
+        ops.fused_step_cells_buf(w, [s[0] for s in streams], 0.1, 0.01,
+                                 rule="sgd")
+    with pytest.raises(TypeError, match="float32"):
+        ops.fused_step_cells_buf(w, [s.double() for s in streams], 0.1, 0.01,
+                                 rule="sgd")
+    assert ops.launches_cells == before
+
+
+def _sweep_builds(device):
+    from repro_torch.core import sweep  # noqa: F401
+    ds = synthetic.make_paper_dataset("mnist_like", scale=0.02)
+    data = params_from_numpy(synthetic.partition_per_node(ds, 8), device)
+    x0 = torch.zeros(8, ds.dim, device=device)
+    hp = algorithm.DPSVRGHyperParams(alpha=0.2, beta=1.2, n0=4, num_outer=6)
+
+    def dpsvrg(lam=0.01):
+        p = algorithm.Problem(_loss, prox.l1(lam), x0, data)
+        return algorithm.dpsvrg_algorithm(p, hp), p
+
+    steps = sum(dpsvrg()[0].meta.outer_lengths)
+
+    def dspg(lam=0.01):
+        p = algorithm.Problem(_loss, prox.l1(lam), x0, data)
+        return algorithm.dspg_algorithm(
+            p, algorithm.DSPGHyperParams(alpha0=0.2), steps), p
+
+    return (dpsvrg, 0), (dspg, 10)
+
+
+def test_batched_sweep_on_card_matches_sequential(cuda_device):
+    """A Fig. 4 grid (three lambdas) batched through the cell-batched kernel
+    in CUDA graphs: one launch a step for all cells, the (1, 1) ledger, and
+    the histories of the sequential resident runs and of the CPU."""
+    from repro_torch.core import sweep
+    grid = {"lam": [0.001, 0.01, 0.1]}
+    sched = graphs.b_connected_ring_schedule(8, 1)
+    spec = ExecSpec(resident=True, kernel="fused", gossip="dense")
+    for (build, every), (cpu_build, _) in zip(_sweep_builds("cuda"),
+                                               _sweep_builds("cpu")):
+        before = ops.launches_cells
+        batched = sweep.run_sweep(build, grid, sched, spec,
+                                  record_every=every)
+        launches = ops.launches_cells - before
+        sequential = sweep.run_sweep(build, grid, sched, spec,
+                                     record_every=every, batched=False)
+        cpu = sweep.run_sweep(cpu_build, grid, sched,
+                              spec.replace(device="cpu"), record_every=every)
+        assert launches == int(batched.history.steps[-1, 0])
+        assert (batched.extras["transfers_h2d"],
+                batched.extras["transfers_d2h"]) == (1, 1)
+        assert batched.extras["replays"] > 0
+        for other in (sequential, cpu):
+            np.testing.assert_array_equal(batched.history.epochs,
+                                          other.history.epochs)
+            np.testing.assert_allclose(batched.history.objective,
+                                       other.history.objective,
+                                       rtol=HISTORY_RTOL, atol=HISTORY_ATOL)
+            np.testing.assert_allclose(batched.history.consensus,
+                                       other.history.consensus, rtol=1e-3,
+                                       atol=HISTORY_ATOL)
 
 
 def _loss(w, batch):

@@ -115,18 +115,41 @@ def test_unported_paths_raise_by_name(spec_kw, match):
 
 
 def test_unported_algorithm_features_raise_by_name():
-    """Sweeps still raise by name; quantized DPSVRG and the reference's
-    algorithm registry are ported, all but core/inexact.py's
-    inexact_prox_svrg (ROADMAP Queue 1 item 6)."""
+    """What was unported here is ported now: quantized DPSVRG, the
+    reference's whole algorithm registry (core/inexact.py's
+    inexact_prox_svrg among it, ROADMAP Queue 1 item 6) and batched sweeps
+    (item 8), which run."""
     from repro.core import algorithm as jalgorithm
     _, tp = problems()
     algo = talgorithm.dpsvrg_algorithm(
         tp, talgorithm.DPSVRGHyperParams(compress_bits=8))
     assert algo.meta.compress_bits == 8 and algo.meta.fused_step is None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        trunner.run_sweep(None, {}, None)
-    assert sorted(talgorithm.ALGORITHMS) == sorted(
-        set(jalgorithm.ALGORITHMS) - {"inexact_prox_svrg"})
+    assert sorted(talgorithm.ALGORITHMS) == sorted(jalgorithm.ALGORITHMS)
+    res = trunner.run_sweep(
+        lambda: (build(talgorithm, "dspg", tp), tp), {"seed": [0, 1]},
+        tgraphs.b_connected_ring_schedule(8, 1),
+        TExecSpec(resident=True, gossip="dense", device="cpu"),
+        record_every=50)
+    assert res.history.objective.shape == (4, 2)
+    assert (res.extras["transfers_h2d"], res.extras["transfers_d2h"]) == \
+        (1, 1)
+
+
+def test_port_scripts_import_neither_jax_nor_the_reference():
+    """The port's package, its benchmarks (``benchmarks/pt_*.py``) and
+    ``chip_smoke.py`` name no import of JAX or of the JAX package."""
+    import re
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
+                         re.M)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    bench = os.path.join(ROOT, "benchmarks")
+    files += [os.path.join(bench, f) for f in sorted(os.listdir(bench))
+              if f.startswith("pt_") and f.endswith(".py")]
+    for top, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
+        files += [os.path.join(top, f) for f in names if f.endswith(".py")]
+    assert len(files) > 50
+    bad = [f for f in files if pattern.search(open(f).read())]
+    assert bad == []
 
 
 def test_quickstart_example_runs_on_cpu():

@@ -73,8 +73,8 @@ def _plan(name, record_every, transitions=True):
     backend = transport.resolve_backend("dense", sched, algo.meta)
     n = tp.full_data["labels"].shape[1]
     return runner._plan_resident(
-        algo.meta, np.random.default_rng(0), backend,
-        backend.prepare(sched, algo.meta), m=M, n=n,
+        [runner._PlanCell(algo.meta, np.random.default_rng(0), backend,
+                          backend.prepare(sched, algo.meta))], m=M, n=n,
         param_count=int(tp.x0.shape[1]), record_every=record_every,
         transitions=transitions)
 

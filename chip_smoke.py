@@ -104,9 +104,28 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     CPU's host loop.  Prints ms per cell-step batched and sequential, the
     figures' derived columns and whether the paper's orderings hold
     (recorded, not asserted);
-16. prints the card, a ``{"kernels": [...]}`` line (all seven kernels,
-    each with its ``share_of_bound``), and last ``{"ok": true, "device":
-    {...}}``.
+16. trains h2o-danube-1.8b at full width cut to 4 layers (360 M
+    parameters a node, float32, random weights from seed 0) on m = 4 nodes
+    of the b=2 ring with the decentralized trainer (``train/trainer.py``):
+    DPSVRG for 20 steps on the host loop, then on the resident path with
+    checkpoints at steps 10 and 20 (losses agree, rtol 1e-4 / atol 1e-5;
+    ledgers exact); a resume from the step-10 checkpoint, bitwise the
+    uninterrupted run (records and every state leaf); DSPG for 20 steps,
+    resident then on the host loop (the same checks).
+    Prints ms a step, the step's TFLOP/s (6 x parameters x tokens a
+    gradient evaluation), the snapshot refresh, checkpoint save and restore
+    seconds, peak memory and the card's idle share over one traced step;
+    losses must be finite.  Then serves the consensus of the final
+    checkpoint (``serve/consensus.py``) through the RMSNorm and flash
+    kernels: 4 prompts of 256-1024 tokens, 16 new tokens each, launch
+    counts exact, tokens equal to the host batcher's, logits within 1e-3 of
+    the plain path; and runs ``repro_torch.launch.train --steps 10
+    --ckpt-dir`` and ``repro_torch.launch.serve --ckpt-dir`` on it as
+    subprocesses (``train_consensus`` line);
+17. prints the card, a ``{"kernels": [...]}`` line (all seven kernels,
+    each with its ``share_of_bound``; RMSNorm and flash also with
+    ``launches_consensus_serve``, phase 16's count), and last ``{"ok":
+    true, "device": {...}}``.
 
 Needs one card; exits non-zero without one, and without the repository
 around it.
@@ -129,13 +148,14 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.utils import _pytree as pytree  # noqa: E402
 
-from repro_torch import configs  # noqa: E402
+from repro_torch import checkpoint, configs  # noqa: E402
 from repro_torch.configs import paper_logreg  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core import (algorithm, gossip, graphs, prox,  # noqa: E402
                               runner, transport)
 from repro_torch.core.exec_spec import ExecSpec  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.data.loader import LMLoader  # noqa: E402
 from repro_torch.kernels import SOURCES, _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -146,11 +166,13 @@ from repro_torch.kernels.rmsnorm import ops as rn_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as rn_ref  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+from repro_torch.serve import consensus  # noqa: E402
 from repro_torch.serve import metrics as serve_metrics  # noqa: E402
 from repro_torch.serve import stream as serve_stream  # noqa: E402
 from repro_torch.serve.engine import ResidentEngine  # noqa: E402
 from repro_torch.serve.scheduler import (ContinuousBatcher,  # noqa: E402
                                          Request)
+from repro_torch.train import steps, trainer  # noqa: E402
 from benchmarks import pt_common, pt_kernel_bench  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
@@ -1676,6 +1698,345 @@ def profile_sweep(sw, name: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: train h2o-danube-1.8b at full width, resume, serve the consensus
+# ---------------------------------------------------------------------------
+
+# h2o-danube-1.8b at full width (d_model 2560, 32 / 8 heads, d_ff 6912,
+# vocab 32000, window 4096), float32, depth cut from 24 to 4 layers so that
+# m = 4 nodes' state (params, snapshot, full gradient) and the step's
+# gradients fit the card: 360 M parameters a node
+TRAIN_LAYERS = 4
+TRAIN_NODES = 4
+TRAIN_BATCH, TRAIN_SEQ = 4, 256
+TRAIN_TOKENS = 2_000_000
+TRAIN_LAM = 1e-6
+TRAIN_TC = dict(num_steps=20, snapshot_every=10, snapshot_batch_mult=4,
+                alpha=0.02, consensus_rounds=2, log_every=5, seed=0)
+TRAIN_CKPT_EVERY = 10
+TRAIN_PROMPTS = [256, 512, 768, 1024]
+TRAIN_NEW = 16
+TRAIN_MAX_LEN = 1088
+# host loop vs resident path on the card: the same float32 work in the same
+# order, so equal in practice; the tolerance of the CPU parity tests
+TRAIN_LOSS_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _timed(fn, log: list):
+    """``fn`` that appends each call's seconds to ``log``."""
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        log.append(time.perf_counter() - t0)
+        return out
+    return wrapper
+
+
+def _free_card() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train_run(cfg, tokens, device, algorithm: str, resident: bool,
+               ckpt_dir=None, resume=False):
+    """One train_loop run on the card; returns (history, seconds, peak
+    bytes)."""
+    sched = graphs.b_connected_ring_schedule(TRAIN_NODES, b=2, seed=0)
+    ld = LMLoader(tokens, num_nodes=TRAIN_NODES, per_node_batch=TRAIN_BATCH,
+                  seq_len=TRAIN_SEQ, seed=0)
+    tc = trainer.TrainerConfig(
+        algorithm=algorithm, ckpt_dir=ckpt_dir,
+        ckpt_every=TRAIN_CKPT_EVERY if ckpt_dir else 0, **TRAIN_TC)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = trainer.train_loop(cfg, prox.l1(TRAIN_LAM), sched, ld, tc,
+                              exec=ExecSpec(resident=resident,
+                                            device=device),
+                              resume=resume)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if not np.all(np.isfinite(hist["loss"])):
+        fail(f"train {algorithm}: losses {hist['loss']} are not finite")
+    return hist, secs, torch.cuda.max_memory_allocated()
+
+
+def _steady_ms(hist) -> float:
+    """ms a step over steps 11-15: between the records at 10 and 15, where
+    no snapshot refresh and no checkpoint falls."""
+    t = dict(zip(hist["step"], hist["time"]))
+    return (t[15] - t[10]) / 5 * 1e3
+
+
+def _check_served(cfg, plain_cfg, params, reqs, outs, device) -> dict:
+    """Phase 11's checks at this phase's size: tokens equal the host
+    batcher's; each prefill's last logits and the teacher-forced decode
+    logits within LOGIT_TOL of the plain path."""
+    host = ContinuousBatcher(cfg, params, max_slots=len(reqs),
+                             max_len=TRAIN_MAX_LEN)
+    for r in reqs:
+        host.submit(r)
+    host_out = host.run_until_done()
+    for r in reqs:
+        if not np.array_equal(host_out[r.uid], outs[r.uid]):
+            fail(f"consensus serve: request {r.uid}: resident engine and "
+                 f"host batcher tokens differ")
+    del host
+    prefill_err = decode_err = 0.0
+    for r in reqs:
+        toks = torch.as_tensor(r.tokens, device=device)[None]
+        lk, ck = transformer.prefill(cfg, params, toks, max_len=TRAIN_MAX_LEN)
+        lp, cp = transformer.prefill(plain_cfg, params, toks,
+                                     max_len=TRAIN_MAX_LEN)
+        torch.testing.assert_close(lk, lp, **LOGIT_TOL)
+        prefill_err = max(prefill_err, float((lk - lp).abs().max()))
+        out = outs[r.uid]
+        for t in range(len(out) - 1):
+            tok = torch.tensor([int(out[t])], dtype=torch.int32,
+                               device=device)
+            lk, ck = transformer.decode_step(cfg, params, ck, tok)
+            lp, cp = transformer.decode_step(plain_cfg, params, cp, tok)
+            torch.testing.assert_close(lk, lp, **LOGIT_TOL)
+            decode_err = max(decode_err, float((lk - lp).abs().max()))
+    return {"max_abs_logit_err_prefill": prefill_err,
+            "max_abs_logit_err_decode": decode_err}
+
+
+def train_phase(card: str, device="cuda", cfg=None) -> dict:
+    """Phase 16.  Returns the numbers of the phase, launches among them.
+    To rehearse it on the CPU: ``device="cpu"`` and a small ``cfg`` (a
+    smoke variant), with ``torch.cuda``'s timers and counters patched out
+    (launch counts stay 0 off the card)."""
+    if cfg is None:
+        cfg = configs.get_config("h2o-danube-1.8b").scaled(
+            num_layers=TRAIN_LAYERS)
+    ckpt_saves, ckpt_restores = [], []
+    save, restore = checkpoint.save, checkpoint.restore
+    checkpoint.save = _timed(save, ckpt_saves)
+    checkpoint.restore = _timed(restore, ckpt_restores)
+    work = os.path.join(ROOT, "build", "phase16")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    _free_card()
+    print(f"train: disk free under build/: "
+          f"{shutil.disk_usage(work).free / 1e9:.1f} GB; card memory held "
+          f"before the phase {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"(reserved {torch.cuda.memory_reserved() / 1e9:.2f} GB)",
+          flush=True)
+    try:
+        result = _train_phase(cfg, card, device, work, ckpt_saves,
+                              ckpt_restores)
+    finally:
+        checkpoint.save, checkpoint.restore = save, restore
+        shutil.rmtree(work, ignore_errors=True)
+    return result
+
+
+def _train_phase(cfg, card, device, work, ckpt_saves, ckpt_restores) -> dict:
+    tokens = synthetic.make_token_stream(TRAIN_TOKENS, cfg.vocab_size,
+                                         seed=0).tokens
+    n_params = transformer.param_count(
+        transformer.init_params(cfg, 0, device=device))
+    _free_card()
+    tokens_per_eval = TRAIN_NODES * TRAIN_BATCH * TRAIN_SEQ
+    flop_per_eval = 6 * n_params * tokens_per_eval
+    result = {"card": card, "layers": cfg.num_layers, "params_per_node":
+              n_params, "nodes": TRAIN_NODES,
+              "tokens_per_gradient_eval": tokens_per_eval,
+              "tflop_per_gradient_eval": flop_per_eval / 1e12,
+              "ln_vocab": math.log(cfg.vocab_size)}
+
+    def summary(name, hist, secs, peak, evals_per_step):
+        ms = _steady_ms(hist)
+        row = {"steps": hist["step"], "loss": hist["loss"],
+               "loss_first": hist["loss"][0], "loss_last": hist["loss"][-1],
+               "loss_fell": hist["loss"][-1] < hist["loss"][0],
+               "run_s": secs,
+               "ms_per_step_run": secs / TRAIN_TC["num_steps"] * 1e3,
+               "ms_per_step_steady": ms,
+               "tflops_steady": evals_per_step * flop_per_eval
+               / (ms / 1e3) / 1e12,
+               "max_memory_allocated_bytes": peak,
+               "transfers": hist["transfers"]}
+        result[name] = row
+        print(f"train_{name} {card}: {ms:.1f} ms a step "
+              f"({row['tflops_steady']:.1f} TFLOP/s of float32's 67), "
+              f"peak {peak / 1e9:.1f} GB, loss {row['loss_first']:.4f} "
+              f"(ln 32000 = {result['ln_vocab']:.4f}) -> "
+              f"{row['loss_last']:.4f} (fell: {row['loss_fell']})",
+              flush=True)
+
+    # 1. DPSVRG on the host loop, then on the resident path (checkpointing
+    # at steps 10 and 20): the histories agree, the ledger is exact
+    host, secs, peak = _train_run(cfg, tokens, device, "dpsvrg", False)
+    summary("dpsvrg_host", host, secs, peak, 2)
+    if host["transfers"] != {"h2d": 20, "d2h": 5}:
+        fail(f"train host: transfers {host['transfers']}")
+    host_loss = host["loss"]
+    del host
+    _free_card()
+    full_dir = os.path.join(work, "full")
+    res, secs, peak = _train_run(cfg, tokens, device, "dpsvrg", True,
+                                 ckpt_dir=full_dir)
+    summary("dpsvrg_resident", res, secs, peak, 2)
+    np.testing.assert_allclose(res["loss"], host_loss, **TRAIN_LOSS_TOL,
+                               err_msg="train: resident vs host loop")
+    result["max_abs_loss_resident_vs_host"] = float(np.max(np.abs(
+        np.asarray(res["loss"]) - np.asarray(host_loss))))
+    if res["transfers"] != {"h2d": 1, "d2h": 5 + 2}:
+        fail(f"train resident: transfers {res['transfers']}")
+    result["checkpoint_save_s"] = list(ckpt_saves)
+    full_records = dict(zip(res["step"], res["loss"]))
+    full_state = [(k, v.cpu()) for k, v in
+                  checkpoint.flatten_with_paths(res["final_state"])]
+    del res
+    _free_card()
+
+    # 2. resume from the step-10 checkpoint: bitwise the uninterrupted run
+    shutil.rmtree(os.path.join(full_dir, "step_00000020"))
+    resumed, secs, peak = _train_run(cfg, tokens, device, "dpsvrg", True,
+                                     ckpt_dir=full_dir, resume=True)
+    result["checkpoint_restore_s"] = list(ckpt_restores)
+    if resumed["step"] != [10, 15, 19] or \
+            [full_records[s] for s in resumed["step"]] != resumed["loss"]:
+        fail(f"train resume: records {resumed['step']} "
+             f"{resumed['loss']} differ from the uninterrupted run's")
+    got = checkpoint.flatten_with_paths(resumed["final_state"])
+    for (k, want), (k2, leaf) in zip(full_state, got):
+        if k != k2 or not torch.equal(leaf.cpu(), want):
+            fail(f"train resume: state leaf {k} differs from the "
+                 f"uninterrupted run's")
+    result["resume_bitwise"] = True
+    result["resumed_run_s"] = secs
+    del resumed, full_state, got
+    _free_card()
+
+    # 3. DSPG, resident, then on the host loop
+    dspg, secs, peak = _train_run(cfg, tokens, device, "dspg", True)
+    summary("dspg_resident", dspg, secs, peak, 1)
+    if dspg["transfers"] != {"h2d": 1, "d2h": 5}:
+        fail(f"train dspg resident: transfers {dspg['transfers']}")
+    dspg_loss = dspg["loss"]
+    del dspg
+    _free_card()
+    dspg, secs, peak = _train_run(cfg, tokens, device, "dspg", False)
+    summary("dspg_host", dspg, secs, peak, 1)
+    np.testing.assert_allclose(dspg_loss, dspg["loss"], **TRAIN_LOSS_TOL,
+                               err_msg="train dspg: resident vs host loop")
+    if dspg["transfers"] != {"h2d": 20, "d2h": 5}:
+        fail(f"train dspg host: transfers {dspg['transfers']}")
+    del dspg
+    _free_card()
+
+    # the snapshot refresh alone, and one traced DPSVRG step
+    bundle = steps.build_train_step(cfg, prox.l1(TRAIN_LAM), TRAIN_NODES,
+                                    algorithm="dpsvrg")
+    ld = LMLoader(tokens, num_nodes=TRAIN_NODES, per_node_batch=TRAIN_BATCH,
+                  seq_len=TRAIN_SEQ, seed=0)
+    big = {k: torch.from_numpy(v).to(device) for k, v in zip(
+        ("tokens", "labels"), ld.gather(ld.sample_starts(
+            TRAIN_BATCH * TRAIN_TC["snapshot_batch_mult"])))}
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in zip(("tokens", "labels"), ld.sample())}
+    phi = torch.as_tensor(graphs.b_connected_ring_schedule(
+        TRAIN_NODES, b=2, seed=0).consensus_rounds(0, 2),
+        dtype=torch.float32, device=device)
+    state = bundle.init_state(0, device)
+    refresh_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = bundle.snapshot_step(state, big)
+        torch.cuda.synchronize()
+        refresh_ms.append((time.perf_counter() - t0) * 1e3)
+    result["snapshot_refresh_ms"] = refresh_ms[-1]
+    result["snapshot_refresh_tflops"] = 4 * flop_per_eval / (
+        refresh_ms[-1] / 1e3) / 1e12
+    state, _ = bundle.train_step(state, batch, phi, 0.05)
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = bundle.train_step(state, batch, phi, 0.05)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    result["profile_dpsvrg_step"] = device_busy(prof, wall_us)
+    del state, bundle, big, batch, prof
+    _free_card()
+
+    # 4. the consensus of the final checkpoint, served through the RMSNorm
+    # and flash kernels: counts set to 0 just before, read just after
+    kcfg = cfg.scaled(use_flash=True, use_fused_norm=True)
+    t0 = time.perf_counter()
+    params, info = consensus.consensus_params(full_dir, kcfg, device=device)
+    torch.cuda.synchronize()
+    result["consensus_load_s"] = time.perf_counter() - t0
+    result["consensus"] = {"step": info.step, "num_nodes": info.num_nodes,
+                           "node_dist": list(info.node_dist),
+                           "consensus_rel": info.consensus_rel}
+    print(info, flush=True)
+    if info.step != TRAIN_TC["num_steps"] or info.num_nodes != TRAIN_NODES:
+        fail(f"consensus: {info}")
+    rng = np.random.default_rng(DANUBE_SEED)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab_size, size=n)
+                    .astype(np.int32), max_new_tokens=TRAIN_NEW)
+            for i, n in enumerate(TRAIN_PROMPTS)]
+    eng = TimedEngine(kcfg, params, max_slots=len(reqs),
+                      max_len=TRAIN_MAX_LEN, chunk=DANUBE_CHUNK)
+    for r in reqs:
+        eng.submit(r)
+    rn_ops.launches = 0
+    fa_ops.launches = 0
+    outs = eng.run_until_done()
+    torch.cuda.synchronize()
+    flash_n, rms_n = fa_ops.launches, rn_ops.launches
+    chunks = eng.transfers["chunks"]
+    want_flash = kcfg.num_layers * len(reqs)
+    want_rms = (2 * kcfg.num_layers + 1) * (len(reqs) + chunks * DANUBE_CHUNK)
+    if (flash_n, rms_n) != (want_flash, want_rms):
+        fail(f"consensus serve: launches flash {flash_n} rmsnorm {rms_n}, "
+             f"want {want_flash} and {want_rms}")
+    if eng.transfers != {"h2d": len(reqs), "d2h": chunks, "chunks": chunks}:
+        fail(f"consensus serve: transfers {eng.transfers}")
+    if any(len(outs[r.uid]) != TRAIN_NEW for r in reqs):
+        fail("consensus serve: a request did not get its tokens")
+    result["serve"] = {"launches": {"flash_attention": flash_n,
+                                    "rmsnorm": rms_n},
+                       "transfers": dict(eng.transfers),
+                       "prefill_ms": {str(k): v for k, v in
+                                      sorted(eng.prefill_ms.items())},
+                       "chunk_ms": statistics.median(eng.chunk_ms),
+                       "decode_step_ms": statistics.median(eng.chunk_ms)
+                       / DANUBE_CHUNK}
+    del eng
+    result["serve"].update(_check_served(
+        kcfg, kcfg.scaled(use_flash=False, use_fused_norm=False), params,
+        reqs, outs, device))
+    del params
+    _free_card()
+
+    # 5. the launchers at their smoke size, as a user runs them
+    launch_dir = os.path.join(work, "launch")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    for argv in (["repro_torch.launch.train", "--steps", "10",
+                  "--ckpt-dir", launch_dir],
+                 ["repro_torch.launch.serve", "--ckpt-dir", launch_dir]):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m"] + argv
+                              + ["--device", str(device)], env=env,
+                              capture_output=True, text=True, cwd=ROOT)
+        print(f"{argv[0]}: rc {proc.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s; "
+              f"{proc.stdout.strip().splitlines()[-1:]}", flush=True)
+        if proc.returncode != 0:
+            fail(f"{argv[0]} exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+    print("train_consensus " + json.dumps(result), flush=True)
+    return result
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
@@ -1837,6 +2198,13 @@ def main() -> None:
     print(f"phase 15 (paper figures): {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    # phase 16: train danube at full width (4 layers), resume, serve the
+    # consensus of the checkpoint through the kernels
+    t0 = time.perf_counter()
+    train = train_phase(card)
+    print(f"phase 16 (train, resume, serve the consensus): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
     main_row = rows[(8, 1024, "svrg", "l1")]
     # the shape the kernel bench gives svrg_step and mix_prox
     svrg_row = svrg_mix_rows[("svrg_step", pt_kernel_bench.ROWS)]
@@ -1859,8 +2227,7 @@ def main() -> None:
                 "library_ms": row["library_ms"],
                 "share_of_bound": row["bound_ms"] / row["ms"]}
 
-    print(card, flush=True)
-    print(json.dumps({"kernels": [
+    kernels_line = [
         line("fused_step",
              "src/repro_torch/kernels/fused_update/csrc/fused_step.cu",
              "src/repro/kernels/fused_update/kernel.py:108", main_launches,
@@ -1894,7 +2261,14 @@ def main() -> None:
              "src/repro/kernels/fused_update/kernel.py:108",
              figures["launches"]["fused_step_cells"],
              cells_row["max_abs_err"], cells_row),
-    ]}), flush=True)
+    ]
+    # phase 16 serves the trained consensus through RMSNorm and flash too
+    for row in kernels_line:
+        if row["name"] in train["serve"]["launches"]:
+            row["launches_consensus_serve"] = \
+                train["serve"]["launches"][row["name"]]
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

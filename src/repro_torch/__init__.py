@@ -3,7 +3,8 @@ Hopper.
 
 The layout mirrors the JAX package: ``core/`` (graphs, prox, SVRG, gossip,
 algorithms, runner), ``data/``, ``configs/``, ``models/`` (the dense
-decoder LMs), ``serve/`` (continuous batching), ``launch/`` and
+decoder LMs), ``train/`` (the decentralized LM trainer), ``checkpoint/``,
+``optim/``, ``serve/`` (continuous batching, consensus), ``launch/`` and
 ``kernels/`` (hand-written CUDA kernels, each beside its plain PyTorch
 version).  The port imports
 torch and numpy, never JAX and nothing of ``repro``.  Its entry points run
@@ -11,7 +12,8 @@ on the CUDA device unless the caller asks for the CPU
 (``ExecSpec(device="cpu")``, ``device="cpu"``).
 """
 
-from . import configs, convert, core, data, kernels, launch, models, serve
+from . import (checkpoint, configs, convert, core, data, kernels, launch,
+               models, optim, serve, train)
 
-__all__ = ["configs", "convert", "core", "data", "kernels", "launch",
-           "models", "serve"]
+__all__ = ["checkpoint", "configs", "convert", "core", "data", "kernels",
+           "launch", "models", "optim", "serve", "train"]

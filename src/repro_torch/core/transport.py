@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Any, Iterator, NamedTuple
+from typing import Any, Callable, Iterator, NamedTuple
 
 import numpy as np
 from torch.utils import _pytree as pytree
@@ -41,6 +41,7 @@ from torch.utils import _pytree as pytree
 from . import compression, gossip, graphs
 
 __all__ = [
+    "TransportMeta",
     "band_offset_union",
     "GossipBackend",
     "DenseBackend",
@@ -59,6 +60,22 @@ F32_BYTES = 4
 
 # transports of the reference that the port has not built yet
 UNPORTED_BACKENDS = ("ppermute",)
+
+
+class TransportMeta(NamedTuple):
+    """What ``prepare`` needs to know about the driven loop: which
+    ``rounds`` values the gossip policy will request.  ``AlgoMeta`` is
+    duck-compatible (the runner passes it directly); loops without an
+    AlgoMeta (the LM trainer) build one via :meth:`constant`."""
+    outer_lengths: tuple | None
+    num_steps: int | None
+    gossip_rounds: Callable[[int], int]
+
+    @classmethod
+    def constant(cls, rounds: int) -> "TransportMeta":
+        """A fixed-rounds gossip policy (the LM trainer's): the rounds-value
+        set is the singleton {rounds}, so one probe step suffices."""
+        return cls(None, 1, lambda k: rounds)
 
 
 def _rounds_values(meta) -> list[int]:

@@ -1,3 +1,3 @@
-from . import synthetic
+from . import loader, synthetic
 
-__all__ = ["synthetic"]
+__all__ = ["loader", "synthetic"]

@@ -61,8 +61,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     sliding_window: int | None = None,
                     softcap: float | None = None):
     """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd).  CPU
-    tensors run the plain version; CUDA tensors launch the kernel; any other
-    device raises."""
+    tensors run the plain version; CUDA tensors launch the kernel, and raise
+    where autograd would need its backward; any other device raises."""
     global launches
     if q.device.type == "cpu":
         out = ref.attention_ref(
@@ -73,6 +73,14 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"flash_attention runs on CUDA (kernel) or CPU "
                          f"(plain version), not on {q.device}")
     _check_cuda_operands(q, k, v, sliding_window, softcap)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # an output written by the kernel carries no gradient, so autograd
+        # would take it for a constant: refuse rather than train wrongly
+        raise RuntimeError(
+            "the flash attention kernel has no backward: an operand "
+            "requires grad. Differentiate the plain path (use_flash=False), "
+            "as the JAX package's Pallas kernel cannot be differentiated "
+            "either")
     out = torch.empty_like(q)
     rc = kernel.flash_attention_launch(q, k, v, out, causal=causal,
                                        sliding_window=sliding_window,

@@ -38,13 +38,21 @@ def _rows_view(x):
 def rmsnorm(x, weight, eps: float = 1e-6):
     """x: (..., d) any leading shape; weight: (d,).  Output in x's dtype,
     statistics in float32.  CPU tensors run the plain version; CUDA tensors
-    launch the kernel; any other device raises."""
+    launch the kernel, and raise where autograd would need its backward;
+    any other device raises."""
     global launches
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, weight, eps)
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm runs on CUDA (kernel) or CPU (plain "
                          f"version), not on {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        # an output written by the kernel carries no gradient, so autograd
+        # would take it for a constant: refuse rather than train wrongly
+        raise RuntimeError(
+            "the rmsnorm kernel has no backward: an operand requires grad. "
+            "Differentiate the plain path (use_fused_norm=False), as the "
+            "JAX package's Pallas kernel cannot be differentiated either")
     d = x.shape[-1]
     if weight.device != x.device:
         raise ValueError(f"operands on {weight.device} and {x.device}")

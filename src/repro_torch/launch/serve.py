@@ -1,12 +1,14 @@
-"""Serving entry point of the port: random-init params -> engine -> traffic.
+"""Serving entry point of the port: checkpoint -> consensus params ->
+engine -> traffic.
 
 The port of ``repro.launch.serve``, with the same flags and behaviour: it
 serves ``smoke_variant(get_config(arch))``.
 
-  * params: random init from ``--seed`` on ``--device`` (``cuda`` unless
-    asked for the CPU; without a card and without ``--device cpu`` it
-    raises).  ``--ckpt-dir`` (consensus parameters from a trainer
-    checkpoint) waits for the checkpoint port and raises,
+  * params: ``--ckpt-dir`` loads a trainer checkpoint (of either package)
+    through :func:`repro_torch.serve.consensus.consensus_params` (the
+    node-averaged x̄, with per-node disagreement printed), otherwise random
+    init from ``--seed``; on ``--device`` (``cuda`` unless asked for the
+    CPU; without a card and without ``--device cpu`` it raises),
   * engine: ``--engine resident`` (device-resident chunked decode, the
     default) or ``--engine host`` (the per-token ``ContinuousBatcher``
     loop); ``--slots``/``--max-len``/``--chunk`` size the shared cache,
@@ -16,8 +18,10 @@ serves ``smoke_variant(get_config(arch))``.
     batch of prompts is served closed-loop,
   * a warm-up run (kernel builds, library start-up) precedes any timing.
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \
+        --steps 50 --ckpt-dir /tmp/run0 [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
-        --stream --requests 32 --slots 4 [--device cpu]
+        --ckpt-dir /tmp/run0 --stream --requests 32 --slots 4 [--device cpu]
 """
 
 from __future__ import annotations
@@ -31,11 +35,13 @@ import torch
 
 def _build_params(args, cfg):
     from repro_torch.models import transformer
+    from repro_torch.serve import consensus
 
     if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir: serving consensus parameters from a trainer "
-            "checkpoint needs the checkpoint port (ROADMAP Queue 1 item 11)")
+        params, info = consensus.consensus_params(args.ckpt_dir, cfg,
+                                                  device=args.device)
+        print(info)
+        return params
     return transformer.init_params(cfg, args.seed, device=args.device)
 
 
@@ -82,8 +88,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="h2o-danube-1.8b")
     ap.add_argument("--ckpt-dir", default="",
-                    help="load consensus params from a trainer checkpoint "
-                         "(not ported yet: raises)")
+                    help="load consensus params from a trainer checkpoint")
     ap.add_argument("--engine", default="resident",
                     choices=["resident", "host"])
     ap.add_argument("--slots", type=int, default=4)

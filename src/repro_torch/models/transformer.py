@@ -23,6 +23,7 @@ import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch.utils import _pytree as pytree
 
 from . import attention, common, ffn as ffn_lib
@@ -129,7 +130,10 @@ def _embed_scale(cfg: ModelConfig, x):
 
 
 def _embed_inputs(cfg: ModelConfig, params, tokens):
-    x = _embed_scale(cfg, params["embed"][tokens])
+    # F.embedding, not indexing: the same rows, and under the trainer's
+    # vmap over nodes its backward sums repeated tokens in a fixed order,
+    # where indexing's batched backward does not (a resume must be bitwise)
+    x = _embed_scale(cfg, F.embedding(tokens, params["embed"]))
     if not cfg.use_rope:
         pos = torch.arange(x.shape[1], device=x.device)
         x = x + params["pos_embed"][pos][None]

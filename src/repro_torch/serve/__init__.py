@@ -6,12 +6,11 @@ decode path.
 * :mod:`.engine` — device-resident ``ResidentEngine`` (slot state and KV
   cache on the device, one pull per decode chunk),
 * :mod:`.stream` / :mod:`.metrics` — seeded synthetic traffic and
-  TTFT/TPOT/tokens-per-second summaries.
-
-The training -> serving bridge (``repro.serve.consensus``) waits for the
-checkpoint port (ROADMAP Queue 1 item 11).
+  TTFT/TPOT/tokens-per-second summaries,
+* :mod:`.consensus` — the training -> serving bridge: the node average of
+  a trainer checkpoint's replicas.
 """
 
-from . import engine, metrics, scheduler, stream
+from . import consensus, engine, metrics, scheduler, stream
 
-__all__ = ["engine", "metrics", "scheduler", "stream"]
+__all__ = ["consensus", "engine", "metrics", "scheduler", "stream"]

@@ -1,0 +1,439 @@
+"""Decentralized LM training: the port of ``repro.train.trainer``'s
+``train_loop`` on one device.
+
+``train_loop`` drives ``build_train_step`` with the paper's outer/inner
+structure (a snapshot, the large-batch full-gradient refresh, every
+``snapshot_every`` steps; multi-consensus gossip matrices from a
+time-varying schedule) along two execution paths that share every step
+function:
+
+* **host loop** (default): the reference semantics, one batch and one phi
+  copied to the device per step.  Accepts an :class:`~repro_torch.data.
+  loader.LMLoader` or any legacy batch iterator.
+* **resident** (``ExecSpec(resident=True)``, LMLoader only): the run is
+  planned on the host like the reference's (windows cut at log and
+  checkpoint boundaries, per-step window starts drawn from the loader's
+  ``np.random`` stream in the host loop's order, phis and realized
+  alphas), and staged with the ``(m, shard_len)`` token shards in ONE
+  host-to-device step.  The steps then gather their minibatch windows from
+  the resident shards with index operations on the device and run the
+  snapshot refreshes at the steps the plan names; metrics are pulled once
+  per log window.  ``hist["transfers"]`` counts what the reference's
+  ledger counts: one staging transfer, one pull per record window, one
+  per checkpoint.  The steps run eagerly.
+
+Periodic and final checkpoints (``ckpt_dir``/``ckpt_every``/``keep_last``)
+capture the whole train state plus the loader's data cursor in the JAX
+package's format, and ``resume=True`` continues from
+``checkpoint.latest_step`` bitwise as the uninterrupted run would, on both
+paths (same TrainerConfig).  A checkpoint of either package resumes in
+the other.
+
+Refused, by name: ``sampling="device"`` (ROADMAP Queue 1 item 5 (d)),
+sharded state (item 14), ``kernel`` other than ``"plain"`` (as the
+reference refuses other than ``"xla"``), and configs that route the
+forward through the RMSNorm or flash kernels, which have no backward.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+import warnings
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+
+from .. import checkpoint as ckpt_lib
+from ..core import algorithm as algo_lib, graphs, prox as prox_lib, \
+    runner as runner_lib, schedules, transport
+from ..core.exec_spec import ExecSpec
+from ..data import loader as loader_lib
+from ..models.api import ModelConfig
+from ..models.common import resolve_device
+from . import steps as steps_lib
+from .tracker import CompositeTracker, HistoryTracker, resolve_tracker
+
+__all__ = ["TrainerConfig", "train_loop"]
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    num_steps: int = 200
+    snapshot_every: int = 50        # production K (fixed)
+    snapshot_batch_mult: int = 4    # "full" gradient ~ mult x minibatch (loader paths)
+    alpha: float = 0.05
+    consensus_rounds: int = 2       # capped multi-consensus
+    algorithm: str = "dpsvrg"       # core.algorithm.UPDATE_RULES name (or an UpdateRule)
+    gossip: str = "auto"            # transport.GOSSIP_BACKENDS name / instance / "auto"
+    lr_schedule: str = "constant"   # constant | wsd | cosine
+    log_every: int = 10
+    ckpt_dir: str | None = None
+    ckpt_every: int = 0
+    keep_last: int | None = None    # retention: prune all but the N newest ckpts
+    seed: int = 0
+    resident: bool = False          # device-resident execution (LMLoader data)
+    sampling: str = "host"          # "host" ("device" is not ported yet)
+    tracker: Any = None             # tracker spec (see tracker.resolve_tracker)
+
+
+def _lr_fn(tc: TrainerConfig):
+    if tc.lr_schedule == "wsd":
+        return schedules.wsd(tc.alpha, warmup=max(tc.num_steps // 20, 1),
+                             stable=int(tc.num_steps * 0.75),
+                             decay=max(tc.num_steps // 5, 1))
+    if tc.lr_schedule == "cosine":
+        return schedules.warmup_cosine(tc.alpha, max(tc.num_steps // 20, 1),
+                                       tc.num_steps)
+    return schedules.constant(tc.alpha)
+
+
+def _realized_alpha_fn(tc: TrainerConfig, rule):
+    """The step size the update ACTUALLY uses (recorded in metrics).
+
+    VR-type rules (snapshot-corrected) take the configured LR schedule;
+    plain stochastic rules need the DSPG decaying step to converge — a
+    configured non-constant schedule would be silently ignored, so warn
+    loudly instead."""
+    if rule.needs_snapshot:
+        return _lr_fn(tc)
+    if tc.lr_schedule != "constant":
+        warnings.warn(
+            f"TrainerConfig.lr_schedule={tc.lr_schedule!r} is OVERRIDDEN for "
+            f"the non-variance-reduced {rule.name!r} rule, which requires "
+            f"the decaying DSPG step alpha0/(k+1)^0.5 to converge; the "
+            f"realized step size is recorded in the 'alpha' metric column",
+            RuntimeWarning, stacklevel=3)
+    return schedules.dspg_stepsize(tc.alpha)
+
+
+def _check_lm_spec(spec: ExecSpec, caller: str) -> None:
+    """The LM trainer consumes the SAME ExecSpec as ``runner.run`` but only
+    implements the host-loop / resident halves of it; fields that select
+    logistic-regression-only machinery fail loudly instead of being
+    ignored."""
+    if spec.scan:
+        raise ValueError(f"{caller}: the LM trainer has no scan path — "
+                         f"ExecSpec(scan=True) selects runner.run's "
+                         f"compiled chunk path; use resident=True here")
+    if spec.kernel != "plain":
+        raise ValueError(f"{caller}: ExecSpec(kernel={spec.kernel!r}) "
+                         f"selects the fused resident step of runner.run; "
+                         f"the LM trainer's kernels come from the model "
+                         f"config")
+    if spec.device_transitions is False:
+        raise ValueError(f"{caller}: the resident LM path always runs "
+                         f"snapshot refreshes at the steps its plan names; "
+                         f"device_transitions=False applies to runner.run")
+
+
+def _check_trainable(cfg: ModelConfig, caller: str) -> None:
+    if cfg.use_flash or cfg.use_fused_norm:
+        raise ValueError(
+            f"{caller}: {cfg.name} has use_flash={cfg.use_flash}, "
+            f"use_fused_norm={cfg.use_fused_norm}: the flash attention and "
+            f"RMSNorm kernels have no backward (nor have the JAX package's "
+            f"Pallas kernels); train with both off (cfg.scaled(use_flash="
+            f"False, use_fused_norm=False)) and serve with them on")
+
+
+def _to(device, tree, dtype=None):
+    """Tree leaves (numpy arrays or tensors; None kept) as tensors on
+    ``device``, cast to ``dtype`` where given."""
+    return pytree.tree_map(
+        lambda a: None if a is None
+        else torch.as_tensor(a).to(device=device, dtype=dtype), tree)
+
+
+def gather_windows(shards: torch.Tensor, starts: torch.Tensor,
+                   window: torch.Tensor) -> dict:
+    """Minibatch windows gathered on the shards' device: ``shards`` (m,
+    shard_len), ``starts`` (m, B) int64, ``window`` ``arange(seq_len + 1)``
+    -> ``{"tokens", "labels"}`` (m, B, seq_len), element for element what
+    ``LMLoader.gather`` gives for the same starts."""
+    idx = starts[:, :, None] + window                     # (m, B, L + 1)
+    win = torch.take_along_dim(shards[:, None, :], idx, dim=2)
+    return {"tokens": win[..., :-1], "labels": win[..., 1:]}
+
+
+class _Window(NamedTuple):
+    """One stretch of the resident plan, ending at a record or checkpoint
+    step or at the run's last step."""
+    length: int             # steps in this window
+    last_step: int          # absolute index of its last step
+    record: bool            # pull the metrics and log after it
+    ckpt_next: int | None   # checkpoint step number to save, or None
+    alpha_last: float       # realized alpha at last_step
+    wire_end: int           # cumulative wire bytes after it
+    slot_end: int           # gossip slot cursor after it
+    loader_state: Any       # loader cursor AT this boundary (checkpoint
+    #                         windows only: planning draws the whole run's
+    #                         starts first, so the live state_dict at save
+    #                         time would be the end-of-run cursor)
+
+
+def train_loop(cfg: ModelConfig,
+               prox: prox_lib.Prox,
+               schedule: graphs.MixingSchedule,
+               data,
+               tc: TrainerConfig,
+               snapshot_batch_iter=None,
+               mesh=None, plan=None,
+               exec: "ExecSpec | None" = None, *,
+               tracker=None,
+               resume: bool = False) -> dict:
+    """Returns the history dict (``step``/``loss``/``v_norm``/``alpha``/
+    ``wire_bytes``/``time`` columns, plus ``final_state`` and the
+    ``transfers`` ledger).
+
+    ``data`` is an :class:`~repro_torch.data.loader.LMLoader` (both
+    execution paths, resume support, loader-stream snapshot batches of
+    ``per_node_batch * snapshot_batch_mult`` windows) or a legacy iterator
+    of stacked per-node batch dicts (host path only;
+    ``snapshot_batch_iter`` then supplies the outer-loop refresh batches,
+    defaulting to ``data``).
+
+    ``exec`` is the :class:`~repro_torch.core.exec_spec.ExecSpec`
+    ``runner.run`` consumes; ``None`` is ``ExecSpec(resident=tc.resident,
+    sampling=tc.sampling)``, which runs on the CUDA device (pass
+    ``ExecSpec(device="cpu")`` for the CPU).  Its ``gossip`` overrides
+    ``tc.gossip`` unless it is ``"auto"``.  ``tracker`` falls back to
+    ``tc.tracker``."""
+    spec = ExecSpec(resident=tc.resident, sampling=tc.sampling) \
+        if exec is None else exec
+    if not isinstance(spec, ExecSpec):
+        raise TypeError(f"train_loop: exec must be an ExecSpec, got "
+                        f"{type(spec).__name__}")
+    _check_lm_spec(spec, "train_loop")
+    _check_trainable(cfg, "train_loop")
+    if spec.sampling == "device":
+        raise NotImplementedError(
+            "sampling='device' is not ported to PyTorch yet (ROADMAP Queue 1 "
+            "item 5 (d)); use sampling='host'")
+    resident = spec.resident
+    gossip = tc.gossip if spec.gossip == "auto" else spec.gossip
+
+    m = schedule.m
+    rule = algo_lib.UPDATE_RULES[tc.algorithm] \
+        if isinstance(tc.algorithm, str) else tc.algorithm
+    vr = rule.needs_snapshot
+    alpha_fn = _realized_alpha_fn(tc, rule)
+
+    is_loader = isinstance(data, loader_lib.LMLoader)
+    if resident and not is_loader:
+        raise ValueError(
+            "resident=True plans the whole run up front, which needs the "
+            "LMLoader's index-based sampling — pass the loader itself, not "
+            "a batch iterator")
+    if resume and not (tc.ckpt_dir and is_loader):
+        raise ValueError("resume=True needs ckpt_dir and an LMLoader (the "
+                         "checkpoint stores the loader's data cursor)")
+    if is_loader and snapshot_batch_iter is not None:
+        raise ValueError(
+            "snapshot_batch_iter is not supported with an LMLoader: both "
+            "execution paths draw snapshot batches from the loader's own "
+            "stream (per_node_batch * snapshot_batch_mult windows) — pass a "
+            "legacy batch iterator as `data` to control snapshot batches")
+    bundle = steps_lib.build_train_step(cfg, prox, m, plan=plan, mesh=mesh,
+                                        algorithm=rule)
+    device = resolve_device(spec.device)
+
+    # the transport backend owns the wire format: its per-step phi flows
+    # into the train step, which dispatches the mix on its type; stateful
+    # transports thread their state via TrainState.mix_state
+    tmeta = transport.TransportMeta.constant(tc.consensus_rounds)
+    backend = transport.resolve_backend(gossip, schedule, tmeta)
+    gaux = backend.prepare(schedule, tmeta)
+
+    state = bundle.init_state(tc.seed, device)
+    if backend.needs_mix_state:
+        state = state._replace(
+            mix_state=backend.init_mix_state(gaux, state.params))
+    param_count = transport.node_param_count(state.params)
+
+    transfers = {"h2d": 0, "d2h": 0}
+    start_step, slot, wire = 0, 0, 0
+    if resume:
+        tree, _, md = ckpt_lib.restore(tc.ckpt_dir, {"state": state})
+        state = None                 # free the fresh state before the copy
+        state = _to(device, tree["state"])
+        transfers["h2d"] += 1
+        start_step = int(md["step"])
+        slot = int(md["slot"])
+        wire = int(md["wire"])
+        if md.get("loader") is not None:
+            data.load_state_dict(md["loader"])
+
+    history = HistoryTracker()
+    track = CompositeTracker(
+        [history] + resolve_tracker(tracker if tracker is not None
+                                    else tc.tracker))
+
+    t0 = time.time()
+
+    def record(step: int, loss, v_norm, alpha, wire_now: int):
+        track.log_metrics({"loss": float(loss), "v_norm": float(v_norm),
+                           "alpha": float(alpha), "wire_bytes": wire_now,
+                           "time": time.time() - t0}, step=step)
+
+    def is_record(step: int) -> bool:
+        return step % tc.log_every == 0 or step == tc.num_steps - 1
+
+    def is_ckpt(step: int) -> bool:
+        return bool(tc.ckpt_dir and tc.ckpt_every
+                    and (step + 1) % tc.ckpt_every == 0)
+
+    def save_ckpt(cur_state, next_step: int, *, slot_at: int | None = None,
+                  wire_at: int | None = None,
+                  loader_state: dict | None = None):
+        """Write a resumable checkpoint.  The host loop's live ``slot``/
+        ``wire``/loader cursor ARE the values at the save point; the
+        resident path plans (and so advances all three to end-of-run)
+        before executing, so its periodic saves pass the boundary values
+        explicitly."""
+        transfers["d2h"] += 1
+        if loader_state is None and is_loader:
+            loader_state = data.state_dict()
+        md = {"step": next_step,
+              "slot": slot if slot_at is None else slot_at,
+              "wire": wire if wire_at is None else wire_at,
+              "algorithm": rule.name,
+              "loader": loader_state}
+        ckpt_lib.save(tc.ckpt_dir, next_step, {"state": cur_state}, md,
+                      keep_last=tc.keep_last)
+
+    # ------------------------------------------------------------------
+    # host loop
+    # ------------------------------------------------------------------
+    if not resident:
+        if is_loader:
+            def next_batch():
+                t, l = data.sample()
+                return {"tokens": t, "labels": l}
+
+            def next_big():
+                starts = data.sample_starts(
+                    data.per_node_batch * tc.snapshot_batch_mult)
+                t, l = data.gather(starts)
+                return {"tokens": t, "labels": l}
+        else:
+            batch_it = iter(data)
+            snap_it = iter(snapshot_batch_iter) if snapshot_batch_iter \
+                is not None else batch_it
+            next_batch = lambda: next(batch_it)
+            next_big = lambda: next(snap_it)
+
+        for step in range(start_step, tc.num_steps):
+            if vr and step % tc.snapshot_every == 0:
+                big = _to(device, next_big())
+                # the refresh replaces the snapshot and the full gradient:
+                # let the old ones go first, so that their memory (two
+                # copies of the stacked parameters) is free while the
+                # large batch's activations are held, the run's peak
+                state = state._replace(snapshot=None, full_grad=None)
+                state = bundle.snapshot_step(state, big)
+            batch = _to(device, next_batch())
+            phi = backend.phi_for(gaux, slot, tc.consensus_rounds)
+            wire += backend.bytes_per_step(gaux, phi, param_count)
+            slot += tc.consensus_rounds
+            transfers["h2d"] += 1      # per-step batch/phi staging
+            alpha = alpha_fn(step)
+            state, metrics = bundle.train_step(
+                state, batch, _to(device, phi, torch.float32),
+                float(np.float32(alpha)))
+            if is_record(step):
+                record(step, metrics["loss"], metrics["v_norm"], alpha, wire)
+                transfers["d2h"] += 1
+            if is_ckpt(step):
+                save_ckpt(state, step + 1)
+    # ------------------------------------------------------------------
+    # resident path: plan -> stage once -> steps gather on the device
+    # ------------------------------------------------------------------
+    else:
+        B = data.per_node_batch
+        snap_B = B * tc.snapshot_batch_mult
+        windows: list[_Window] = []
+        starts, sstarts, snaps, phis, alphas = [], [], [], [], []
+        count = 0
+        for step in range(start_step, tc.num_steps):
+            snap = vr and step % tc.snapshot_every == 0
+            # draw order matches the host loop exactly: snapshot windows
+            # first (when refreshing), then the minibatch
+            if snap:
+                sstarts.append(data.sample_starts(snap_B))
+            snaps.append(snap)
+            starts.append(data.sample_starts(B))
+            phi = backend.phi_for(gaux, slot, tc.consensus_rounds)
+            wire += backend.bytes_per_step(gaux, phi, param_count)
+            slot += tc.consensus_rounds
+            phis.append(phi)
+            alpha = alpha_fn(step)
+            alphas.append(alpha)
+            count += 1
+            if is_record(step) or is_ckpt(step) or step == tc.num_steps - 1:
+                windows.append(_Window(
+                    length=count, last_step=step, record=is_record(step),
+                    ckpt_next=step + 1 if is_ckpt(step) else None,
+                    alpha_last=alpha, wire_end=wire, slot_end=slot,
+                    loader_state=data.state_dict() if is_ckpt(step)
+                    else None))
+                count = 0
+
+        # ONE staging transfer ships the plan and the token shards; nothing
+        # per step crosses the host boundary thereafter
+        staged = _to(device, (
+            data.stacked_shards(),
+            np.asarray(starts, np.int64).reshape(len(starts), m, B),
+            np.asarray(sstarts, np.int64).reshape(len(sstarts), m, snap_B),
+            runner_lib._stack_wire(phis) if phis else None,
+            np.asarray(alphas, np.float32)))
+        transfers["h2d"] += 1
+        shards, starts_dev, sstarts_dev, phis_dev, alphas_dev = staged
+        window = torch.arange(data.seq_len + 1, device=device)
+
+        t = r = 0
+        for w in windows:
+            for _ in range(w.length):
+                if snaps[t]:
+                    # the old snapshot and full gradient go first, as in
+                    # the host loop
+                    state = state._replace(snapshot=None, full_grad=None)
+                    state = bundle.snapshot_step(
+                        state, gather_windows(shards, sstarts_dev[r],
+                                              window))
+                    r += 1
+                state, metrics = bundle.train_step(
+                    state, gather_windows(shards, starts_dev[t], window),
+                    pytree.tree_map(lambda a: a[t], phis_dev),
+                    alphas_dev[t])
+                t += 1
+            if w.record:
+                loss, v_norm = torch.stack(
+                    [metrics["loss"], metrics["v_norm"]]).tolist()
+                transfers["d2h"] += 1        # one pull per window
+                record(w.last_step, loss, v_norm, w.alpha_last, w.wire_end)
+            if w.ckpt_next is not None:
+                save_ckpt(state, w.ckpt_next, slot_at=w.slot_end,
+                          wire_at=w.wire_end, loader_state=w.loader_state)
+
+    # final checkpoint (skipped when the periodic cadence just wrote it)
+    if tc.ckpt_dir and start_step < tc.num_steps and \
+            not (tc.ckpt_every and tc.num_steps % tc.ckpt_every == 0):
+        save_ckpt(state, tc.num_steps)
+
+    losses = history.history().get("loss", [])
+    track.log_summary({
+        "algorithm": rule.name, "steps": tc.num_steps,
+        "resident": resident, "sampling": spec.sampling,
+        "final_loss": losses[-1] if losses else None,
+        "wire_bytes": wire, "wall_time": time.time() - t0,
+        "transfers": dict(transfers),
+    })
+    track.finish()
+
+    hist = history.history()
+    hist["final_state"] = state
+    hist["transfers"] = dict(transfers)
+    return hist

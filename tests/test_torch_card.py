@@ -4,8 +4,10 @@ plain versions on the card, their operand checks, the resident
 logistic-regression path through fused_step (dense and banded gossip), its
 CUDA graph replays against the eager executor, fused_step over the cells of
 a sweep against single launches (bitwise) and batched sweeps against
-sequential ones, the kernel bench, and a served model through RMSNorm and
-flash.  They skip, with
+sequential ones, the kernel bench, a served model through RMSNorm and
+flash, the kernels' refusal of operands that require grad, and the
+decentralized LM trainer on the card (against the CPU, a bitwise resume,
+and the consensus of its checkpoint served through the kernels).  They skip, with
 the reason, where there is no card.  This file imports neither JAX nor the JAX package, so it also
 runs on a machine that has only PyTorch:
 
@@ -19,6 +21,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch.utils import _pytree as pytree
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -784,3 +787,114 @@ def test_resident_engine_on_card_matches_host_batcher(cuda_device):
         np.testing.assert_array_equal(eout[r.uid], hout[r.uid])
     assert eng.transfers["h2d"] == len(reqs)
     assert eng.transfers["d2h"] == eng.transfers["chunks"]
+
+
+# ---------------------------------------------------------------------------
+# the kernels refuse autograd; the decentralized LM trainer on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("which", ["x", "weight"])
+def test_rmsnorm_kernel_refuses_operands_that_require_grad(cuda_device,
+                                                            which):
+    """The kernel has no backward: an output it wrote would carry no
+    gradient, so the wrapper raises rather than return one."""
+    x = torch.randn(4, 64, device=cuda_device)
+    w = torch.zeros(64, device=cuda_device)
+    (x if which == "x" else w).requires_grad_(True)
+    before = rn_ops.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        rn_ops.rmsnorm(x, w)
+    assert rn_ops.launches == before
+    with torch.no_grad():                       # inference still launches
+        out = rn_ops.rmsnorm(x, w)
+    assert rn_ops.launches == before + 1
+    torch.testing.assert_close(out, rn_ref.rmsnorm_ref(x.detach(),
+                                                       w.detach()),
+                               **RMS_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_flash_kernel_refuses_operands_that_require_grad(cuda_device, which):
+    ops_in = {n: torch.randn(1, 16, 4 if n == "q" else 2, 32,
+                             device=cuda_device) for n in "qkv"}
+    ops_in[which].requires_grad_(True)
+    before = fa_ops.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa_ops.flash_attention(ops_in["q"], ops_in["k"], ops_in["v"])
+    assert fa_ops.launches == before
+    with torch.no_grad():
+        fa_ops.flash_attention(ops_in["q"], ops_in["k"], ops_in["v"])
+    assert fa_ops.launches == before + 1
+
+
+def _train_case(device, resident, ckpt_dir=None, resume=False, steps=12):
+    """The smoke danube trained on ``device`` from parameters drawn on the
+    CPU (a generator on the card draws other values), so that runs on the
+    card and on the CPU start from the same point."""
+    from repro_torch.data.loader import LMLoader
+    from repro_torch.train import steps as train_steps, trainer
+    cfg = configs.smoke_variant(configs.get_config("h2o-danube-1.8b"))
+    toks = synthetic.make_token_stream(50_000, cfg.vocab_size, seed=0)
+    ld = LMLoader(toks.tokens, num_nodes=4, per_node_batch=2, seq_len=32,
+                  seed=1)
+    tc = trainer.TrainerConfig(num_steps=steps, snapshot_every=5,
+                               log_every=3, alpha=0.05, seed=0,
+                               ckpt_dir=ckpt_dir,
+                               ckpt_every=6 if ckpt_dir else 0)
+    init = transformer.init_params
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(train_steps.transformer, "init_params",
+                   lambda cfg_, seed, device: pytree.tree_map(
+                       lambda t: t.to(device), init(cfg_, seed, "cpu")))
+        return trainer.train_loop(
+            cfg, prox.l1(1e-6),
+            graphs.b_connected_ring_schedule(4, b=2, seed=0), ld, tc,
+            exec=ExecSpec(resident=resident, device=device), resume=resume)
+
+
+def test_trainer_on_card_matches_cpu_and_resumes_bitwise(cuda_device,
+                                                         tmp_path):
+    """The smoke danube trained on the card: host and resident paths agree
+    with the CPU's run to float32 tolerance (the card's products sum in
+    other orders), and a resume from the step-6 checkpoint is bitwise the
+    uninterrupted run on the card."""
+    import shutil
+    from repro_torch import checkpoint
+    cpu = _train_case("cpu", False)
+    host = _train_case(cuda_device, False)
+    full = _train_case(cuda_device, True, ckpt_dir=str(tmp_path / "full"))
+    for got in (host, full):
+        assert got["step"] == cpu["step"]
+        np.testing.assert_allclose(got["loss"], cpu["loss"], rtol=1e-4,
+                                   atol=1e-5)
+    assert full["transfers"] == {"h2d": 1, "d2h": len(full["step"]) + 2}
+    crash = str(tmp_path / "crash")
+    shutil.copytree(str(tmp_path / "full"), crash)
+    shutil.rmtree(os.path.join(crash, "step_00000012"))
+    res = _train_case(cuda_device, True, ckpt_dir=crash, resume=True)
+    by_step = dict(zip(full["step"], full["loss"]))
+    assert res["step"] == [6, 9, 11]
+    assert [by_step[s] for s in res["step"]] == res["loss"]
+    for a, b in zip(checkpoint.flatten_with_paths(res["final_state"]),
+                    checkpoint.flatten_with_paths(full["final_state"])):
+        assert torch.equal(a[1], b[1]), a[0]
+
+
+def test_consensus_of_a_card_run_serves_through_the_kernels(cuda_device,
+                                                             tmp_path):
+    from repro_torch.serve import consensus
+    d = str(tmp_path / "ckpt")
+    _train_case(cuda_device, True, ckpt_dir=d, steps=6)
+    cfg = configs.smoke_variant(configs.get_config("h2o-danube-1.8b"))
+    params, info = consensus.consensus_params(d, cfg.scaled(
+        use_flash=True, use_fused_norm=True), device=cuda_device)
+    assert info.step == 6 and info.num_nodes == 4
+    assert params["embed"].device.type == "cuda"
+    kcfg = cfg.scaled(use_flash=True, use_fused_norm=True)
+    toks = torch.randint(0, cfg.vocab_size, (1, 40), device=cuda_device)
+    rn_ops.launches = fa_ops.launches = 0
+    lk, _ = transformer.prefill(kcfg, params, toks, max_len=64)
+    assert (fa_ops.launches, rn_ops.launches) == (
+        cfg.num_layers, 2 * cfg.num_layers + 1)
+    lp, _ = transformer.prefill(cfg, params, toks, max_len=64)
+    torch.testing.assert_close(lk, lp, **LOGIT_TOL)

@@ -281,8 +281,11 @@ def test_launch_serve_on_the_cpu(argv):
 
 
 def test_launch_serve_refuses_a_checkpoint_by_roadmap_item():
+    """--ckpt-dir serves a trainer checkpoint's consensus now (ROADMAP
+    Queue 1 item 11 is done; tests/test_torch_consensus.py serves one): a
+    directory without a checkpoint is what it refuses."""
     from repro_torch.launch import serve as launch_serve
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
         launch_serve.main(["--device", "cpu", "--ckpt-dir", "/nonexistent"])
 
 

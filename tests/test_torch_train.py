@@ -1,0 +1,389 @@
+"""The port's decentralized LM trainer against the JAX package's
+(``repro.train.trainer``) on a toy LM (2 layers, d_model 64, vocab 512,
+sequences of 16, m = 4 nodes on the b=2 ring the launcher uses).
+
+Both packages start from the same parameters (the JAX package's init, fed
+to the port through numpy) and draw the same windows (the loader's
+``np.random`` stream), so every record is held to the reference: losses
+within rtol 1e-4 / atol 1e-5 and the final stacked parameters within atol
+1e-4 (both sides run float32, summing in different orders: XLA's and
+ATen's CPU kernels), step, alpha and wire-byte columns and the transfer
+ledger exactly.  ``v_norm`` is held within rtol 1e-3: the reference's
+``jnp.vdot`` on the CPU sums the squares of a (4, 512, 64) leaf with a
+relative error of 2.8e-4 against a float64 sum, where the port's sum agrees
+with it to 1e-7.  Within the port, resume is bitwise on both paths, and
+checkpoints cross packages in both directions.
+"""
+
+import os
+import shutil
+import warnings
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.core import graphs as jgraphs, prox as jprox
+from repro.core.exec_spec import ExecSpec as JExecSpec
+from repro.data.loader import LMLoader as JLoader
+from repro.models import transformer as jtransformer
+from repro.models.api import ModelConfig as JModelConfig
+from repro.train import trainer as jtrainer
+from repro_torch import checkpoint as tckpt
+from repro_torch.convert import params_from_numpy
+from repro_torch.core import graphs as tgraphs, prox as tprox
+from repro_torch.core.exec_spec import ExecSpec as TExecSpec
+from repro_torch.data.loader import LMLoader as TLoader
+from repro_torch.models.api import ModelConfig as TModelConfig
+from repro_torch.train import steps as tsteps, trainer as ttrainer
+
+torch.set_num_threads(1)
+
+TOY = dict(name="toy-train", arch_type="dense", num_layers=2, d_model=64,
+           num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=512)
+JCFG, TCFG = JModelConfig(**TOY), TModelConfig(**TOY)
+# one prox instance a package: the reference's bundle cache then serves
+# every call from the same jitted steps
+JPROX, TPROX = jprox.l1(1e-4), tprox.l1(1e-4)
+M = 4
+TOKENS = np.random.default_rng(0).integers(0, 512, size=20_000).astype(
+    np.int32)
+# snapshots at 0, 6, 12, 18; records at 0, 5, 10, 15, 19; checkpoints at
+# 10 and 20, so a resume from step 10 restores a mid-round snapshot
+TC = dict(num_steps=20, snapshot_every=6, log_every=5, alpha=0.1,
+          consensus_rounds=2, seed=0, ckpt_every=10)
+LOSS_TOL = dict(rtol=1e-4, atol=1e-5)
+PARAM_ATOL = 1e-4
+VNORM_RTOL = 1e-3
+P0 = jax.device_get(jtransformer.init_params(JCFG, jax.random.PRNGKey(0)))
+
+
+def _jloader():
+    return JLoader(TOKENS, num_nodes=M, per_node_batch=2, seq_len=16, seed=1)
+
+
+def _tloader():
+    return TLoader(TOKENS, num_nodes=M, per_node_batch=2, seq_len=16, seed=1)
+
+
+def _jsched():
+    return jgraphs.b_connected_ring_schedule(M, b=2, seed=0)
+
+
+def _tsched():
+    return tgraphs.b_connected_ring_schedule(M, b=2, seed=0)
+
+
+def run_torch(ckpt_dir=None, resident=False, resume=False, data=None,
+              **kw):
+    tc = ttrainer.TrainerConfig(**dict(TC, ckpt_dir=ckpt_dir, **kw))
+    with pytest.MonkeyPatch.context() as mp:
+        # the port's trainer starts from the reference's parameters
+        mp.setattr(tsteps.transformer, "init_params",
+                   lambda cfg, seed, device: params_from_numpy(P0, device))
+        return ttrainer.train_loop(
+            TCFG, TPROX, _tsched(), _tloader() if data is None else data, tc,
+            exec=TExecSpec(resident=resident, device="cpu"), resume=resume)
+
+
+def run_jax(ckpt_dir=None, resident=False, resume=False, data=None, **kw):
+    tc = jtrainer.TrainerConfig(**dict(TC, ckpt_dir=ckpt_dir, **kw))
+    return jtrainer.train_loop(
+        JCFG, JPROX, _jsched(), _jloader() if data is None else data, tc,
+        exec=JExecSpec(resident=resident), resume=resume)
+
+
+def _stacked_by_key(tree):
+    if isinstance(jax.tree.leaves(tree)[0], torch.Tensor):
+        return {k: v.numpy() for k, v in tckpt.flatten_with_paths(tree)}
+    return {"/".join(str(getattr(e, "key", getattr(e, "idx", e)))
+                     for e in path): np.asarray(leaf)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def assert_matches_reference(got, want, steps=None):
+    """``got`` (the port's history) against ``want`` (the reference's),
+    restricted to the records at ``steps`` where given."""
+    idx = [want["step"].index(s) for s in (steps or want["step"])]
+    assert got["step"] == [want["step"][i] for i in idx]
+    for col in ("alpha", "wire_bytes"):
+        assert got[col] == [want[col][i] for i in idx], col
+    np.testing.assert_allclose(got["loss"], [want["loss"][i] for i in idx],
+                               **LOSS_TOL)
+    np.testing.assert_allclose(got["v_norm"],
+                               [want["v_norm"][i] for i in idx],
+                               rtol=VNORM_RTOL)
+    gp = _stacked_by_key(got["final_state"].params)
+    wp = _stacked_by_key(want["final_state"].params)
+    assert sorted(gp) == sorted(wp)
+    for k in wp:
+        np.testing.assert_allclose(gp[k], wp[k], rtol=0, atol=PARAM_ATOL,
+                                   err_msg=k)
+    assert int(got["final_state"].step) == int(want["final_state"].step)
+
+
+def assert_bitwise(got, want):
+    """Two runs of the port: equal records and equal bits in every state
+    leaf."""
+    by_step = dict(zip(want["step"], zip(want["loss"], want["v_norm"],
+                                         want["wire_bytes"], want["alpha"])))
+    assert got["step"]
+    for s, l, v, w, a in zip(got["step"], got["loss"], got["v_norm"],
+                             got["wire_bytes"], got["alpha"]):
+        assert by_step[s] == (l, v, w, a)
+    for (k, x), (_, y) in zip(
+            tckpt.flatten_with_paths(got["final_state"]),
+            tckpt.flatten_with_paths(want["final_state"])):
+        assert torch.equal(x, y), k
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Every full 20-step run, once: the reference's host loop for both
+    rules and its resident DSPG run, the port's host and resident runs of
+    both rules, each checkpointing at steps 10 and 20."""
+    out = {}
+    for alg in ("dpsvrg", "dspg"):
+        for where, fn in (("jax", run_jax), ("torch", run_torch)):
+            for resident in (False, True):
+                if where == "jax" and resident and alg == "dpsvrg":
+                    continue            # its compile is the costliest
+                d = str(tmp_path_factory.mktemp(f"{where}_{alg}_{resident}"))
+                out[where, alg, resident] = (
+                    fn(ckpt_dir=d, resident=resident, algorithm=alg), d)
+    return out
+
+
+@pytest.mark.parametrize("alg", ["dpsvrg", "dspg"])
+def test_host_loop_matches_the_reference(runs, alg):
+    got, want = runs["torch", alg, False][0], runs["jax", alg, False][0]
+    assert got["step"] == [0, 5, 10, 15, 19]
+    assert_matches_reference(got, want)
+    assert got["transfers"] == want["transfers"] == {"h2d": 20, "d2h": 7}
+    assert np.all(np.isfinite(got["loss"]))
+
+
+@pytest.mark.parametrize("alg", ["dpsvrg", "dspg"])
+def test_resident_matches_the_host_loop_and_the_reference(runs, alg):
+    got, host = runs["torch", alg, True][0], runs["torch", alg, False][0]
+    assert got["step"] == host["step"]
+    np.testing.assert_allclose(got["loss"], host["loss"], **LOSS_TOL)
+    np.testing.assert_allclose(got["v_norm"], host["v_norm"], rtol=1e-4)
+    assert got["wire_bytes"] == host["wire_bytes"]
+    assert got["alpha"] == host["alpha"]
+    for k, x in tckpt.flatten_with_paths(got["final_state"].params):
+        y = dict(tckpt.flatten_with_paths(host["final_state"].params))[k]
+        torch.testing.assert_close(x, y, rtol=0, atol=1e-5)
+    assert_matches_reference(got, runs["jax", alg, False][0])
+    # one staging transfer, one pull a record window and one a checkpoint:
+    # the reference's own resident ledger
+    assert got["transfers"] == {"h2d": 1, "d2h": 7}
+    if alg == "dspg":
+        assert got["transfers"] == runs["jax", alg, True][0]["transfers"]
+
+
+@pytest.mark.parametrize("resident", [False, True])
+@pytest.mark.parametrize("alg", ["dpsvrg", "dspg"])
+def test_resume_from_a_periodic_checkpoint_is_bitwise(runs, tmp_path, alg,
+                                                      resident):
+    full, d = runs["torch", alg, resident]
+    crash = str(tmp_path / "crash")
+    shutil.copytree(d, crash)
+    shutil.rmtree(os.path.join(crash, "step_00000020"))
+    assert tckpt.latest_step(crash) == 10
+    res = run_torch(ckpt_dir=crash, resident=resident, resume=True,
+                    algorithm=alg)
+    assert res["step"] == [10, 15, 19]
+    assert_bitwise(res, full)
+    assert int(res["final_state"].step) == 20
+    assert tckpt.latest_step(crash) == 20
+    # the restore counts one upload; the rest of the ledger is the run's
+    assert res["transfers"]["h2d"] == (1 if resident else 10) + 1
+
+
+def test_the_port_resumes_a_reference_checkpoint(runs, tmp_path):
+    want, d = runs["jax", "dpsvrg", False]
+    crash = str(tmp_path / "from_jax")
+    shutil.copytree(d, crash)
+    shutil.rmtree(os.path.join(crash, "step_00000020"))
+    got = run_torch(ckpt_dir=crash, resume=True)
+    assert_matches_reference(got, want, steps=[10, 15, 19])
+
+
+def test_the_reference_resumes_a_port_checkpoint(runs, tmp_path):
+    want, d = runs["torch", "dpsvrg", False]
+    crash = str(tmp_path / "from_torch")
+    shutil.copytree(d, crash)
+    shutil.rmtree(os.path.join(crash, "step_00000020"))
+    got = run_jax(ckpt_dir=crash, resume=True)
+    # the reference's continuation, held to the port's own run
+    assert got["step"] == [10, 15, 19]
+    np.testing.assert_allclose(got["loss"], want["loss"][2:], **LOSS_TOL)
+    assert got["wire_bytes"] == want["wire_bytes"][2:]
+    gp = _stacked_by_key(got["final_state"].params)
+    for k, v in _stacked_by_key(want["final_state"].params).items():
+        np.testing.assert_allclose(gp[k], v, rtol=0, atol=PARAM_ATOL)
+
+
+def test_legacy_batch_iterator_matches_the_reference():
+    def batches(ld):
+        for t, l in ld:
+            yield {"tokens": t, "labels": l}
+
+    kw = dict(num_steps=8, ckpt_every=0, algorithm="dspg")
+    want = run_jax(data=batches(_jloader()), **kw)
+    got = run_torch(data=batches(_tloader()), **kw)
+    assert_matches_reference(got, want)
+
+
+def test_compressed_gossip_matches_the_reference_on_both_paths():
+    """int8 gossip with error feedback: a float32 rounding difference can
+    move a quantized code to its neighbour, so parameters are held within
+    one quantization step of their leaf (max |x| / 127) instead of 1e-4;
+    the losses keep the float32 tolerance."""
+    kw = dict(num_steps=8, ckpt_every=0, algorithm="dspg",
+              gossip="compressed")
+    want = run_jax(**kw)
+    for resident in (False, True):
+        got = run_torch(resident=resident, **kw)
+        assert got["step"] == want["step"]
+        assert got["wire_bytes"] == want["wire_bytes"]
+        np.testing.assert_allclose(got["loss"], want["loss"], **LOSS_TOL)
+        gp = _stacked_by_key(got["final_state"].params)
+        for k, v in _stacked_by_key(want["final_state"].params).items():
+            step = np.abs(v).max() / 127
+            np.testing.assert_allclose(gp[k], v, rtol=0, atol=step,
+                                       err_msg=k)
+        assert got["final_state"].mix_state is not None
+
+
+@pytest.mark.parametrize("schedule", ["constant", "wsd", "cosine"])
+@pytest.mark.parametrize("alg", ["dpsvrg", "dspg"])
+def test_realized_alpha_equals_the_reference(alg, schedule):
+    kw = dict(num_steps=40, alpha=0.1, lr_schedule=schedule, algorithm=alg)
+    jtc, ttc = jtrainer.TrainerConfig(**kw), ttrainer.TrainerConfig(**kw)
+    from repro.core import algorithm as jalgorithm
+    from repro_torch.core import algorithm as talgorithm
+    warns = []
+    for pkg, tc, algo in ((jtrainer, jtc, jalgorithm),
+                          (ttrainer, ttc, talgorithm)):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn = pkg._realized_alpha_fn(tc, algo.UPDATE_RULES[alg])
+        warns.append([str(w.message) for w in caught
+                      if w.category is RuntimeWarning])
+        if pkg is jtrainer:
+            want = [float(fn(k)) for k in range(40)]
+    assert [float(fn(k)) for k in range(40)] == want
+    assert warns[0] == warns[1]
+    assert bool(warns[1]) == (alg == "dspg" and schedule != "constant")
+
+
+# ---------------------------------------------------------------------------
+# refusals
+# ---------------------------------------------------------------------------
+
+def _tc(**kw):
+    return dict(num_steps=4, **kw)
+
+
+REFUSALS = [
+    # (name, port call kwargs, reference call kwargs or None, exception)
+    ("scan", dict(spec=dict(scan=True)), dict(spec=dict(scan=True)),
+     ValueError),
+    ("kernel", dict(spec=dict(resident=True, kernel="fused")),
+     dict(spec=dict(resident=True, kernel="pallas")), ValueError),
+    ("device_transitions", dict(spec=dict(resident=True,
+                                          device_transitions=False)),
+     dict(spec=dict(resident=True, device_transitions=False)), ValueError),
+    ("snapshot_batch_iter", dict(snapshot_batch_iter=iter([])),
+     dict(snapshot_batch_iter=iter([])), ValueError),
+    ("resume_without_ckpt_dir", dict(resume=True), dict(resume=True),
+     ValueError),
+    ("resident_iterator", dict(spec=dict(resident=True), data="iterator"),
+     dict(spec=dict(resident=True), data="iterator"), ValueError),
+]
+
+
+def _call(pkg, kw):
+    kw = dict(kw)
+    spec = kw.pop("spec", {})
+    data = kw.pop("data", None)
+    if pkg == "torch":
+        ld = _tloader()
+        args = (TCFG, TPROX, _tsched(), iter(ld) if data else ld,
+                ttrainer.TrainerConfig(**_tc()))
+        return ttrainer.train_loop(
+            *args, exec=TExecSpec(device="cpu", **spec), **kw)
+    ld = _jloader()
+    args = (JCFG, JPROX, _jsched(), iter(ld) if data else ld,
+            jtrainer.TrainerConfig(**_tc()))
+    return jtrainer.train_loop(*args, exec=JExecSpec(**spec), **kw)
+
+
+@pytest.mark.parametrize("case", REFUSALS, ids=[c[0] for c in REFUSALS])
+def test_refusals_raise_the_reference_exception_types(case):
+    _, tkw, jkw, exc = case
+    with pytest.raises(exc) as jerr:
+        _call("jax", jkw)
+    with pytest.raises(exc) as terr:
+        _call("torch", tkw)
+    assert type(terr.value) is type(jerr.value)
+
+
+@pytest.mark.parametrize("flags", [dict(use_flash=True),
+                                   dict(use_fused_norm=True),
+                                   dict(use_flash=True, use_fused_norm=True)])
+def test_train_loop_refuses_kernel_configs(flags):
+    """The RMSNorm and flash kernels have no backward, so a config that
+    routes the forward through them cannot be trained."""
+    cfg = TCFG.scaled(**flags)
+    with pytest.raises(ValueError, match="no backward"):
+        ttrainer.train_loop(cfg, TPROX, _tsched(), _tloader(),
+                            ttrainer.TrainerConfig(**_tc()),
+                            exec=TExecSpec(device="cpu"))
+
+
+def test_unported_paths_raise_by_roadmap_item():
+    with pytest.raises(NotImplementedError, match=r"item 5 \(d\)"):
+        ttrainer.train_loop(TCFG, TPROX, _tsched(), _tloader(),
+                            ttrainer.TrainerConfig(**_tc()),
+                            exec=TExecSpec(resident=True, sampling="device",
+                                           device="cpu"))
+    for kw in (dict(mesh=object()), dict(plan=object())):
+        with pytest.raises(NotImplementedError, match="item 14"):
+            ttrainer.train_loop(TCFG, TPROX, _tsched(), _tloader(),
+                                ttrainer.TrainerConfig(**_tc()),
+                                exec=TExecSpec(device="cpu"), **kw)
+    # the reference refuses shard= in train_loop (ValueError); the port's
+    # ExecSpec refuses it on construction, as multi-device work
+    for shard in ("cells", "nodes"):
+        with pytest.raises(NotImplementedError, match="item 14"):
+            TExecSpec(resident=True, shard=shard, device="cpu")
+
+
+def test_train_loop_needs_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttrainer.train_loop(TCFG, TPROX, _tsched(), _tloader(),
+                            ttrainer.TrainerConfig(**_tc()))
+
+
+def test_trainer_keep_last_and_final_checkpoint(tmp_path):
+    d = str(tmp_path / "keep")
+    run_torch(ckpt_dir=d, resident=True, num_steps=12, ckpt_every=3,
+              keep_last=2, algorithm="dspg")
+    names = sorted(n for n in os.listdir(d) if n.startswith("step_"))
+    assert names == ["step_00000009", "step_00000012"]
+    d = str(tmp_path / "final")
+    hist = run_torch(ckpt_dir=d, num_steps=5, ckpt_every=0,
+                     algorithm="dspg")
+    assert tckpt.latest_step(d) == 5
+    tree, step, md = tckpt.restore(d, {"state": hist["final_state"]})
+    assert step == md["step"] == 5 and md["loader"] is not None
+    assert md["algorithm"] == "dspg"
+    for (k, x), (_, y) in zip(tckpt.flatten_with_paths(tree["state"]),
+                              tckpt.flatten_with_paths(hist["final_state"])):
+        assert torch.equal(x, y), k

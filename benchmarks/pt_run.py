@@ -10,9 +10,10 @@ dataset sizes (default 0.02; 1.0 is the paper's size, for the card).
 ``--resident`` drives the figure sweeps through the resident runner,
 ``--sweep-batched`` runs each figure's grid (seeds, λ, connectivity) as ONE
 batched resident run, ``--kernel fused`` swaps the fused step's CUDA kernel
-into the resident runs.  Runs on the CUDA device unless given ``--device
-cpu``; without a card it raises.  ``beyond_noniid`` waits for the port of
-``scenarios/`` (ROADMAP Queue 1 item 9); the kernel bench is
+into the resident runs.  ``beyond`` runs the scenario matrix of
+``benchmarks/pt_beyond_noniid.py`` (its programs are batched sweeps in
+every mode).  Runs on the CUDA device unless given ``--device cpu``;
+without a card it raises.  The kernel bench is
 ``benchmarks/pt_kernel_bench.py``."""
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ def main(argv=None) -> None:
     ap.add_argument("--scale", type=float, default=0.02)
     ap.add_argument("--only", default="",
                     help="comma-separated subset: table1,fig1,fig2,fig3,"
-                         "fig4,fig5,baselines")
+                         "fig4,fig5,beyond,baselines")
     ap.add_argument("--resident", action="store_true",
                     help="drive the figure sweeps through the resident "
                          "runner (one staging step and one pull a run)")
@@ -40,9 +41,9 @@ def main(argv=None) -> None:
                     help="the resident step: plain, or the fused kernel")
     args = ap.parse_args(argv)
 
-    from . import (pt_baselines_compare, pt_common, pt_datasets_table,
-                   pt_fig1_convergence, pt_fig2_comm, pt_fig3_consensus,
-                   pt_fig4_lambda, pt_fig5_connectivity)
+    from . import (pt_baselines_compare, pt_beyond_noniid, pt_common,
+                   pt_datasets_table, pt_fig1_convergence, pt_fig2_comm,
+                   pt_fig3_consensus, pt_fig4_lambda, pt_fig5_connectivity)
     device = pt_common.require_device(args.device)
     suites = {
         "table1": pt_datasets_table.run,
@@ -51,6 +52,7 @@ def main(argv=None) -> None:
         "fig3": pt_fig3_consensus.run,
         "fig4": pt_fig4_lambda.run,
         "fig5": pt_fig5_connectivity.run,
+        "beyond": pt_beyond_noniid.run,
         "baselines": pt_baselines_compare.run,
     }
     only = {s for s in args.only.split(",") if s}

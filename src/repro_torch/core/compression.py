@@ -30,7 +30,19 @@ from . import gossip
 
 __all__ = ["CompressionState", "init_state", "quantize_leaf",
            "quantize_int_leaf", "compressed_mix", "CompressedPhi",
-           "mix_with_state"]
+           "mix_with_state", "register_mix_handler"]
+
+# Phi types beyond CompressedPhi with their own stateful mix:
+# {phi_type: handler(phi, tree, state) -> (mixed, new_state)}.  A registered
+# type is also marked stateful-only, so gossip.mix_stacked refuses it.
+_MIX_HANDLERS: dict = {}
+
+
+def register_mix_handler(phi_type: type, handler) -> None:
+    """Route ``mix_with_state`` calls on ``phi_type`` phis to ``handler``
+    (``handler(phi, tree, state) -> (mixed, new_state)``)."""
+    _MIX_HANDLERS[phi_type] = handler
+    gossip.mark_stateful(phi_type)
 
 
 class CompressionState(NamedTuple):
@@ -89,7 +101,6 @@ class CompressedPhi:
     leaves stage and slice as usual."""
 
     __slots__ = ("inner", "bits")
-    stateful = True     # gossip.mix_stacked refuses it: use mix_with_state
 
     def __init__(self, inner, bits: int = 8):
         self.inner = inner
@@ -103,6 +114,8 @@ pytree.register_pytree_node(
     CompressedPhi,
     lambda phi: ([phi.inner], phi.bits),
     lambda children, bits: CompressedPhi(list(children)[0], bits))
+# gossip.mix_stacked refuses it: its mix goes through mix_with_state
+gossip.mark_stateful(CompressedPhi)
 
 
 def mix_with_state(phi, tree, state: CompressionState | None):
@@ -110,7 +123,11 @@ def mix_with_state(phi, tree, state: CompressionState | None):
 
     Stateless phis pass straight through ``gossip.mix_stacked`` (the state
     is returned untouched and may be None); a :class:`CompressedPhi` routes
-    to :func:`compressed_mix` with its inner wire format."""
+    to :func:`compressed_mix` with its inner wire format.  Types added with
+    :func:`register_mix_handler` (the scenario pipeline) dispatch first."""
+    handler = _MIX_HANDLERS.get(type(phi))
+    if handler is not None:
+        return handler(phi, tree, state)
     if isinstance(phi, CompressedPhi):
         if state is None:
             raise ValueError(

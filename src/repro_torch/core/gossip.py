@@ -27,6 +27,7 @@ from torch.utils import _pytree as pytree
 from . import graphs
 
 __all__ = [
+    "mark_stateful",
     "mix_stacked",
     "multi_consensus_matrix",
     "band_decompose",
@@ -64,22 +65,38 @@ def as_mix_tensor(phi, like: torch.Tensor) -> torch.Tensor:
                            device=like.device)
 
 
+# Phi types whose mix needs a threaded transport state (error feedback,
+# delay buffers): the stateless mix_stacked refuses them.  The compression
+# and scenario modules register theirs with mark_stateful, so an algorithm
+# that mixes without a state (DSPG, DPG) fails loudly instead of dropping
+# the state's semantics.
+_STATEFUL_ONLY: tuple = ()
+
+
+def mark_stateful(phi_type: type) -> None:
+    """Register a phi type as stateful-only (see ``_STATEFUL_ONLY``)."""
+    global _STATEFUL_ONLY
+    if phi_type not in _STATEFUL_ONLY:
+        _STATEFUL_ONLY = _STATEFUL_ONLY + (phi_type,)
+
+
 def mix_stacked(phi, tree):
     """One consensus application: leaf <- phi @ leaf over the node axis.
 
     ``phi`` is a dense (m, m) matrix, numpy or tensor — typically the
     host-side multi-consensus product, so k-round gossip is one product — or
-    a :class:`BandedPhi`, dispatched to :func:`mix_stacked_banded`.  A phi
-    whose mix carries state (``stateful``, e.g. compressed gossip) raises:
-    it needs ``compression.mix_with_state``.
+    a :class:`BandedPhi`, dispatched to :func:`mix_stacked_banded`.  A
+    stateful-only phi (compressed gossip, the scenario pipeline) raises: it
+    needs ``compression.mix_with_state``.
     """
-    if getattr(phi, "stateful", False):
+    if _STATEFUL_ONLY and isinstance(phi, _STATEFUL_ONLY):
         raise TypeError(
-            f"{type(phi).__name__} mixing is stateful (error feedback) and "
-            f"cannot run through the stateless gossip.mix_stacked: the "
-            f"driven algorithm must route mixing through "
-            f"compression.mix_with_state and thread a mix state "
-            f"(Algorithm.init_mix_state)")
+            f"{type(phi).__name__} mixing is stateful (error feedback / "
+            f"delay buffers) and cannot run through the stateless "
+            f"gossip.mix_stacked: the driven algorithm must route mixing "
+            f"through compression.mix_with_state and thread a mix state "
+            f"(Algorithm.init_mix_state); dspg/dpg support stateless "
+            f"transports only")
     if isinstance(phi, BandedPhi):
         return mix_stacked_banded(phi.offsets, phi.coeffs, tree)
 

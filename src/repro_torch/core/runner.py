@@ -31,7 +31,8 @@ ExecSpec`:
 Coin-flip snapshot methods (``AlgoMeta.snapshot_prob``: loopless DPSVRG,
 DVR) draw their coin from the same ``np.random`` stream as the reference,
 after each step's minibatch indices, on both paths.  Stateful transports
-(``compressed``) get their mix state through ``Algorithm.init_mix_state``.
+(``compressed``, the scenario pipeline of ``repro_torch.scenarios``) get
+their mix state through ``Algorithm.init_mix_state``.
 
 ``RunResult.extras['transfers_h2d'/'transfers_d2h']`` counts the transfer
 events that either path starts itself, by the reference's rules, with one
@@ -457,13 +458,16 @@ def _plan_resident(cells: "list[_PlanCell]", *, m: int, n: int,
 
 def _stack_wire(phis):
     """Stack per-step wire representations (each a pytree: a dense array, a
-    ``BandedPhi``, a ``CompressedPhi``) leaf by leaf along a new leading
-    step axis.  Float leaves become float32; integer payloads keep their
-    dtype."""
+    ``BandedPhi``, a ``CompressedPhi``, a ``ScenarioPhi``) leaf by leaf
+    along a new leading step axis.  Float leaves become float32; integer
+    payloads keep their dtype; None leaves stay None."""
     flat = [pytree.tree_flatten(p) for p in phis]
     spec = flat[0][1]
     stacked = []
     for col in zip(*(leaves for leaves, _ in flat)):
+        if col[0] is None:             # an absent leaf (no straggler mask)
+            stacked.append(None)
+            continue
         out = np.stack([np.asarray(a) for a in col])
         if np.issubdtype(out.dtype, np.floating):
             out = out.astype(np.float32, copy=False)
@@ -548,11 +552,17 @@ def _piece_body(step_fn, data_dev, has_batch: bool):
         for j in range(length):
             b = pytree.tree_map(lambda a: a[j], batches) if has_batch \
                 else None
-            phi = pytree.tree_map(lambda a: a[j], phis)
+            phi = _step_slice(phis, j)
             state = step_fn(state, b, phi, alphas[j])
         return state
 
     return body
+
+
+def _step_slice(phis, j: int):
+    """Step ``j``'s wire representation of a piece's stacked phis (None
+    leaves stay None)."""
+    return pytree.tree_map(lambda a: None if a is None else a[j], phis)
 
 
 def _exec_chunk(state, chunk: _Chunk, xs, algo, data_dev, run_piece):
@@ -714,6 +724,13 @@ def _resolved_backend(gossip, schedule, meta):
     raises)."""
     backend = transport.resolve_backend(gossip, schedule, meta)
     if meta.compress_bits is not None:
+        if getattr(backend, "scenario_transport", False):
+            raise ValueError(
+                f"the algorithm quantizes its own gossip "
+                f"(meta.compress_bits={meta.compress_bits}) but the "
+                f"requested scenario transport owns the full wire stack; "
+                f"pass the quantization inside the scenario spec "
+                f"(compress_bits=...) instead")
         if isinstance(backend, transport.CompressedBackend):
             if backend.bits != meta.compress_bits:
                 raise ValueError(
@@ -810,8 +827,8 @@ def run(algo: algorithm_lib.Algorithm,
                  * meta.gossip_payloads)
         transfers["h2d"] += 1
         return pytree.tree_map(
-            lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
-                                      device=device), phi)
+            lambda a: None if a is None else torch.as_tensor(
+                np.asarray(a), dtype=torch.float32, device=device), phi)
 
     def next_batch():
         if meta.batch_size == 0:

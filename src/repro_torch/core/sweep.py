@@ -291,7 +291,7 @@ def _piece_body(build, kernel: str, data_dev, values: dict,
         for j in range(length):
             b = pytree.tree_map(lambda a: a[j], batches) if has_batch \
                 else None
-            phi = pytree.tree_map(lambda a: a[j], phis)
+            phi = runner_lib._step_slice(phis, j)
             state = step_fn(state, b, phi, alphas[j])
         return state
 
@@ -299,11 +299,15 @@ def _piece_body(build, kernel: str, data_dev, values: dict,
         idx, phis, alphas = xs
         batches = (runner_lib.gather_batches(data_dev, idx) if has_batch
                    else None)
+        # a None leaf of the phis (no straggler mask) is mapped over by no
+        # axis
+        phi_dims = (pytree.tree_map(lambda a: None if a is None else 1, phis)
+                    if phi_batched else None)
         return _over_cells(
             build, lambda a, p, s, b, ph, al: run_steps(a, p, s, b, ph, al,
                                                         length),
             state, values, (batches, phis, alphas),
-            (1 if has_batch else None, 1 if phi_batched else None, 1))
+            (1 if has_batch else None, phi_dims, 1))
 
     return body
 

@@ -117,11 +117,12 @@ def mix_matrix(phi):
     resident-step kernel consumes, or ``None`` when the wire format has no
     dense lowering (the caller then keeps the unfused step).  A
     ``BandedPhi`` lowers through ``gossip.banded_to_dense`` on its
-    coefficients' device; a ``CompressedPhi`` threads mix state and has
+    coefficients' device; a stateful-only phi (``gossip.mark_stateful``:
+    ``CompressedPhi``, the scenario pipeline) threads mix state and has
     none."""
     if isinstance(phi, gossip.BandedPhi):
         return gossip.banded_to_dense(phi.offsets, phi.coeffs)
-    if isinstance(phi, compression.CompressedPhi):
+    if gossip._STATEFUL_ONLY and isinstance(phi, gossip._STATEFUL_ONLY):
         return None
     return phi if getattr(phi, "ndim", None) == 2 else None
 
@@ -133,8 +134,14 @@ def batch_phis(phis: list) -> Any:
     included (one ``BandedPhi`` offset union): cells whose schedules
     decompose differently cannot share one batched program, and
     ``gossip="dense"``, whose (m, m) wire format has no static part, batches
-    any topologies.  Leaf dtypes are kept."""
-    specs = {str(pytree.tree_structure(p)) for p in phis}
+    any topologies.  A leaf that is None (a scenario phi's absent straggler
+    mask) must be None in every cell, and stays None.  Leaf dtypes are
+    kept."""
+    def spec(phi):
+        leaves, tree_spec = pytree.tree_flatten(phi)
+        return f"{tree_spec} absent={[a is None for a in leaves]}"
+
+    specs = {spec(p) for p in phis}
     if len(specs) > 1:
         raise ValueError(
             f"cannot batch gossip wire representations with different "
@@ -142,7 +149,8 @@ def batch_phis(phis: list) -> Any:
             f"whose schedules decompose into different band structures "
             f"need gossip='dense' to share one batched program")
     return pytree.tree_map(
-        lambda *leaves: np.stack([np.asarray(a) for a in leaves]), *phis)
+        lambda *leaves: None if leaves[0] is None
+        else np.stack([np.asarray(a) for a in leaves]), *phis)
 
 
 def _active_entries(offsets: tuple, coeffs, m: int) -> Iterator:

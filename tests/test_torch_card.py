@@ -5,9 +5,12 @@ logistic-regression path through fused_step (dense and banded gossip), its
 CUDA graph replays against the eager executor, fused_step over the cells of
 a sweep against single launches (bitwise) and batched sweeps against
 sequential ones, the kernel bench, a served model through RMSNorm and
-flash, the kernels' refusal of operands that require grad, and the
+flash, the kernels' refusal of operands that require grad, the
 decentralized LM trainer on the card (against the CPU, a bitwise resume,
-and the consensus of its checkpoint served through the kernels).  They skip, with
+and the consensus of its checkpoint served through the kernels), and the
+network-event scenarios (fused_step over per-step degraded mixing matrices,
+a degraded-schedule sweep through the kernel, stale sweeps' graphs against
+eager).  They skip, with
 the reason, where there is no card.  This file imports neither JAX nor the JAX package, so it also
 runs on a machine that has only PyTorch:
 
@@ -898,3 +901,138 @@ def test_consensus_of_a_card_run_serves_through_the_kernels(cuda_device,
         cfg.num_layers, 2 * cfg.num_layers + 1)
     lp, _ = transformer.prefill(cfg, params, toks, max_len=64)
     torch.testing.assert_close(lk, lp, **LOGIT_TOL)
+
+
+# ---------------------------------------------------------------------------
+# network-event scenarios: per-step degraded mixing matrices, stale sweeps
+# ---------------------------------------------------------------------------
+
+def _degraded_ws(cells: int, m: int, steps: int, device) -> list:
+    """Each step's (cells, m, m) stack of realized degraded matrices: link
+    failures and node churn over a b=1 ring, one scenario seed a cell."""
+    from repro_torch import scenarios
+    base = graphs.b_connected_ring_schedule(m, 1)
+    scheds = [scenarios.wrap_schedule(
+        base, [scenarios.LinkFailures(0.3), scenarios.NodeChurn(0.3,
+                                                                dwell=2)],
+        seed=c) for c in range(cells)]
+    return [torch.as_tensor(np.stack([s.matrix(t) for s in scheds]),
+                            dtype=torch.float32, device=device)
+            for t in range(steps)]
+
+
+@pytest.mark.parametrize("d", [30, 1024])
+@pytest.mark.parametrize("rule", ref.FUSED_RULES)
+def test_cells_kernel_takes_per_step_degraded_mixing_matrices(cuda_device,
+                                                              rule, d):
+    """Per-step, per-cell doubly stochastic W with dropped links and
+    isolated nodes (rows e_i): the cell-batched launch against its plain
+    version and bitwise against single launches, at every step."""
+    cells, m = 8, 8
+    rng = np.random.default_rng(d)
+    n_streams = 4 if rule == "svrg" else 2
+    isolated = 0
+    for w in _degraded_ws(cells, m, 12, cuda_device):
+        streams = [torch.as_tensor(rng.normal(size=(cells, m, d)),
+                                   dtype=torch.float32, device=cuda_device)
+                   for _ in range(n_streams)]
+        got = ops.fused_step_cells_buf(w, streams, 0.05, 0.01, rule=rule,
+                                       prox_kind="l1")
+        plain = ref.fused_step_cells_math(w, streams, 0.05, 0.01, rule=rule,
+                                          prox_kind="l1")
+        torch.testing.assert_close(got, plain, rtol=CARD_RTOL,
+                                   atol=CARD_ATOL)
+        for c in range(cells):
+            assert torch.equal(got[c], ops.fused_step_buf(
+                w[c], [s[c] for s in streams], 0.05, 0.01, rule=rule,
+                prox_kind="l1"))
+        for c, i in torch.nonzero(torch.diagonal(w, dim1=1, dim2=2) == 1.0
+                                  ).tolist():
+            # an isolated node mixes with itself only
+            alone = ref.fused_step_cells_math(
+                torch.eye(m, device=cuda_device), [s[c:c + 1]
+                                                   for s in streams],
+                0.05, 0.01, rule=rule, prox_kind="l1")[0, i]
+            torch.testing.assert_close(got[c, i], alone, rtol=CARD_RTOL,
+                                       atol=CARD_ATOL)
+            isolated += 1
+    assert isolated > 0
+
+
+def _scenario_sweep(device, models, name, kernel):
+    from repro_torch import scenarios
+    from repro_torch.core import sweep
+    ds = synthetic.make_paper_dataset("adult_like", scale=0.05)
+    data = params_from_numpy(synthetic.partition_per_node(ds, 8), device)
+    problem = algorithm.Problem(_loss, prox.l1(0.01),
+                                torch.zeros(8, ds.dim, device=device), data)
+    base = graphs.b_connected_ring_schedule(8, 1)
+    scheds, backend = [], None
+    for seed in (0, 1, 2):
+        sched, backend = scenarios.apply(base, models, seed=seed)
+        scheds.append(sched)
+
+    def build():
+        if name == "gt_svrg":
+            return algorithm.gt_svrg_algorithm(problem, 0.1, 4, 10), problem
+        return algorithm.loopless_dpsvrg_algorithm(
+            problem, 0.2, 40, snapshot_prob=0.1), problem
+
+    before = ops.launches_cells
+    res = sweep.run_sweep(build, {"schedule": scheds, "seed": [0, 1]},
+                          ExecSpec(resident=True, kernel=kernel,
+                                   gossip=backend, device=device),
+                          record_every=10)
+    return res, ops.launches_cells - before
+
+
+def _scenario_sweeps_agree(want, got) -> None:
+    for field in ("steps", "epochs", "comm_rounds"):
+        np.testing.assert_array_equal(getattr(got.history, field),
+                                      getattr(want.history, field))
+    np.testing.assert_array_equal(got.extras["wire_bytes"],
+                                  want.extras["wire_bytes"])
+    np.testing.assert_allclose(got.history.objective, want.history.objective,
+                               rtol=HISTORY_RTOL, atol=HISTORY_ATOL)
+
+
+def test_degraded_schedule_sweep_launches_fused_step_once_a_step(
+        cuda_device):
+    """Link failures and churn leave the wire stateless: a batched sweep
+    over three degraded schedules launches the cell-batched fused_step once
+    a step for all cells, and its histories are the plain step's and the
+    CPU's."""
+    from repro_torch import scenarios
+    models = [scenarios.LinkFailures(0.3), scenarios.NodeChurn(0.2, dwell=5)]
+    fused, launches = _scenario_sweep("cuda", models, "loopless", "fused")
+    plain, plain_launches = _scenario_sweep("cuda", models, "loopless",
+                                            "plain")
+    cpu, _ = _scenario_sweep("cpu", models, "loopless", "fused")
+    assert launches == int(fused.history.steps[-1, 0]) and \
+        plain_launches == 0
+    assert (fused.extras["transfers_h2d"],
+            fused.extras["transfers_d2h"]) == (1, 1)
+    for other in (plain, cpu):
+        _scenario_sweeps_agree(other, fused)
+
+
+@pytest.mark.parametrize("name", ["loopless_dpsvrg", "gt_svrg"])
+def test_stale_sweep_graphs_match_eager_on_card(cuda_device, monkeypatch,
+                                                name):
+    """Stale gossip and stragglers (over link failures, so that every cell
+    draws its own masks) thread a delay FIFO and the last sent iterate
+    through every cell's state: the CUDA graphs' static state buffers take
+    each step's shifted FIFO, so the graph replays equal the eager
+    executor, and both equal the CPU."""
+    from repro_torch import scenarios
+    models = [scenarios.StaleGossip(3), scenarios.Stragglers(2.0),
+              scenarios.LinkFailures(0.2)]
+    graph, launches = _scenario_sweep("cuda", models, name, "fused")
+    assert launches == 0                 # a threaded mix state: plain step
+    assert graph.extras["replays"] > 0
+    monkeypatch.setattr(runner, "CUDA_GRAPHS", False)
+    eager, _ = _scenario_sweep("cuda", models, name, "fused")
+    assert eager.extras["replays"] == 0
+    cpu, _ = _scenario_sweep("cpu", models, name, "fused")
+    for other in (eager, cpu):
+        _scenario_sweeps_agree(other, graph)

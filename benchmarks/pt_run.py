@@ -12,9 +12,11 @@ dataset sizes (default 0.02; 1.0 is the paper's size, for the card).
 batched resident run, ``--kernel fused`` swaps the fused step's CUDA kernel
 into the resident runs.  ``beyond`` runs the scenario matrix of
 ``benchmarks/pt_beyond_noniid.py`` (its programs are batched sweeps in
-every mode).  Runs on the CUDA device unless given ``--device cpu``;
-without a card it raises.  The kernel bench is
-``benchmarks/pt_kernel_bench.py``."""
+every mode).  ``runner`` runs the runner bench of
+``benchmarks/pt_runner_bench.py`` (host loop, scan, resident with host and
+device sampling, the transports, the LM trainer).  Runs on the CUDA device
+unless given ``--device cpu``; without a card it raises.  The kernel bench
+is ``benchmarks/pt_kernel_bench.py``."""
 
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ def main(argv=None) -> None:
     ap.add_argument("--scale", type=float, default=0.02)
     ap.add_argument("--only", default="",
                     help="comma-separated subset: table1,fig1,fig2,fig3,"
-                         "fig4,fig5,beyond,baselines")
+                         "fig4,fig5,beyond,baselines,runner")
     ap.add_argument("--resident", action="store_true",
                     help="drive the figure sweeps through the resident "
                          "runner (one staging step and one pull a run)")
@@ -43,7 +45,8 @@ def main(argv=None) -> None:
 
     from . import (pt_baselines_compare, pt_beyond_noniid, pt_common,
                    pt_datasets_table, pt_fig1_convergence, pt_fig2_comm,
-                   pt_fig3_consensus, pt_fig4_lambda, pt_fig5_connectivity)
+                   pt_fig3_consensus, pt_fig4_lambda, pt_fig5_connectivity,
+                   pt_runner_bench)
     device = pt_common.require_device(args.device)
     suites = {
         "table1": pt_datasets_table.run,
@@ -54,6 +57,7 @@ def main(argv=None) -> None:
         "fig5": pt_fig5_connectivity.run,
         "beyond": pt_beyond_noniid.run,
         "baselines": pt_baselines_compare.run,
+        "runner": pt_runner_bench.run,
     }
     only = {s for s in args.only.split(",") if s}
     unknown = only - set(suites)

@@ -155,17 +155,47 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     every iterate, each int8 program's iterates outside that tolerance of
     its f32 twin's; ms a cell-step batched and sequential and the
     frontier's first four entries (``scenarios`` line);
-18. prints the card, a ``{"kernels": [...]}`` line (all seven kernels,
+19. runs the execution modes (``exec_modes`` line).
+    ``device_sampling``: phase 6's main path (DPSVRG then DSPG,
+    ``kernel="fused"``, CUDA graphs) with ``sampling="device"``: the
+    minibatch indices drawn on the card from the counter-based stream
+    (``core/device_sampling.py``).  fused_step's count is set to 0 before
+    and read after: one launch a step; at most ceil(log2(longest chunk)) +
+    1 graphs, bit for bit the eager executor's; the card held to the CPU
+    (rtol 1e-4 / atol 1e-6; the stream is the same there); the final
+    objective within a third of the host-sampled run's descent of it; the
+    ledger (1, 1); ms a step beside host sampling, timed in turns in this
+    process, and both runs' traced idle shares.  ``scan_path``: DSPG, 600
+    steps, a record every 50, through ``scan=True`` against the host loop
+    on the card (rtol 1e-4 / atol 1e-6), its ledger (12 uploads, 26 pulls)
+    and graphs.  ``sweep_device_sampling``: Fig. 4's lambda grid batched
+    with device sampling through the cell-batched fused_step (one launch a
+    step for all cells), each cell equal to its sequential device-sampled
+    run at phase 15's tolerances.  ``train_sweep``: h2o-danube-1.8b at
+    full width cut to 2 layers, m = 4 nodes of the b=2 ring, DPSVRG, a
+    (lambda, alpha) grid of two cells for 10 steps (refreshes at steps 0
+    and 5) through ``trainer.train_sweep``, each cell's losses held to a
+    sequential resident train_loop of that cell (rtol 1e-4 / atol 1e-5),
+    the ledger (1, 1), ms a cell-step batched and sequential, the peak
+    memory, and one traced sweep and train_loop (busy time, top kernels).
+    ``train_device_sampling``: the same size, one cell, with
+    ``sampling="device"``, 10 steps, and a run stopped at step 5 with its
+    checkpoint (under ``build/phase19``, removed after) resumed to step
+    10 bitwise the uninterrupted run;
+20. prints the card, a ``{"kernels": [...]}`` line (all seven kernels,
     each with its ``share_of_bound``; RMSNorm and flash also with
     ``launches_consensus_serve``, phase 16's count; fused_step_cells with
     ``launches_scenarios``, phase 17's cell-batched count, and fused_step
-    with the single launches of phase 17's sequential runs),
-    and last ``{"ok": true, "device": {...}}``.
+    with the single launches of phase 17's sequential runs; fused_step and
+    fused_step_cells with ``launches_exec_modes``, phase 19's counts),
+    and last ``{"ok": true, "device": {...}}``.  (Until phase 19 came,
+    these final lines were phase 18.)
 
 Needs one card; exits non-zero without one, and without the repository
 around it.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -186,8 +216,9 @@ from torch.utils import _pytree as pytree  # noqa: E402
 from repro_torch import checkpoint, configs, scenarios  # noqa: E402
 from repro_torch.configs import paper_logreg  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
-from repro_torch.core import (algorithm, gossip, graphs, prox,  # noqa: E402
-                              runner, sweep, transport)
+from repro_torch.core import (algorithm, device_sampling,  # noqa: E402
+                              gossip, graphs, prox, runner, sweep,
+                              transport)
 from repro_torch.core.exec_spec import ExecSpec  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.data.loader import LMLoader  # noqa: E402
@@ -552,9 +583,10 @@ def check_graphs(name: str, extras: dict, bound: int) -> None:
              f"{bound} allowed")
 
 
-def main_path_runs(device, parts, dim, kernel_mode):
-    """DPSVRG then DSPG with the same step count, resident, on ``device``.
-    Returns [(name, result, steps, launches, seconds, most graphs)]."""
+def main_path_runs(device, parts, dim, kernel_mode, sampling="host"):
+    """DPSVRG then DSPG with the same step count, resident, on ``device``,
+    minibatches drawn by ``sampling``.  Returns [(name, result, steps,
+    launches, seconds, most graphs)]."""
     cfg = paper_logreg.CONFIG
     m = cfg.num_nodes
     data = params_from_numpy(parts, device)
@@ -562,7 +594,7 @@ def main_path_runs(device, parts, dim, kernel_mode):
     problem = algorithm.Problem(logreg_loss, prox.l1(cfg.lam), x0, data)
     sched = graphs.b_connected_ring_schedule(m, 1)
     spec = ExecSpec(resident=True, kernel=kernel_mode, gossip="dense",
-                    device=device)
+                    sampling=sampling, device=device)
     dp = algorithm.dpsvrg_algorithm(problem, algorithm.DPSVRGHyperParams(
         alpha=cfg.alpha, beta=cfg.beta, n0=cfg.n0, num_outer=30))
     steps = sum(dp.meta.outer_lengths)
@@ -593,11 +625,12 @@ def check_history(name, res) -> None:
              f"({h.objective[0]} -> {h.objective[-1]})")
 
 
-def profile_main_path(parts, dim: int) -> dict:
+def profile_main_path(parts, dim: int, sampling="host") -> dict:
     """Where the card's time goes on the main path: a resident DPSVRG run at
-    full width (10 outer rounds) traced by ``torch.profiler`` after a warm
-    run.  The device's busy time is the union of its kernels' intervals;
-    the idle share is the rest of the traced run's wall time."""
+    full width (10 outer rounds, minibatches drawn by ``sampling``) traced
+    by ``torch.profiler`` after a warm run.  The device's busy time is the
+    union of its kernels' intervals; the idle share is the rest of the
+    traced run's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = paper_logreg.CONFIG
@@ -608,7 +641,8 @@ def profile_main_path(parts, dim: int) -> dict:
     algo = algorithm.dpsvrg_algorithm(problem, algorithm.DPSVRGHyperParams(
         alpha=cfg.alpha, beta=cfg.beta, n0=cfg.n0, num_outer=10))
     sched = graphs.b_connected_ring_schedule(m, 1)
-    spec = ExecSpec(resident=True, kernel="fused", gossip="dense")
+    spec = ExecSpec(resident=True, kernel="fused", gossip="dense",
+                    sampling=sampling)
     runner.run(algo, problem, sched, spec, record_every=0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2623,6 +2657,476 @@ def scenario_phase(device="cuda", scale: float = SCEN_SCALE) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the execution modes: device sampling on the main path, the scan
+# path, device-sampled sweeps, train_sweep and device-sampled training
+# ---------------------------------------------------------------------------
+
+EXEC_SCAN_STEPS = 600
+EXEC_SCAN_RECORD = 50
+# train_sweep at full width: h2o-danube-1.8b cut from 24 to 2 layers (221 M
+# parameters a node) so that two cells' state (params, snapshot and full
+# gradient of 4 nodes, 10.6 GB a cell) and the step of both cells under
+# the cell vmap fit the card; each cell its own lambda and alpha
+SWEEP_TRAIN_LAYERS = 2
+SWEEP_TRAIN_GRID = {"lam": [1e-6, 1e-5], "alpha": [0.02, 0.01]}
+SWEEP_TRAIN_MODE = "zip"
+# 10 steps, snapshot refreshes at steps 0 and 5, a record every step; the
+# device-sampled run is resumed from a checkpoint at step 5
+SWEEP_TRAIN_TC = dict(num_steps=10, snapshot_every=5, snapshot_batch_mult=4,
+                      alpha=0.02, consensus_rounds=2, log_every=1, seed=0)
+DEVICE_TRAIN_CKPT_STEP = 5
+
+
+def _sync(device) -> None:
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+
+def _peak_reset(device) -> None:
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(device) -> int:
+    return torch.cuda.max_memory_allocated() if device != "cpu" else 0
+
+
+def _max_abs(a, b) -> float:
+    return float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
+
+
+def _device_sampled_main_path(parts, dim, device) -> tuple:
+    """(a) DPSVRG then DSPG on the main path with device sampling, through
+    the kernel and CUDA graphs: fused_step once a step (counts set to 0
+    before, read after), graphs bit for bit the eager executor's, the card
+    held to the CPU, the run in the host-sampled run's envelope, the ledger
+    (1, 1); ms a step beside host sampling, timed in turns in this process
+    after those runs (host, device, device, host), and both runs' traced
+    idle shares."""
+    card = device != "cpu"
+    # the stream itself: the card draws the CPU's indices, exactly (at the
+    # main path's l1 weight the objective hardly depends on the draws)
+    n = next(iter(parts.values())).shape[1]
+    steps_t = torch.arange(1, 2000, dtype=torch.int64)
+    for key in (0, 12345, 2**31 - 2):
+        want = device_sampling.IndexStream(
+            key, m=paper_logreg.CONFIG.num_nodes, bsz=1, n=n,
+            device="cpu")(steps_t)
+        got = device_sampling.IndexStream(
+            key, m=paper_logreg.CONFIG.num_nodes, bsz=1, n=n,
+            device=device)(steps_t.to(device))
+        if not torch.equal(got.cpu(), want):
+            fail(f"device sampling: the {device} stream's indices differ "
+                 f"from the CPU's for key {key}")
+    ops.launches = 0
+    dev = main_path_runs(device, parts, dim, "fused", sampling="device")
+    launches = ops.launches
+    cpu = main_path_runs("cpu", parts, dim, "fused", sampling="device")
+    runner.CUDA_GRAPHS = False
+    eager = main_path_runs(device, parts, dim, "fused", sampling="device")
+    runner.CUDA_GRAPHS = True
+    host1 = main_path_runs(device, parts, dim, "fused")
+    dev1 = main_path_runs(device, parts, dim, "fused", sampling="device")
+    dev2 = main_path_runs(device, parts, dim, "fused", sampling="device")
+    host2 = main_path_runs(device, parts, dim, "fused")
+    rows = {}
+    for i, (name, res, steps, n, secs, most) in enumerate(dev):
+        cres, eres = cpu[i][1], eager[i][1]
+        hres = host1[i][1]
+        if card and (n != steps or eager[i][3] != steps):
+            fail(f"device sampling {name}: {n} fused_step launches (eager "
+                 f"{eager[i][3]}) for {steps} steps")
+        check_history(f"device sampling {name}", res)
+        if card:
+            check_graphs(f"device sampling {name}", res.extras, most)
+        ledger = (res.extras["transfers_h2d"], res.extras["transfers_d2h"])
+        if ledger != (1, 1):
+            fail(f"device sampling {name}: transfer ledger {ledger}")
+        graph_vs_eager = max(
+            _max_abs(res.history.objective, eres.history.objective),
+            _max_abs(res.history.consensus, eres.history.consensus),
+            _max_abs(res.params.cpu(), eres.params.cpu()))
+        if graph_vs_eager != 0.0:
+            fail(f"device sampling {name}: CUDA graphs differ from the "
+                 f"eager executor by {graph_vs_eager}")
+        for col in ("objective", "consensus"):
+            np.testing.assert_allclose(
+                getattr(res.history, col), getattr(cres.history, col),
+                rtol=HISTORY_RTOL, atol=HISTORY_ATOL,
+                err_msg=f"device sampling {name} {col}: card vs CPU")
+        obj, hobj = res.history.objective, hres.history.objective
+        descent = hobj[0] - hobj[-1]
+        if not (descent > 0 and abs(obj[-1] - hobj[-1]) < descent / 3):
+            fail(f"device sampling {name}: final objective {obj[-1]} out "
+                 f"of the host-sampled run's envelope ({hobj[0]} -> "
+                 f"{hobj[-1]})")
+        dev_s = (dev1[i][4] + dev2[i][4]) / 2
+        host_s = (host1[i][4] + host2[i][4]) / 2
+        rows[name] = {
+            "steps": steps, "launches": n,
+            "objective_first": float(obj[0]),
+            "objective_last": float(obj[-1]),
+            "host_sampled_objective_last": float(hobj[-1]),
+            "max_abs_objective_vs_cpu": _max_abs(obj, cres.history.objective),
+            "max_abs_params_vs_cpu": _max_abs(res.params.cpu(),
+                                              cres.params.cpu()),
+            "max_abs_graph_vs_eager": graph_vs_eager,
+            "ms_per_step": dev_s / steps * 1e3,
+            "host_sampled_ms_per_step": host_s / steps * 1e3,
+            "device_vs_host_sampling": dev_s / host_s,
+            "graphs_built": res.extras["graphs_built"], "max_graphs": most,
+            "replays": res.extras["replays"],
+            "transfers": list(ledger)}
+        print(f"device_sampling {name}: {rows[name]['ms_per_step']:.4f} ms "
+              f"a step (host sampling "
+              f"{rows[name]['host_sampled_ms_per_step']:.4f}), objective "
+              f"{obj[-1]:.7f} (host sampling {hobj[-1]:.7f})", flush=True)
+    if card:
+        rows["profile_device_sampling"] = profile_main_path(parts, dim,
+                                                            "device")
+        rows["profile_host_sampling"] = profile_main_path(parts, dim)
+    return rows, launches
+
+
+def _scan_path(parts, dim, device) -> dict:
+    """(b) DSPG through scan=True against the host loop on ``device``."""
+    cfg = paper_logreg.CONFIG
+    problem = _scenario_problem(parts, dim, device)
+    sched = graphs.b_connected_ring_schedule(cfg.num_nodes, 1)
+
+    def make():
+        return algorithm.dspg_algorithm(
+            problem, algorithm.DSPGHyperParams(alpha0=cfg.alpha),
+            EXEC_SCAN_STEPS)
+
+    out = {}
+    for name, spec in (("scan", ExecSpec(scan=True, gossip="dense",
+                                         device=device)),
+                       ("host", ExecSpec(gossip="dense", device=device))):
+        algo = make()
+        before = runner.scan_executable_count(algo)
+        # a warm run, then the best of three (of one for the host loop,
+        # whose 600 per-step uploads take seconds)
+        runs = 4 if name == "scan" else 2
+        secs = []
+        for _ in range(runs):
+            _sync(device)
+            t0 = time.perf_counter()
+            res = runner.run(algo, problem, sched, spec,
+                             record_every=EXEC_SCAN_RECORD)
+            _sync(device)
+            secs.append(time.perf_counter() - t0)
+        out[name] = (res, min(secs[1:]),
+                     (runner.scan_executable_count(algo) - before) // runs)
+    (scan, scan_s, pieces), (host, host_s, _) = out["scan"], out["host"]
+    check_history("scan_path", scan)
+    for col in ("objective", "consensus"):
+        np.testing.assert_allclose(
+            getattr(scan.history, col), getattr(host.history, col),
+            rtol=HISTORY_RTOL, atol=HISTORY_ATOL,
+            err_msg=f"scan_path {col}: scan vs host loop on the card")
+    np.testing.assert_array_equal(scan.history.steps, host.history.steps)
+    records = EXEC_SCAN_STEPS // EXEC_SCAN_RECORD + 1
+    ledger = (scan.extras["transfers_h2d"], scan.extras["transfers_d2h"])
+    if ledger != (records - 1, 2 * records):
+        fail(f"scan_path: transfer ledger {ledger}, want "
+             f"{(records - 1, 2 * records)}")
+    most = max_graphs(make().meta, EXEC_SCAN_RECORD)
+    if device != "cpu":
+        check_graphs("scan_path", scan.extras, most)
+        if pieces != scan.extras["graphs_built"]:
+            fail(f"scan_path: scan_executable_count {pieces}, graphs "
+                 f"{scan.extras['graphs_built']}")
+    row = {"steps": EXEC_SCAN_STEPS, "record_every": EXEC_SCAN_RECORD,
+           "ms_per_step": scan_s / EXEC_SCAN_STEPS * 1e3,
+           "host_loop_ms_per_step": host_s / EXEC_SCAN_STEPS * 1e3,
+           "max_abs_objective_vs_host_loop": _max_abs(
+               scan.history.objective, host.history.objective),
+           "transfers": list(ledger),
+           "host_loop_transfers": [host.extras["transfers_h2d"],
+                                   host.extras["transfers_d2h"]],
+           "graphs_built": scan.extras["graphs_built"], "max_graphs": most,
+           "scan_executable_count": pieces,
+           "replays": scan.extras["replays"]}
+    print("scan_path " + json.dumps(row), flush=True)
+    return row
+
+
+def _device_sampled_sweeps(device, scale: float) -> tuple:
+    """(c) Fig. 4's lambda grid batched with device sampling through the
+    cell-batched fused_step (counts set to 0 before, read after: one launch
+    a step for all cells), each cell held to its sequential device-sampled
+    run at phase 15's tolerances."""
+    from benchmarks import pt_fig4_lambda
+    rows, launches = {}, 0
+    for method, sw in pt_fig4_lambda.sweeps(scale, device).items():
+        name = f"fig4/{method}"
+        spec = ExecSpec(resident=True, sampling="device", kernel="fused",
+                        gossip="dense", device=device)
+        kw = dict(record_every=sw.record_every)
+        _reset_launches()
+        _sync(device)
+        t0 = time.perf_counter()
+        bat = sweep.run_sweep(sw.build, sw.grid, sw.sched, spec, **kw)
+        _sync(device)
+        bat_s = time.perf_counter() - t0
+        n = ops.launches_cells
+        launches += n
+        cells = bat.history.objective.shape[1]
+        steps = int(bat.history.steps[-1, 0])
+        meta = sw.build()[0].meta
+        if device != "cpu":
+            if n != steps:
+                fail(f"{name} device sampling: {n} cell-batched fused_step "
+                     f"launches for {steps} steps of {cells} cells")
+            check_graphs(name, bat.extras, max_graphs(meta, sw.record_every))
+        ledger = (bat.extras["transfers_h2d"], bat.extras["transfers_d2h"])
+        if ledger != (1, 1):
+            fail(f"{name} device sampling: transfer ledger {ledger}")
+        _sync(device)
+        t0 = time.perf_counter()
+        seq = sweep.run_sweep(sw.build, sw.grid, sw.sched, spec,
+                              batched=False, **kw)
+        _sync(device)
+        seq_s = time.perf_counter() - t0
+        diff = _sweeps_agree(f"{name} device sampling", seq, bat)
+        rows[name] = {"cells": cells, "steps": steps, "launches": n,
+                      "batched_ms_per_cell_step": bat_s / cells / steps
+                      * 1e3,
+                      "sequential_ms_per_cell_step": seq_s / cells / steps
+                      * 1e3,
+                      "max_abs_objective_batched_vs_sequential": diff,
+                      "graphs_built": bat.extras["graphs_built"],
+                      "objective_last": bat.history.objective[-1].tolist()}
+        print(f"sweep_device_sampling {name}: {json.dumps(rows[name])}",
+              flush=True)
+    return rows, launches
+
+
+def _sweep_train_setup(cfg, device):
+    tokens = synthetic.make_token_stream(TRAIN_TOKENS, cfg.vocab_size,
+                                         seed=0).tokens
+    sched = graphs.b_connected_ring_schedule(TRAIN_NODES, b=2, seed=0)
+
+    def loader():
+        return LMLoader(tokens, num_nodes=TRAIN_NODES,
+                        per_node_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=0)
+
+    return sched, loader
+
+
+def _alloc_retries(device) -> int:
+    """The caching allocator's cudaMalloc retries so far (each one frees
+    the cache and synchronizes the card)."""
+    if device == "cpu":
+        return 0
+    return torch.cuda.memory_stats().get("num_alloc_retries", 0)
+
+
+def _traced_lm_steps(cfg, device, sched, loader) -> dict:
+    """Where the card's time goes in train_sweep's cell-vmapped step and in
+    train_loop's step: each traced over 3 steps (a refresh at the first;
+    both already ran in this process), the union of the kernels' intervals
+    against the wall time, and the kernels that take the most."""
+    from torch.profiler import ProfilerActivity, profile
+    tc = trainer.TrainerConfig(algorithm="dpsvrg", **dict(
+        SWEEP_TRAIN_TC, num_steps=3))
+    runs = {
+        "train_sweep": lambda: trainer.train_sweep(
+            cfg, prox.l1, sched, loader(), tc, SWEEP_TRAIN_GRID,
+            ExecSpec(resident=True, device=device), mode=SWEEP_TRAIN_MODE),
+        "train_loop": lambda: trainer.train_loop(
+            cfg, prox.l1(SWEEP_TRAIN_GRID["lam"][0]), sched, loader(), tc,
+            exec=ExecSpec(resident=True, device=device))}
+    out = {}
+    for name, fn in runs.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        out[name] = device_busy(prof, wall_us)
+        del prof
+        _free_card()
+    return out
+
+
+def _train_sweep(cfg, device) -> dict:
+    """(d) train_sweep of a lambda x alpha grid (two cells) at full width,
+    each cell's losses held to a sequential resident train_loop of that
+    cell; ms a cell-step batched and sequential, the peak memory, the
+    allocator's retries, and (on the card) traced steps of both."""
+    sched, loader = _sweep_train_setup(cfg, device)
+    tc = trainer.TrainerConfig(algorithm="dpsvrg", **SWEEP_TRAIN_TC)
+    _free_card()
+    _peak_reset(device)
+    retries = _alloc_retries(device)
+    t0 = time.perf_counter()
+    res = trainer.train_sweep(cfg, prox.l1, sched, loader(), tc,
+                              SWEEP_TRAIN_GRID,
+                              ExecSpec(resident=True, device=device),
+                              mode=SWEEP_TRAIN_MODE)
+    _sync(device)
+    bat_s = time.perf_counter() - t0
+    peak = _peak(device)
+    retries = _alloc_retries(device) - retries
+    grid, loss = res["grid"], np.asarray(res["loss"])
+    steps = SWEEP_TRAIN_TC["num_steps"]
+    if res["transfers"] != {"h2d": 1, "d2h": 1}:
+        fail(f"train_sweep: transfers {res['transfers']}")
+    if len(grid) < 2 or not np.all(np.isfinite(loss)):
+        fail(f"train_sweep: {len(grid)} cells, losses {loss.tolist()}")
+    del res
+    _free_card()
+    seq_s, seq_peak, diff = 0.0, 0, 0.0
+    seq_retries = _alloc_retries(device)
+    for i, cell in enumerate(grid):
+        tci = trainer.TrainerConfig(algorithm="dpsvrg", **dict(
+            SWEEP_TRAIN_TC, alpha=cell["alpha"]))
+        _peak_reset(device)
+        t0 = time.perf_counter()
+        hist = trainer.train_loop(cfg, prox.l1(cell["lam"]), sched, loader(),
+                                  tci, exec=ExecSpec(resident=True,
+                                                     device=device))
+        _sync(device)
+        seq_s += time.perf_counter() - t0
+        seq_peak = max(seq_peak, _peak(device))
+        np.testing.assert_allclose(
+            loss[:, i], hist["loss"], **TRAIN_LOSS_TOL,
+            err_msg=f"train_sweep cell {cell} vs sequential train_loop")
+        diff = max(diff, _max_abs(loss[:, i], hist["loss"]))
+        del hist
+        _free_card()
+    seq_retries = _alloc_retries(device) - seq_retries
+    row = {"layers": cfg.num_layers, "cells": len(grid), "grid": grid,
+           "mode": SWEEP_TRAIN_MODE, "steps": steps,
+           "per_node_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+           "batched_ms_per_cell_step": bat_s / steps / len(grid) * 1e3,
+           "sequential_ms_per_cell_step": seq_s / steps / len(grid) * 1e3,
+           "max_memory_allocated_bytes": peak,
+           "sequential_max_memory_allocated_bytes": seq_peak,
+           "alloc_retries": retries, "sequential_alloc_retries": seq_retries,
+           "max_abs_loss_vs_sequential": diff,
+           "loss_first": loss[0].tolist(), "loss_last": loss[-1].tolist(),
+           "transfers": {"h2d": 1, "d2h": 1}}
+    if device != "cpu":
+        row["profile"] = _traced_lm_steps(cfg, device, sched, loader)
+    print("train_sweep " + json.dumps(row), flush=True)
+    return row
+
+
+def _train_device_sampling(cfg, device, work) -> dict:
+    """(e) train_loop(resident, sampling="device") at the same size, one
+    cell: 10 steps uninterrupted, and a run stopped at step 5 with its
+    checkpoint (the same TrainerConfig but for ``num_steps``, which a
+    constant step size does not read; one 10.6 GB save instead of the two
+    of a 10-step run that checkpoints every 5 steps) resumed to step 10:
+    bitwise the uninterrupted run, records and every state leaf."""
+    sched, loader = _sweep_train_setup(cfg, device)
+    lam = SWEEP_TRAIN_GRID["lam"][0]
+    ckpt_dir = os.path.join(work, "device_sampling")
+    spec = ExecSpec(resident=True, sampling="device", device=device)
+    _peak_reset(device)
+    t0 = time.perf_counter()
+    full = trainer.train_loop(
+        cfg, prox.l1(lam), sched, loader(),
+        trainer.TrainerConfig(algorithm="dpsvrg", **SWEEP_TRAIN_TC),
+        exec=spec)
+    _sync(device)
+    full_s = time.perf_counter() - t0
+    peak = _peak(device)
+    if not np.all(np.isfinite(full["loss"])):
+        fail(f"train device sampling: losses {full['loss']}")
+    records = dict(zip(full["step"], full["loss"]))
+    state = [(k, v.cpu()) for k, v in
+             checkpoint.flatten_with_paths(full["final_state"])]
+    full_loss, transfers = full["loss"], full["transfers"]
+    del full
+    _free_card()
+    tc = trainer.TrainerConfig(algorithm="dpsvrg", ckpt_dir=ckpt_dir,
+                               **SWEEP_TRAIN_TC)
+    t0 = time.perf_counter()
+    stopped = trainer.train_loop(
+        cfg, prox.l1(lam), sched, loader(),
+        dataclasses.replace(tc, num_steps=DEVICE_TRAIN_CKPT_STEP), exec=spec)
+    stopped_s = time.perf_counter() - t0
+    if checkpoint.latest_step(ckpt_dir) != DEVICE_TRAIN_CKPT_STEP or \
+            stopped["loss"] != full_loss[:DEVICE_TRAIN_CKPT_STEP]:
+        fail(f"train device sampling: the stopped run's records "
+             f"{stopped['loss']} differ from the uninterrupted run's")
+    del stopped
+    _free_card()
+    t0 = time.perf_counter()
+    resumed = trainer.train_loop(cfg, prox.l1(lam), sched, loader(), tc,
+                                 exec=spec, resume=True)
+    _sync(device)
+    resumed_s = time.perf_counter() - t0
+    want = list(range(DEVICE_TRAIN_CKPT_STEP, SWEEP_TRAIN_TC["num_steps"]))
+    if resumed["step"] != want or \
+            [records[s] for s in want] != resumed["loss"]:
+        fail(f"train device sampling resume: records {resumed['step']} "
+             f"{resumed['loss']} differ from the uninterrupted run's")
+    got = checkpoint.flatten_with_paths(resumed["final_state"])
+    for (k, leaf), (k2, mine) in zip(state, got):
+        if k != k2 or not torch.equal(mine.cpu(), leaf):
+            fail(f"train device sampling resume: state leaf {k} differs")
+    del resumed, got, state
+    _free_card()
+    row = {"steps": SWEEP_TRAIN_TC["num_steps"], "loss": full_loss,
+           "run_s": full_s, "stopped_run_s": stopped_s,
+           "resumed_run_s": resumed_s,
+           "max_memory_allocated_bytes": peak, "transfers": transfers,
+           "resume_bitwise": True}
+    print("train_device_sampling " + json.dumps(row), flush=True)
+    return row
+
+
+def exec_modes_phase(parts, dim: int, device="cuda", scale=FIG_SCALE,
+                     cfg=None) -> dict:
+    """Phase 19.  Returns the phase's numbers, the fused_step launches of
+    its device-sampled main path and of its device-sampled sweeps among
+    them.  To rehearse it on the CPU: ``device="cpu"``, the main path's
+    data at a small scale, a small ``scale`` and a smoke ``cfg`` (launch
+    counts, graphs and peaks are not checked off the card)."""
+    if cfg is None:
+        cfg = configs.get_config("h2o-danube-1.8b").scaled(
+            num_layers=SWEEP_TRAIN_LAYERS)
+    out, times = {}, {}
+    t0 = time.perf_counter()
+    out["device_sampling"], main_launches = _device_sampled_main_path(
+        parts, dim, device)
+    times["device_sampling"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["scan_path"] = _scan_path(parts, dim, device)
+    times["scan_path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["sweep_device_sampling"], cell_launches = _device_sampled_sweeps(
+        device, scale)
+    times["sweep_device_sampling"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["train_sweep"] = _train_sweep(cfg, device)
+    times["train_sweep"] = time.perf_counter() - t0
+    work = os.path.join(ROOT, "build", "phase19")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    try:
+        out["train_device_sampling"] = _train_device_sampling(cfg, device,
+                                                              work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    times["train_device_sampling"] = time.perf_counter() - t0
+    out["seconds"] = times
+    out["launches"] = {"fused_step": main_launches,
+                       "fused_step_cells": cell_launches}
+    print("exec_modes " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
@@ -2797,6 +3301,13 @@ def main() -> None:
     print(f"phase 17 (scenarios): {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    # phase 19: the execution modes on the card (device sampling, scan,
+    # device-sampled sweeps, train_sweep, device-sampled training)
+    t0 = time.perf_counter()
+    modes = exec_modes_phase(parts, ds.dim, device)
+    print(f"phase 19 (exec modes): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
     main_row = rows[(8, 1024, "svrg", "l1")]
     # the shape the kernel bench gives svrg_step and mix_prox
     svrg_row = svrg_mix_rows[("svrg_step", pt_kernel_bench.ROWS)]
@@ -2856,7 +3367,9 @@ def main() -> None:
     ]
     # phase 16 serves the trained consensus through RMSNorm and flash too;
     # phase 17 steps its scenario sweep through fused_step's cell-batched
-    # launch, and the same cells' sequential runs through the single launch
+    # launch, and the same cells' sequential runs through the single launch;
+    # phase 19 its device-sampled main path through the single launch and
+    # its device-sampled Fig. 4 sweeps through the cell-batched one
     for row in kernels_line:
         if row["name"] in train["serve"]["launches"]:
             row["launches_consensus_serve"] = \
@@ -2867,6 +3380,8 @@ def main() -> None:
         if row["name"] == "fused_step_cells":
             row["launches_scenarios"] = \
                 scen["launches"]["fused_step_cells"]
+        if row["name"] in modes["launches"]:
+            row["launches_exec_modes"] = modes["launches"][row["name"]]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,10 +12,13 @@ Fields:
 * ``resident`` — plan the run on the host, stage its inputs on the device
   in one transfer, and record metrics into device buffers that are pulled
   once at the end.  ``False`` is the host loop.
-* ``scan`` — kept for the reference's spelling; the port has no compiled
-  chunk path yet and ``runner.run`` refuses it.
+* ``scan`` — the chunked host path: each record window's steps are drawn
+  on the host, staged in one transfer and run as the resident pieces
+  (CUDA graphs on the card), with the records taken on the host.
 * ``sampling`` — "host" (the ``np.random`` stream of the reference) or
-  "device" (refused by ``runner.run`` until it is ported).
+  "device" (resident only): the minibatch indices are drawn on the device
+  from a counter-based stream (``core.device_sampling``), and the plan
+  stages step numbers instead of indices.
 * ``device_transitions`` — fold outer-round transitions into the resident
   chunks ("auto" | True | False).
 * ``kernel`` — the resident step: ``"plain"`` (unfused PyTorch step),

@@ -7,12 +7,19 @@ communication / wire-byte accounting, metric recording, and outer-round
 orchestration.  Algorithms only supply the state/step/outer transitions of
 :class:`~repro_torch.core.algorithm.Algorithm` plus declarative metadata.
 
-Two execution paths, chosen by the :class:`~repro_torch.core.exec_spec.
+Three execution paths, chosen by the :class:`~repro_torch.core.exec_spec.
 ExecSpec`:
 
 * **host loop** (default): one step per iteration, the minibatch and the
   mixing matrix copied to the device each step, metrics pulled to the host
   at every record — the reference's host loop, step for step.
+* **scan** (``scan=True``): between two records the driver draws the
+  chunk's minibatch indices (the host loop's ``np.random`` draws, in its
+  order), mixing matrices and step sizes, stages them in one transfer and
+  runs the chunk as the resident pieces below (CUDA graphs on the card,
+  eager on the CPU); the outer transitions and the records run on the host
+  as in the host loop.  The counterpart of the reference's ``lax.scan``
+  chunks; ``scan_executable_count`` counts the pieces it builds.
 * **resident** (``resident=True``): the run is PLANNED on the host first
   (chunk schedule, gossip products, step sizes, minibatch indices drawn
   from the same ``np.random`` stream in the same order), the plan is staged
@@ -26,7 +33,13 @@ ExecSpec`:
   piece replays a CUDA graph (``core.cuda_graphs``, one per piece length);
   on the CPU the pieces run eagerly.  ``kernel="fused"|
   "auto"`` swaps in the algorithm's fused step, whose update runs through
-  the fused resident-step CUDA kernel on the card.
+  the fused resident-step CUDA kernel on the card.  ``sampling="device"``
+  stages each step's number instead of its indices, and the pieces draw the
+  indices on the device from a counter-based stream
+  (``core.device_sampling``) whose key is drawn from the run's
+  ``np.random`` stream before the plan, as the reference draws its key
+  seed: the same indices on the CPU and on the card, reproducible from the
+  seed, a different stream from the host's.
 
 Coin-flip snapshot methods (``AlgoMeta.snapshot_prob``: loopless DPSVRG,
 DVR) draw their coin from the same ``np.random`` stream as the reference,
@@ -35,23 +48,23 @@ after each step's minibatch indices, on both paths.  Stateful transports
 their mix state through ``Algorithm.init_mix_state``.
 
 ``RunResult.extras['transfers_h2d'/'transfers_d2h']`` counts the transfer
-events that either path starts itself, by the reference's rules, with one
-departure: the resident path gathers its minibatches on the
-device, so it does not pull the dataset to the host (the reference does).
-A resident run's ``extras`` also report ``graphs_built``, ``replays`` and
-``capture_s`` (0 on the CPU).
+events that every path starts itself, by the reference's rules, with one
+departure: the resident and scan paths gather their minibatches on the
+device, so they do not pull the dataset to the host (the reference does).
+A resident or scan run's ``extras`` also report ``graphs_built``,
+``replays`` and ``capture_s`` (0 on the CPU).
 
 Batched sweeps (``run_sweep``, re-exported from ``core.sweep``) plan
 every cell of a grid with the same planner (a single run is its one-cell
-case) and run them as one resident program.  Not ported yet: the compiled
-``scan=True`` path and in-chunk device sampling (``sampling="device"``)
-(ROADMAP Queue 1 item 5).  The reference's executable caches
-(``_shared_exec``) kept XLA programs warm across runs; eager PyTorch has
-nothing to keep warm, so they are gone.
+case) and run them as one resident program.  The reference's executable
+caches (``_shared_exec``) kept XLA programs warm across runs; eager
+PyTorch has nothing to keep warm, and a run's CUDA graphs live as long as
+the run, so ``reset_executable_caches`` only zeroes the scan counts.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
@@ -61,12 +74,14 @@ from torch.utils import _pytree as pytree
 
 from . import algorithm as algorithm_lib, cuda_graphs, gossip, graphs, \
     transport
+from . import device_sampling as device_sampling_lib
 from ..convert import params_to_numpy
 from .exec_spec import ExecSpec
 
 __all__ = ["RunHistory", "RunResult", "Recorder", "run", "run_sweep",
            "SweepResult", "ExecSpec", "sample_batch", "objective_value",
-           "traceable_consensus", "gather_batches", "CUDA_GRAPHS"]
+           "traceable_consensus", "gather_batches", "CUDA_GRAPHS",
+           "scan_executable_count", "reset_executable_caches"]
 
 # The resident path on the CUDA device replays CUDA graphs of its pieces.
 # False runs the same pieces eagerly there, as on the CPU: the executor that
@@ -225,7 +240,8 @@ def _resolve_kernel_step(algo, kernel: str):
 
 
 class _Chunk(NamedTuple):
-    xs: tuple                      # host (indices | None, phis, alphas)
+    xs: tuple                      # host (indices | step numbers | None,
+    #                                phis, alphas)
     flags: tuple | None            # host (o_pre, o_post, e_post, e_k) or None
 
     @property
@@ -255,7 +271,8 @@ class _PlanCell(NamedTuple):
 
 def _plan_resident(cells: "list[_PlanCell]", *, m: int, n: int,
                    param_count: int, record_every: int, transitions: bool,
-                   batched: bool = False) -> _Plan:
+                   batched: bool = False,
+                   device_sampling: bool = False) -> _Plan:
     """Walk the run's data-independent control flow without touching the
     device: chunk boundaries, gossip products, step sizes, minibatch
     indices (same ``np.random`` draw order as the host loop) and
@@ -271,7 +288,11 @@ def _plan_resident(cells: "list[_PlanCell]", *, m: int, n: int,
     inputs grow a cell axis after the step axis: indices (T, B, m, bsz),
     step sizes (T, B), phis only when the cells gossip over different
     schedules (``phi_batched``) and coin flips when the method has them
-    (``opost_batched``); the history columns become (records, B)."""
+    (``opost_batched``); the history columns become (records, B).
+
+    With ``device_sampling=True`` the plan draws no indices: each chunk
+    holds its steps' numbers (1-based, one column shared by the cells),
+    from which the pieces draw the indices on the device."""
     meta0 = cells[0].meta
     B = len(cells)
     if batched and not transitions:
@@ -326,9 +347,10 @@ def _plan_resident(cells: "list[_PlanCell]", *, m: int, n: int,
 
     def finish_chunk(idxs, phis, alphas, flags):
         """Stack one chunk's step inputs: the minibatch indices as one
-        (chunk, m, bsz) int array (the batches are gathered on the device),
-        the wire representations and the step sizes."""
-        idx = np.stack(idxs) if has_batch else None
+        (chunk, m, bsz) int array (the batches are gathered on the device)
+        or the (chunk,) step numbers, the wire representations and the
+        step sizes."""
+        idx = np.asarray(idxs, np.int64) if has_batch else None
         chunk_flags = None
         if transitions:
             chunk_flags = (np.array(flags["o_pre"], np.bool_),
@@ -339,7 +361,9 @@ def _plan_resident(cells: "list[_PlanCell]", *, m: int, n: int,
         chunks.append(_Chunk((idx, _stack_wire(phis),
                               np.asarray(alphas, np.float32)), chunk_flags))
 
-    def draw_idx():
+    def draw_idx(step_t: int):
+        if device_sampling:
+            return step_t
         per_cell = [c.rng.integers(0, n, size=(m, bsz)) for c in cells]
         return np.stack(per_cell) if batched else per_cell[0]
 
@@ -373,7 +397,7 @@ def _plan_resident(cells: "list[_PlanCell]", *, m: int, n: int,
                 flags = {"o_pre": [], "o_post": [], "e_post": [], "e_k": []}
                 for j in range(chunk):
                     if has_batch:
-                        idxs.append(draw_idx())
+                        idxs.append(draw_idx(t + j + 1))
                     phis.append(phi_for(meta0.gossip_rounds(k + j + 1)))
                     alphas.append(draw_alpha(t + j + 1))
                     if transitions:
@@ -413,7 +437,7 @@ def _plan_resident(cells: "list[_PlanCell]", *, m: int, n: int,
             chunk = 0
             for j in range(chunk_max):
                 if has_batch:
-                    idxs.append(draw_idx())
+                    idxs.append(draw_idx(t + j + 1))
                 phis.append(phi_for(meta0.gossip_rounds(t + j + 1)))
                 alphas.append(draw_alpha(t + j + 1))
                 chunk += 1
@@ -543,11 +567,15 @@ def _pieces(chunk: _Chunk) -> list:
     return out
 
 
-def _piece_body(step_fn, data_dev, has_batch: bool):
+def _piece_body(step_fn, data_dev, has_batch: bool, sampler=None):
     """``body(state, xs, length) -> state``: ``length`` staged steps, their
-    minibatches gathered from the resident dataset in one take per leaf."""
+    minibatches gathered from the resident dataset in one take per leaf.
+    With a ``sampler`` (a ``device_sampling.IndexStream``) the staged
+    column holds step numbers, and the sampler draws the indices."""
     def body(state, xs, length: int):
         idx, phis, alphas = xs
+        if has_batch and sampler is not None:
+            idx = sampler(idx)
         batches = gather_batches(data_dev, idx) if has_batch else None
         for j in range(length):
             b = pytree.tree_map(lambda a: a[j], batches) if has_batch \
@@ -592,7 +620,7 @@ def _piece_runner(device: torch.device, body):
 
 def _run_resident(algo, problem, backend, aux, rng, *, m: int, n: int,
                   param_count: int, record_every: int, device, kernel: str,
-                  device_transitions, extra_metrics,
+                  device_transitions, sampling: str, extra_metrics,
                   transfers) -> RunResult:
     meta = algo.meta
     if extra_metrics:
@@ -600,7 +628,16 @@ def _run_resident(algo, problem, backend, aux, rng, *, m: int, n: int,
             "resident=True records metrics on device; host-side "
             "extra_metrics callables need the host loop")
     has_batch = meta.batch_size > 0
+    device_sampling = has_batch and sampling == "device"
     transitions = _resolve_transitions(algo, device_transitions)
+    # the device stream's key comes from the run's rng stream, before the
+    # plan (as the reference draws its key seed), so the draws that follow
+    # (coin flips) are the reference's and the run repeats from its seed
+    sampler = None
+    if device_sampling:
+        sampler = device_sampling_lib.IndexStream(
+            int(rng.integers(0, 2**31 - 1)), m=m, bsz=meta.batch_size, n=n,
+            device=device)
 
     # spans for torch.profiler (nothing is recorded when it is off): the
     # host's plan and its staging copy, issuing the chunks, the pull
@@ -608,7 +645,7 @@ def _run_resident(algo, problem, backend, aux, rng, *, m: int, n: int,
         plan = _plan_resident(
             [_PlanCell(meta, rng, backend, aux)], m=m, n=n,
             param_count=param_count, record_every=record_every,
-            transitions=transitions)
+            transitions=transitions, device_sampling=device_sampling)
     step_fn = _resolve_kernel_step(algo, kernel)
     objective = _resolved_objective(meta, problem)
 
@@ -620,7 +657,7 @@ def _run_resident(algo, problem, backend, aux, rng, *, m: int, n: int,
     transfers["h2d"] += 1
 
     run_piece, piece_graphs = _piece_runner(
-        device, _piece_body(step_fn, data_dev, has_batch))
+        device, _piece_body(step_fn, data_dev, has_batch, sampler))
     with record_function("resident.execute"):
         state = inject_mix_state(algo, backend, aux, algo.init())
         if transitions and algo.device_state is not None:
@@ -664,6 +701,67 @@ def _run_resident(algo, problem, backend, aux, rng, *, m: int, n: int,
                       capture_s=piece_graphs.capture_s)
     return RunResult(params=algo.get_params(state), history=history,
                      extras=extras)
+
+
+# ---------------------------------------------------------------------------
+# The scan path: record windows drawn on the host, run as resident pieces
+# ---------------------------------------------------------------------------
+
+# algo.step -> pieces the scan path has built for it: on the card one CUDA
+# graph per distinct piece length of a run, on the CPU the same count (the
+# lengths the eager executor ran), summed over runs
+_SCAN_PIECES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def scan_executable_count(algo) -> int:
+    """The pieces the scan path has built for ``algo`` so far: one per
+    distinct piece length of each ``scan=True`` run (the CUDA graphs a run
+    captures on the card), summed over runs; 0 if it never ran.  Compare
+    before/after to measure one run."""
+    return _SCAN_PIECES.get(algo.step, 0)
+
+
+def reset_executable_caches() -> None:
+    """Zero every ``scan_executable_count``.  PyTorch keeps no compiled
+    programs across runs (a run's CUDA graphs live as long as the run), so
+    there is nothing else to drop."""
+    _SCAN_PIECES.clear()
+
+
+class _ScanChunks:
+    """The scan path's executor: ``run(state, idxs, phis, alphas)`` stages
+    one record window (the host's indices, mixing matrices and step sizes)
+    in one transfer and runs it as the resident pieces of ``algo.step``."""
+
+    def __init__(self, algo, data_dev, device, transfers):
+        self._algo = algo
+        self._data = data_dev
+        self._device = device
+        self._transfers = transfers
+        self._has_batch = algo.meta.batch_size > 0
+        self._run_piece, self.graphs = _piece_runner(
+            device, _piece_body(algo.step, data_dev, self._has_batch))
+        self._lengths: set = set()
+
+    def run(self, state, idxs, phis, alphas):
+        chunk = _Chunk((np.asarray(idxs, np.int64) if self._has_batch
+                        else None, _stack_wire(phis),
+                        np.asarray(alphas, np.float32)), None)
+        xs = _stage([chunk], self._device)[0]
+        self._transfers["h2d"] += 1
+        self._lengths.update(length for _, length in _pieces(chunk))
+        return _exec_chunk(state, chunk, xs, self._algo, self._data,
+                           self._run_piece)
+
+    def finish(self) -> dict:
+        """Count the run's pieces into the algorithm's
+        ``scan_executable_count``; returns the run's graph figures."""
+        step = self._algo.step
+        _SCAN_PIECES[step] = _SCAN_PIECES.get(step, 0) + len(self._lengths)
+        g = self.graphs
+        return {"graphs_built": 0 if g is None else g.graphs_built,
+                "replays": 0 if g is None else g.replays,
+                "capture_s": 0.0 if g is None else g.capture_s}
 
 
 # ---------------------------------------------------------------------------
@@ -770,14 +868,6 @@ def run(algo: algorithm_lib.Algorithm,
     if not isinstance(spec, ExecSpec):
         raise TypeError(f"runner.run: exec must be an ExecSpec, got "
                         f"{type(spec).__name__}")
-    if spec.scan:
-        raise NotImplementedError(
-            "scan=True (compiled chunk path) is not ported to PyTorch yet "
-            "(ROADMAP Queue 1 item 5); use the host loop or resident=True")
-    if spec.sampling == "device":
-        raise NotImplementedError(
-            "sampling='device' is not ported to PyTorch yet (ROADMAP "
-            "Queue 1 item 5); use sampling='host'")
     meta = algo.meta
     device = _resolve_device(spec)
     _check_on_device(problem, device)
@@ -797,6 +887,7 @@ def run(algo: algorithm_lib.Algorithm,
                              record_every=record_every, device=device,
                              kernel=spec.kernel,
                              device_transitions=spec.device_transitions,
+                             sampling=spec.sampling,
                              extra_metrics=extra_metrics,
                              transfers=transfers)
 
@@ -804,9 +895,13 @@ def run(algo: algorithm_lib.Algorithm,
         lambda p: objective_value(problem.loss_fn, problem.prox, p,
                                   problem.full_data))
     rec = Recorder(obj, meta, m, n, extra_metrics)
-    # sample minibatches from a host-side copy
+    scan = spec.scan
+    chunks = (_ScanChunks(algo, problem.full_data, device, transfers)
+              if scan else None)
+    # the host loop samples minibatches from a host-side copy; the scan
+    # path draws the same indices and gathers on the device
     host_data = None
-    if meta.batch_size > 0:
+    if meta.batch_size > 0 and not scan:
         host_data = params_to_numpy(problem.full_data)
         transfers["d2h"] += 1
 
@@ -818,13 +913,18 @@ def run(algo: algorithm_lib.Algorithm,
     slot = meta.slot_start
     t = 0
 
-    def phi_for(rounds: int):
+    def backend_phi(rounds: int):
+        """The step's wire representation on the host, accounted."""
         nonlocal slot, comm, wire
         phi = backend.phi_for(aux, slot, rounds)
         slot += rounds
         comm += rounds
         wire += (backend.bytes_per_step(aux, phi, param_count)
                  * meta.gossip_payloads)
+        return phi
+
+    def phi_for(rounds: int):
+        phi = backend_phi(rounds)
         transfers["h2d"] += 1
         return pytree.tree_map(
             lambda a: None if a is None else torch.as_tensor(
@@ -841,6 +941,10 @@ def run(algo: algorithm_lib.Algorithm,
         # the reference passes jnp.float32(stepsize): round to float32
         return float(np.float32(meta.stepsize(step_t)))
 
+    def draw_idx():
+        # the indices sample_batch draws, in the same order
+        return rng.integers(0, n, size=(m, meta.batch_size))
+
     def do_record():
         transfers["d2h"] += 1 + (1 if meta.track_consensus else 0)
         rec.record(algo.get_params(state), t=t, grad_evals=grad_evals,
@@ -855,12 +959,31 @@ def run(algo: algorithm_lib.Algorithm,
             state = algo.outer(state)
             if meta.outer_full_grad:
                 grad_evals += full_grad_cost
-            for k in range(1, K + 1):
-                t += 1
-                batch = next_batch()
-                phi = phi_for(meta.gossip_rounds(k))
-                state = algo.step(state, batch, phi, stepsize(t))
-                grad_evals += meta.step_grad_factor * m * meta.batch_size
+            k = 0
+            while k < K:
+                if scan:
+                    key0 = k if meta.record_key == "round" else t
+                    until = (record_every - key0 % record_every
+                             if record_every else K - k)
+                    chunk = min(K - k, until)
+                    idxs, phis, alphas = [], [], []
+                    for j in range(chunk):
+                        if meta.batch_size > 0:
+                            idxs.append(draw_idx())
+                        phis.append(backend_phi(meta.gossip_rounds(k + j + 1)))
+                        alphas.append(meta.stepsize(t + j + 1))
+                    state = chunks.run(state, idxs, phis, alphas)
+                    k += chunk
+                    t += chunk
+                else:
+                    chunk = 1
+                    k += 1
+                    t += 1
+                    batch = next_batch()
+                    phi = phi_for(meta.gossip_rounds(k))
+                    state = algo.step(state, batch, phi, stepsize(t))
+                grad_evals += (chunk * meta.step_grad_factor * m
+                               * meta.batch_size)
                 key = k if meta.record_key == "round" else t
                 just_recorded = bool(record_every
                                      and key % record_every == 0)
@@ -878,13 +1001,35 @@ def run(algo: algorithm_lib.Algorithm,
             raise ValueError(
                 f"{meta.name}: flat loops need record_every >= 1")
         while t < meta.num_steps:
-            t += 1
-            batch = next_batch()
-            phi = phi_for(meta.gossip_rounds(t))
-            state = algo.step(state, batch, phi, stepsize(t))
-            grad_evals += meta.step_grad_factor * m * meta.batch_size
-            if (meta.snapshot_prob is not None
-                    and rng.random() < meta.snapshot_prob):
+            if scan:
+                chunk_max = min(meta.num_steps - t,
+                                record_every - t % record_every)
+                idxs, phis, alphas = [], [], []
+                refresh = False
+                for j in range(chunk_max):
+                    if meta.batch_size > 0:
+                        idxs.append(draw_idx())
+                    phis.append(backend_phi(meta.gossip_rounds(t + j + 1)))
+                    alphas.append(meta.stepsize(t + j + 1))
+                    # the coin comes after the step's indices, as in the
+                    # host loop; a snapshot lands here: cut the chunk
+                    if (meta.snapshot_prob is not None
+                            and rng.random() < meta.snapshot_prob):
+                        refresh = True
+                        break
+                state = chunks.run(state, idxs, phis, alphas)
+                t += len(alphas)
+                grad_evals += (len(alphas) * meta.step_grad_factor * m
+                               * meta.batch_size)
+            else:
+                t += 1
+                batch = next_batch()
+                phi = phi_for(meta.gossip_rounds(t))
+                state = algo.step(state, batch, phi, stepsize(t))
+                grad_evals += meta.step_grad_factor * m * meta.batch_size
+                refresh = (meta.snapshot_prob is not None
+                           and rng.random() < meta.snapshot_prob)
+            if refresh:
                 state = algo.outer(state)
                 if meta.outer_full_grad:
                     grad_evals += full_grad_cost
@@ -894,6 +1039,8 @@ def run(algo: algorithm_lib.Algorithm,
     extras = rec.extras()
     extras["transfers_h2d"] = transfers["h2d"]
     extras["transfers_d2h"] = transfers["d2h"]
+    if scan:
+        extras.update(chunks.finish())
     return RunResult(params=algo.get_params(state), history=rec.history(),
                      extras=extras)
 

@@ -22,9 +22,9 @@ and a ``grid`` mapping axis names to value lists.  Two axis names are
 handled by the driver and not passed to ``build``:
 
 * ``"seed"`` — each cell's ``np.random`` stream (minibatch indices,
-  loopless coin flips), drawn in the order of a sequential
-  ``runner.run(seed=...)``, so batched histories equal sequential ones to
-  float tolerance;
+  loopless coin flips, the device stream's key), drawn in the order of a
+  sequential ``runner.run(seed=...)``, so batched histories equal
+  sequential ones to float tolerance;
 * ``"schedule"`` — each cell's :class:`~repro_torch.core.graphs.
   MixingSchedule` (topology grids).  Cells may gossip over different
   schedules when their wire representations share their static structure:
@@ -57,10 +57,13 @@ Execution follows the :class:`~repro_torch.core.exec_spec.ExecSpec`: the
 default ``ExecSpec(resident=True)`` is the batched run; ``batched=False``
 runs the cells as sequential resident runs (the baseline the batched run is
 held and timed against); ``ExecSpec(resident=False)`` runs them through the
-host loop.  PyTorch compiles nothing, so the reference's executor cache
-has no counterpart.  ``scan=True`` and ``sampling="device"`` are not
-ported (ROADMAP Queue 1 item 5), and ``ExecSpec`` refuses ``shard`` (item
-14).  All modes return the same :class:`SweepResult`.
+host loop, or the scan path with ``scan=True``.  With
+``sampling="device"`` every cell draws its minibatches on the device from
+its own stream (``core.device_sampling``), its key drawn from the cell's
+``np.random`` stream before the plan, so each cell equals its sequential
+device-sampled run.  PyTorch compiles nothing, so the reference's executor
+cache has no counterpart, and ``ExecSpec`` refuses ``shard`` (ROADMAP
+Queue 1 item 14).  All modes return the same :class:`SweepResult`.
 """
 
 from __future__ import annotations
@@ -73,7 +76,8 @@ import torch
 from torch.profiler import record_function
 from torch.utils import _pytree as pytree
 
-from . import runner as runner_lib, transport
+from . import device_sampling as device_sampling_lib, runner as runner_lib, \
+    transport
 from .exec_spec import ExecSpec
 
 __all__ = ["SweepResult", "expand_grid", "run_sweep"]
@@ -282,10 +286,12 @@ def _over_cells(build: Callable, fn: Callable, tree, values: dict,
 
 
 def _piece_body(build, kernel: str, data_dev, values: dict,
-                has_batch: bool, phi_batched: bool):
+                has_batch: bool, phi_batched: bool, sampler=None):
     """``body(state, xs, length) -> state`` of a batched sweep: ``length``
     staged steps of every cell, their minibatches gathered in one take per
-    leaf, each cell's step under one vmap over the cells."""
+    leaf (with a ``sampler``, drawn first from the staged step numbers,
+    every cell from its own key), each cell's step under one vmap over the
+    cells."""
     def run_steps(algo, problem, state, batches, phis, alphas, length):
         step_fn = runner_lib._resolve_kernel_step(algo, kernel)
         for j in range(length):
@@ -297,6 +303,8 @@ def _piece_body(build, kernel: str, data_dev, values: dict,
 
     def body(state, xs, length: int):
         idx, phis, alphas = xs
+        if has_batch and sampler is not None:
+            idx = sampler(idx)
         batches = (runner_lib.gather_batches(data_dev, idx) if has_batch
                    else None)
         # a None leaf of the phis (no straggler mask) is mapped over by no
@@ -406,14 +414,6 @@ def run_sweep(build: Callable,
     if not isinstance(spec, ExecSpec):
         raise TypeError(f"run_sweep: exec must be an ExecSpec, got "
                         f"{type(spec).__name__}")
-    if spec.scan:
-        raise NotImplementedError(
-            "scan=True (compiled chunk path) is not ported to PyTorch yet "
-            "(ROADMAP Queue 1 item 5); sweep with resident=True")
-    if spec.sampling == "device":
-        raise NotImplementedError(
-            "sampling='device' is not ported to PyTorch yet (ROADMAP "
-            "Queue 1 item 5); use sampling='host'")
 
     cells = expand_grid(grid, mode)
     axis_names = [n for n in grid if n not in _RESERVED_AXES]
@@ -467,16 +467,21 @@ def _run_batched(build, built, cells, schedules, seeds, axis_names, *,
     n = pytree.tree_leaves(template_problem.full_data)[0].shape[1]
     param_count = transport.node_param_count(template_problem.x0)
     has_batch = meta0.batch_size > 0
+    device_sampling = has_batch and spec.sampling == "device"
     B = len(cells)
     transfers = {"h2d": 0, "d2h": 0}
 
     with record_function("sweep.plan"):
+        rngs = [np.random.default_rng(s) for s in seeds]
+        # one device stream a cell, its key drawn where a sequential run
+        # draws it: first, before the plan
+        keys = [int(r.integers(0, 2**31 - 1)) for r in rngs] \
+            if device_sampling else None
         plan = runner_lib._plan_resident(
-            [runner_lib._PlanCell(algo.meta, np.random.default_rng(s),
-                                  backend, aux)
-             for (algo, _), s, aux in zip(built, seeds, auxes)],
+            [runner_lib._PlanCell(algo.meta, rng, backend, aux)
+             for (algo, _), rng, aux in zip(built, rngs, auxes)],
             m=m, n=n, param_count=param_count, record_every=record_every,
-            transitions=True, batched=True)
+            transitions=True, batched=True, device_sampling=device_sampling)
         host_values = _cell_values(cells, axis_names)
 
     # the dataset already lies on the device, shared by every cell: only
@@ -486,6 +491,10 @@ def _run_batched(build, built, cells, schedules, seeds, axis_names, *,
         staged = runner_lib._stage(plan.chunks, device)
         values = {k: torch.from_numpy(v).to(device)
                   for k, v in host_values.items()}
+        sampler = None
+        if device_sampling:
+            sampler = device_sampling_lib.IndexStream(
+                keys, m=m, bsz=meta0.batch_size, n=n, device=device)
     transfers["h2d"] += 1                  # ONE staging step
 
     states = []
@@ -498,7 +507,7 @@ def _run_batched(build, built, cells, schedules, seeds, axis_names, *,
 
     run_piece, piece_graphs = runner_lib._piece_runner(
         device, _piece_body(build, spec.kernel, data_dev, values, has_batch,
-                            plan.phi_batched))
+                            plan.phi_batched, sampler))
     get_params = template_algo.get_params
     track = meta0.track_consensus
     with record_function("sweep.execute"):

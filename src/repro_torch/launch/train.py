@@ -5,7 +5,9 @@ Config-driven front end for ``trainer.train_loop`` at the smoke variant of
 
   * execution path: ``--resident`` (plan on the host, stage once, gather
     windows on the device; the default) or ``--host`` (one batch copied
-    per step); ``--sampling device`` is not ported yet and raises,
+    per step); ``--sampling device`` draws the resident path's window
+    starts on the device (``core.device_sampling``) instead of from the
+    loader's stream,
   * persistence: ``--ckpt-dir``/``--ckpt-every``/``--keep-last``, and
     ``--resume`` to continue bitwise from ``checkpoint.latest_step``; the
     checkpoints are the JAX package's format (``repro_torch.launch.serve
@@ -44,8 +46,10 @@ def main(argv=None):
     path.add_argument("--host", dest="resident", action="store_false",
                       help="per-step host loop")
     ap.add_argument("--sampling", default="host", choices=["host", "device"],
-                    help="where minibatch window starts are drawn (device: "
-                         "not ported yet, raises)")
+                    help="where the resident path draws minibatch window "
+                         "starts: host (the loader's np.random stream) or "
+                         "device (a counter-based stream on the device; "
+                         "needs --resident)")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--keep-last", type=int, default=0,

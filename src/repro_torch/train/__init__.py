@@ -4,13 +4,15 @@ model zoo.
 
 * :mod:`.steps` — ``TrainState``, ``build_train_step`` (per-node gradients
   under ``torch.func.vmap``), ``build_serve_steps``,
-* :mod:`.trainer` — ``TrainerConfig`` and ``train_loop`` (host loop and
-  resident path, checkpoints and bitwise resume),
+* :mod:`.trainer` — ``TrainerConfig``, ``train_loop`` (host loop and
+  resident path, window starts drawn on the host or on the device,
+  checkpoints and bitwise resume) and ``train_sweep`` (a λ/α grid of
+  cells as one resident program),
 * :mod:`.tracker` — metrics sinks,
 * :mod:`.evaluate` — held-out perplexity of the consensus and of each node.
 
-The reference's ``train_sweep`` (a grid of cells in one program) is ROADMAP
-Queue 1 item 12 (b); ``sharding`` is multi-device work (item 14).
+The reference's ``sharding`` is multi-device work (ROADMAP Queue 1 item
+14).
 """
 
 from . import evaluate, steps, tracker, trainer

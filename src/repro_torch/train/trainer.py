@@ -1,5 +1,5 @@
-"""Decentralized LM training: the port of ``repro.train.trainer``'s
-``train_loop`` on one device.
+"""Decentralized LM training: the port of ``repro.train.trainer``
+(``train_loop`` and ``train_sweep``) on one device.
 
 ``train_loop`` drives ``build_train_step`` with the paper's outer/inner
 structure (a snapshot, the large-batch full-gradient refresh, every
@@ -20,19 +20,30 @@ function:
   snapshot refreshes at the steps the plan names; metrics are pulled once
   per log window.  ``hist["transfers"]`` counts what the reference's
   ledger counts: one staging transfer, one pull per record window, one
-  per checkpoint.  The steps run eagerly.
+  per checkpoint.  The steps run eagerly.  ``sampling="device"`` draws
+  the window starts on the device instead (``core.device_sampling``, the
+  minibatch and the snapshot windows from two streams of one key derived
+  from ``tc.seed``): the plan stages step numbers, nothing of the loader's
+  stream is drawn, and a run repeats bitwise from its seed.
 
 Periodic and final checkpoints (``ckpt_dir``/``ckpt_every``/``keep_last``)
 capture the whole train state plus the loader's data cursor in the JAX
 package's format, and ``resume=True`` continues from
 ``checkpoint.latest_step`` bitwise as the uninterrupted run would, on both
 paths (same TrainerConfig).  A checkpoint of either package resumes in
-the other.
+the other, except one written with device sampling: its ``"key"`` leaf
+names the writer's stream (a ``jax.random`` key, or the port's key as a
+(1,) int64 array), and the streams differ, so each package refuses the
+other's.
 
-Refused, by name: ``sampling="device"`` (ROADMAP Queue 1 item 5 (d)),
-sharded state (item 14), ``kernel`` other than ``"plain"`` (as the
-reference refuses other than ``"xla"``), and configs that route the
-forward through the RMSNorm or flash kernels, which have no backward.
+``train_sweep`` trains a λ/α grid as one resident program: one shared
+loader stream, staged once, every cell's node-vmapped step under one
+``torch.func.vmap`` over the cells, one metrics pull.
+
+Refused, by name: sharded state (ROADMAP Queue 1 item 14), ``kernel``
+other than ``"plain"`` (as the reference refuses other than ``"xla"``),
+and configs that route the forward through the RMSNorm or flash kernels,
+which have no backward.
 """
 
 from __future__ import annotations
@@ -48,7 +59,8 @@ from torch.utils import _pytree as pytree
 
 from .. import checkpoint as ckpt_lib
 from ..core import algorithm as algo_lib, graphs, prox as prox_lib, \
-    runner as runner_lib, schedules, transport
+    runner as runner_lib, schedules, sweep as sweep_lib, transport
+from ..core.device_sampling import IndexStream, trainer_key
 from ..core.exec_spec import ExecSpec
 from ..data import loader as loader_lib
 from ..models.api import ModelConfig
@@ -56,7 +68,12 @@ from ..models.common import resolve_device
 from . import steps as steps_lib
 from .tracker import CompositeTracker, HistoryTracker, resolve_tracker
 
-__all__ = ["TrainerConfig", "train_loop"]
+__all__ = ["TrainerConfig", "train_loop", "train_sweep"]
+
+# the metadata mark of a checkpoint whose "key" leaf holds the port's
+# device stream (a jax.random key is a (2,) uint32 array; the port's key a
+# (1,) int64 one, so the reference's restore refuses it by its shape)
+DEVICE_STREAM = "repro_torch.device_sampling"
 
 
 @dataclasses.dataclass
@@ -75,7 +92,7 @@ class TrainerConfig:
     keep_last: int | None = None    # retention: prune all but the N newest ckpts
     seed: int = 0
     resident: bool = False          # device-resident execution (LMLoader data)
-    sampling: str = "host"          # "host" ("device" is not ported yet)
+    sampling: str = "host"          # "host" | "device" (resident only)
     tracker: Any = None             # tracker spec (see tracker.resolve_tracker)
 
 
@@ -137,6 +154,20 @@ def _check_trainable(cfg: ModelConfig, caller: str) -> None:
             f"RMSNorm kernels have no backward (nor have the JAX package's "
             f"Pallas kernels); train with both off (cfg.scaled(use_flash="
             f"False, use_fused_norm=False)) and serve with them on")
+
+
+def _check_device_stream(ckpt_dir: str) -> None:
+    """Refuse to continue a device-sampled run from a checkpoint whose
+    ``"key"`` leaf is not the port's stream."""
+    _, step, md = ckpt_lib.restore(ckpt_dir, {})
+    if md.get("device_stream") != DEVICE_STREAM:
+        raise ValueError(
+            f"resume with sampling='device': the checkpoint at step {step} "
+            f"under {ckpt_dir} holds no key of the port's device stream "
+            f"(written by the JAX package, whose key is a jax.random key, "
+            f"or with host sampling).  The two packages' device streams "
+            f"differ, so the run cannot continue bitwise; resume it with "
+            f"the package and sampling that wrote it")
 
 
 def _to(device, tree, dtype=None):
@@ -208,10 +239,6 @@ def train_loop(cfg: ModelConfig,
                         f"{type(spec).__name__}")
     _check_lm_spec(spec, "train_loop")
     _check_trainable(cfg, "train_loop")
-    if spec.sampling == "device":
-        raise NotImplementedError(
-            "sampling='device' is not ported to PyTorch yet (ROADMAP Queue 1 "
-            "item 5 (d)); use sampling='host'")
     resident = spec.resident
     gossip = tc.gossip if spec.gossip == "auto" else spec.gossip
 
@@ -236,6 +263,7 @@ def train_loop(cfg: ModelConfig,
             "execution paths draw snapshot batches from the loader's own "
             "stream (per_node_batch * snapshot_batch_mult windows) — pass a "
             "legacy batch iterator as `data` to control snapshot batches")
+    device_sampling = resident and spec.sampling == "device"
     bundle = steps_lib.build_train_step(cfg, prox, m, plan=plan, mesh=mesh,
                                         algorithm=rule)
     device = resolve_device(spec.device)
@@ -252,13 +280,21 @@ def train_loop(cfg: ModelConfig,
         state = state._replace(
             mix_state=backend.init_mix_state(gaux, state.params))
     param_count = transport.node_param_count(state.params)
+    # the device stream's key: the stream's whole state, beside the step
+    key = trainer_key(tc.seed) if device_sampling else None
 
     transfers = {"h2d": 0, "d2h": 0}
     start_step, slot, wire = 0, 0, 0
     if resume:
-        tree, _, md = ckpt_lib.restore(tc.ckpt_dir, {"state": state})
+        template = {"state": state}
+        if device_sampling:
+            _check_device_stream(tc.ckpt_dir)
+            template["key"] = torch.zeros(1, dtype=torch.int64)
+        tree, _, md = ckpt_lib.restore(tc.ckpt_dir, template)
         state = None                 # free the fresh state before the copy
         state = _to(device, tree["state"])
+        if device_sampling:
+            key = int(tree["key"][0])
         transfers["h2d"] += 1
         start_step = int(md["step"])
         slot = int(md["slot"])
@@ -301,7 +337,11 @@ def train_loop(cfg: ModelConfig,
               "wire": wire if wire_at is None else wire_at,
               "algorithm": rule.name,
               "loader": loader_state}
-        ckpt_lib.save(tc.ckpt_dir, next_step, {"state": cur_state}, md,
+        tree = {"state": cur_state}
+        if device_sampling:
+            tree["key"] = torch.tensor([key], dtype=torch.int64)
+            md["device_stream"] = DEVICE_STREAM
+        ckpt_lib.save(tc.ckpt_dir, next_step, tree, md,
                       keep_last=tc.keep_last)
 
     # ------------------------------------------------------------------
@@ -360,11 +400,13 @@ def train_loop(cfg: ModelConfig,
         for step in range(start_step, tc.num_steps):
             snap = vr and step % tc.snapshot_every == 0
             # draw order matches the host loop exactly: snapshot windows
-            # first (when refreshing), then the minibatch
-            if snap:
+            # first (when refreshing), then the minibatch; device sampling
+            # draws nothing here
+            if snap and not device_sampling:
                 sstarts.append(data.sample_starts(snap_B))
             snaps.append(snap)
-            starts.append(data.sample_starts(B))
+            if not device_sampling:
+                starts.append(data.sample_starts(B))
             phi = backend.phi_for(gaux, slot, tc.consensus_rounds)
             wire += backend.bytes_per_step(gaux, phi, param_count)
             slot += tc.consensus_rounds
@@ -381,31 +423,44 @@ def train_loop(cfg: ModelConfig,
                     else None))
                 count = 0
 
-        # ONE staging transfer ships the plan and the token shards; nothing
-        # per step crosses the host boundary thereafter
+        # ONE staging transfer ships the plan and the token shards (with
+        # device sampling, the steps' numbers in place of their starts);
+        # nothing per step crosses the host boundary thereafter
         staged = _to(device, (
             data.stacked_shards(),
             np.asarray(starts, np.int64).reshape(len(starts), m, B),
             np.asarray(sstarts, np.int64).reshape(len(sstarts), m, snap_B),
+            np.arange(start_step, tc.num_steps, dtype=np.int64)
+            if device_sampling else None,
             runner_lib._stack_wire(phis) if phis else None,
             np.asarray(alphas, np.float32)))
         transfers["h2d"] += 1
-        shards, starts_dev, sstarts_dev, phis_dev, alphas_dev = staged
+        shards, starts_dev, sstarts_dev, steps_dev, phis_dev, alphas_dev = \
+            staged
         window = torch.arange(data.seq_len + 1, device=device)
+        if device_sampling:
+            # two streams of the one key: minibatch and snapshot windows
+            draw = IndexStream(key, m=m, bsz=B, n=data.max_start,
+                               device=device)
+            draw_snap = IndexStream(key, m=m, bsz=snap_B, n=data.max_start,
+                                    device=device, stream=1)
 
         t = r = 0
         for w in windows:
             for _ in range(w.length):
                 if snaps[t]:
+                    sst = (draw_snap(steps_dev[t:t + 1])[0]
+                           if device_sampling else sstarts_dev[r])
                     # the old snapshot and full gradient go first, as in
                     # the host loop
                     state = state._replace(snapshot=None, full_grad=None)
                     state = bundle.snapshot_step(
-                        state, gather_windows(shards, sstarts_dev[r],
-                                              window))
+                        state, gather_windows(shards, sst, window))
                     r += 1
+                st = (draw(steps_dev[t:t + 1])[0] if device_sampling
+                      else starts_dev[t])
                 state, metrics = bundle.train_step(
-                    state, gather_windows(shards, starts_dev[t], window),
+                    state, gather_windows(shards, st, window),
                     pytree.tree_map(lambda a: a[t], phis_dev),
                     alphas_dev[t])
                 t += 1
@@ -437,3 +492,201 @@ def train_loop(cfg: ModelConfig,
     hist["final_state"] = state
     hist["transfers"] = dict(transfers)
     return hist
+
+
+# ---------------------------------------------------------------------------
+# Batched λ/α-grid sweeps: the whole grid as one resident program
+# ---------------------------------------------------------------------------
+
+def train_sweep(cfg: ModelConfig,
+                build,
+                schedule: graphs.MixingSchedule,
+                data,
+                tc: TrainerConfig,
+                grid: dict,
+                exec: "ExecSpec | None" = None,
+                mode: str = "product") -> dict:
+    """Train a whole hyperparameter grid as ONE resident program.
+
+    ``build(**cell) -> Prox`` is the cell factory (``prox.l1(lam)``, ...),
+    called once per cell with the values themselves (validation) and again
+    in every step under ``torch.func.vmap`` over the cells with each value a
+    0-d float32 tensor, so each cell computes its own regularizer.  ``grid``
+    maps axis names to value lists (``mode`` ``"product"`` or ``"zip"``);
+    the reserved axis ``"alpha"`` is the driver's: it overrides
+    ``tc.alpha`` in the cell's realized step-size schedule (staged as a
+    ``(steps, cells)`` column) and is not passed to ``build``.
+
+    Every cell sees the SAME loader stream ``data``, drawn once on the host
+    in ``train_loop``'s planning order, so cell i's history equals a
+    sequential ``train_loop(exec=ExecSpec(resident=True))`` over a fresh
+    same-seed loader to float tolerance.  The plan, the token shards and
+    the cells' values ship in one staging transfer; each step gathers its
+    windows on the device and runs every cell's node-vmapped step under one
+    vmap over the cells (rebuilding each cell's ``Prox`` from its values,
+    as ``core.sweep`` does); the snapshot refreshes run at the steps the
+    plan names, cell by cell, since a refresh does not depend on the cell's
+    prox and its large batch's activations would otherwise scale with the
+    cells; one ``(2, steps, cells)`` pull of the losses and ``v_norm`` ends
+    the run.  Like ``train_loop`` it runs eagerly, without CUDA graphs or
+    kernels.  ``exec`` defaults to ``ExecSpec(resident=True)`` (on the CUDA
+    device).
+
+    Returns ``{"grid", "step", "loss", "v_norm", "alpha", "wire_bytes",
+    "time", "final_state", "transfers"}`` with ``(records, cells)`` metric
+    columns and the cell axis in front of every state leaf.
+    """
+    spec = ExecSpec(resident=True) if exec is None else exec
+    if not isinstance(spec, ExecSpec):
+        raise TypeError(f"train_sweep: exec must be an ExecSpec, got "
+                        f"{type(spec).__name__}")
+    _check_lm_spec(spec, "train_sweep")
+    if not spec.resident:
+        raise ValueError("train_sweep is a batched device-resident program "
+                         "(the grid rides one vmapped step); for sequential "
+                         "cells loop train_loop")
+    if spec.sampling != "host":
+        raise ValueError("train_sweep stages ONE shared host-drawn loader "
+                         "stream so every cell sees the draws a sequential "
+                         "train_loop would; sampling='device' is not "
+                         "supported")
+    if tc.ckpt_dir or tc.tracker:
+        raise ValueError("train_sweep neither checkpoints nor streams "
+                         "trackers — run cells through train_loop for "
+                         "those")
+    if not isinstance(data, loader_lib.LMLoader):
+        raise ValueError("train_sweep plans the whole run up front, which "
+                         "needs the LMLoader's index-based sampling")
+    _check_trainable(cfg, "train_sweep")
+    gossip = tc.gossip if spec.gossip == "auto" else spec.gossip
+    device = resolve_device(spec.device)
+
+    cells = sweep_lib.expand_grid(grid, mode)
+    n_cells = len(cells)
+    axis_names = [n for n in grid if n != "alpha"]
+    m = schedule.m
+    rule = algo_lib.UPDATE_RULES[tc.algorithm] \
+        if isinstance(tc.algorithm, str) else tc.algorithm
+    vr = rule.needs_snapshot
+    alpha_fns = [_realized_alpha_fn(
+        dataclasses.replace(tc, alpha=float(c.get("alpha", tc.alpha))), rule)
+        for c in cells]
+
+    def cell_prox(cell):
+        out = build(**{k: v for k, v in cell.items() if k != "alpha"})
+        if not isinstance(out, prox_lib.Prox):
+            raise TypeError(f"build(**cell) must return a Prox, got "
+                            f"{type(out).__name__}")
+        return out
+
+    proxes = [cell_prox(c) for c in cells]   # the concrete validation pass
+
+    tmeta = transport.TransportMeta.constant(tc.consensus_rounds)
+    backend = transport.resolve_backend(gossip, schedule, tmeta)
+    gaux = backend.prepare(schedule, tmeta)
+    bundle0 = steps_lib.build_train_step(cfg, proxes[0], m, algorithm=rule)
+    state0 = bundle0.init_state(tc.seed, device)
+    if backend.needs_mix_state:
+        state0 = state0._replace(
+            mix_state=backend.init_mix_state(gaux, state0.params))
+    param_count = transport.node_param_count(state0.params)
+
+    # the host's plan: ONE shared draw stream and phi schedule, in
+    # train_loop's order (snapshot windows first, then the minibatch), and
+    # each cell's realized alphas as a (steps, cells) column
+    B = data.per_node_batch
+    snap_B = B * tc.snapshot_batch_mult
+    starts, sstarts, snaps, phis, wires = [], [], [], [], []
+    alphas = np.empty((tc.num_steps, n_cells), np.float32)
+    slot = wire = 0
+    for step in range(tc.num_steps):
+        snap = vr and step % tc.snapshot_every == 0
+        if snap:
+            sstarts.append(data.sample_starts(snap_B))
+        snaps.append(snap)
+        starts.append(data.sample_starts(B))
+        phi = backend.phi_for(gaux, slot, tc.consensus_rounds)
+        wire += backend.bytes_per_step(gaux, phi, param_count)
+        slot += tc.consensus_rounds
+        phis.append(phi)
+        wires.append(wire)
+        for j, fn in enumerate(alpha_fns):
+            alphas[step, j] = fn(step)
+
+    transfers = {"h2d": 0, "d2h": 0}
+    staged = _to(device, (
+        data.stacked_shards(),
+        np.asarray(starts, np.int64).reshape(len(starts), m, B),
+        np.asarray(sstarts, np.int64).reshape(len(sstarts), m, snap_B),
+        runner_lib._stack_wire(phis),
+        alphas,
+        sweep_lib._cell_values(cells, axis_names)))
+    transfers["h2d"] += 1                      # ONE staging transfer
+    shards, starts_dev, sstarts_dev, phis_dev, alphas_dev, values = staged
+    window = torch.arange(data.seq_len + 1, device=device)
+
+    # every cell starts from the same state; the snapshot aliases the
+    # parameters until the first refresh replaces both
+    def per_cell(leaf):
+        return None if leaf is None else \
+            leaf.expand((n_cells,) + leaf.shape).clone()
+
+    state = state0._replace(
+        params=pytree.tree_map(per_cell, state0.params),
+        full_grad=pytree.tree_map(per_cell, state0.full_grad),
+        step=per_cell(state0.step),
+        mix_state=pytree.tree_map(per_cell, state0.mix_state))
+    state = state._replace(snapshot=state.params)
+    del state0
+
+    def cell_step(prox_t, _, state_c, batch, phi, alpha):
+        bundle_t = steps_lib._build_train_step(cfg, prox_t, m, rule)
+        return bundle_t.train_step(state_c, batch, phi, alpha)
+
+    def refresh(state, big):
+        """Every cell's snapshot refresh, one cell at a time, each cell's
+        full gradient written into one (cells, m, ...) buffer."""
+        params = state.params
+        full = pytree.tree_map(torch.empty_like, params)
+        state = state._replace(snapshot=None, full_grad=None)
+        for c in range(n_cells):
+            cell = steps_lib.TrainState(
+                params=pytree.tree_map(lambda a: a[c], params),
+                snapshot=None, full_grad=None, step=state.step[c])
+            mu = bundle0.snapshot_step(cell, big).full_grad
+            pytree.tree_map(lambda out, g: out[c].copy_(g), full, mu)
+            del mu
+        return state._replace(snapshot=params, full_grad=full)
+
+    t0 = time.time()
+    mbuf = torch.zeros((2, tc.num_steps, n_cells), dtype=torch.float32,
+                       device=device)
+    r = 0
+    for t in range(tc.num_steps):
+        if snaps[t]:
+            state = refresh(state, gather_windows(shards, sstarts_dev[r],
+                                                  window))
+            r += 1
+        state, mets = sweep_lib._over_cells(
+            lambda **cell: (cell_prox(cell), None), cell_step, state, values,
+            (gather_windows(shards, starts_dev[t], window),
+             pytree.tree_map(lambda a: a[t], phis_dev), alphas_dev[t]),
+            (None, None, 0))
+        mbuf[0, t] = mets["loss"]
+        mbuf[1, t] = mets["v_norm"]
+    losses, vnorms = mbuf.cpu().numpy()        # the ONE metrics pull
+    transfers["d2h"] += 1
+
+    rec = [s for s in range(tc.num_steps)
+           if s % tc.log_every == 0 or s == tc.num_steps - 1]
+    return {
+        "grid": cells,
+        "step": rec,
+        "loss": np.asarray(losses, np.float64)[rec],
+        "v_norm": np.asarray(vnorms, np.float64)[rec],
+        "alpha": alphas[rec],
+        "wire_bytes": [wires[s] for s in rec],
+        "time": time.time() - t0,
+        "final_state": state,
+        "transfers": dict(transfers),
+    }

@@ -10,7 +10,9 @@ decentralized LM trainer on the card (against the CPU, a bitwise resume,
 and the consensus of its checkpoint served through the kernels), and the
 network-event scenarios (fused_step over per-step degraded mixing matrices,
 a degraded-schedule sweep through the kernel, stale sweeps' graphs against
-eager).  They skip, with
+eager), and the execution modes (device sampling against the CPU and the
+eager executor, the scan path, device-sampled sweeps, ``train_sweep`` and
+device-sampled training with a bitwise resume).  They skip, with
 the reason, where there is no card.  This file imports neither JAX nor the JAX package, so it also
 runs on a machine that has only PyTorch:
 
@@ -1036,3 +1038,191 @@ def test_stale_sweep_graphs_match_eager_on_card(cuda_device, monkeypatch,
     cpu, _ = _scenario_sweep("cpu", models, name, "fused")
     for other in (eager, cpu):
         _scenario_sweeps_agree(other, graph)
+
+
+# ---------------------------------------------------------------------------
+# the execution modes: device sampling, the scan path, train_sweep
+# ---------------------------------------------------------------------------
+
+def _mode_problem(device):
+    ds = synthetic.make_paper_dataset("adult_like", scale=0.05)
+    data = params_from_numpy(synthetic.partition_per_node(ds, 8), device)
+    return algorithm.Problem(_loss, prox.l1(0.01),
+                             torch.zeros(8, ds.dim, device=device), data)
+
+
+def _mode_run(name, device, **spec):
+    problem = _mode_problem(device)
+    before = ops.launches
+    res = runner.run(_algo(name, problem), problem,
+                     graphs.b_connected_ring_schedule(8, 1),
+                     ExecSpec(gossip="dense", device=device, **spec),
+                     record_every=0 if name == "dpsvrg" else 10)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return res, ops.launches - before
+
+
+@pytest.mark.parametrize("name", ["dpsvrg", "dspg", "loopless_dpsvrg", "dvr",
+                                  "gt_svrg"])
+def test_device_sampled_runs_on_card_match_cpu_and_eager(cuda_device,
+                                                         monkeypatch, name):
+    """sampling="device" on the card: the indices drawn in the graphs, one
+    fused_step a step where the method has a fused twin, the graphs bit
+    for bit the eager executor's, the card within float32 tolerance of the
+    CPU (the stream is the same there), the ledger (1, 1)."""
+    spec = dict(resident=True, sampling="device", kernel="fused")
+    graph, launches = _mode_run(name, "cuda", **spec)
+    monkeypatch.setattr(runner, "CUDA_GRAPHS", False)
+    eager, eager_launches = _mode_run(name, "cuda", **spec)
+    cpu, _ = _mode_run(name, "cpu", **spec)
+    steps = int(graph.history.steps[-1])
+    assert launches == eager_launches == (0 if name == "gt_svrg" else steps)
+    assert graph.extras["graphs_built"] >= 1
+    assert (graph.extras["transfers_h2d"],
+            graph.extras["transfers_d2h"]) == (1, 1)
+    np.testing.assert_array_equal(graph.history.objective,
+                                  eager.history.objective)
+    assert torch.equal(graph.params, eager.params)
+    for col in ("objective", "consensus"):
+        np.testing.assert_allclose(getattr(graph.history, col),
+                                   getattr(cpu.history, col),
+                                   rtol=HISTORY_RTOL, atol=HISTORY_ATOL)
+
+
+@pytest.mark.parametrize("key", [0, 1, 12345, 2**31 - 2])
+def test_device_index_stream_on_card_equals_the_cpu_s(cuda_device, key):
+    from repro_torch.core import device_sampling
+    steps = torch.arange(1, 5000, dtype=torch.int64)
+    kw = dict(m=8, bsz=3, n=50_000)
+    want = device_sampling.IndexStream(key, device="cpu", **kw)(steps)
+    got = device_sampling.IndexStream(key, device=cuda_device,
+                                      **kw)(steps.to(cuda_device))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name", ["dpsvrg", "dspg", "loopless_dpsvrg"])
+def test_scan_path_on_card_matches_host_loop(cuda_device, name):
+    """scan=True on the card: its record windows replay CUDA graphs of the
+    pieces, and its histories are the host loop's to float tolerance."""
+    scan, _ = _mode_run(name, "cuda", scan=True)
+    host, _ = _mode_run(name, "cuda")
+    assert 1 <= scan.extras["graphs_built"] <= \
+        math.log2(runner.MAX_PIECE) + 1
+    assert scan.extras["replays"] >= scan.extras["graphs_built"]
+    for col in ("objective", "consensus"):
+        np.testing.assert_allclose(getattr(scan.history, col),
+                                   getattr(host.history, col),
+                                   rtol=HISTORY_RTOL, atol=HISTORY_ATOL)
+    np.testing.assert_array_equal(scan.history.epochs, host.history.epochs)
+
+
+@pytest.mark.parametrize("name", ["dpsvrg", "loopless_dpsvrg"])
+def test_device_sampled_sweep_on_card_launches_once_a_step(cuda_device,
+                                                           name):
+    """A device-sampled batched sweep: one cell-batched fused_step launch
+    a step for all cells, each cell its sequential device-sampled run."""
+    from repro_torch.core import sweep
+    problem = _mode_problem("cuda")
+
+    def build(lam=0.01):
+        p = problem._replace(prox=prox.l1(lam))
+        return _algo(name, p), p
+
+    spec = ExecSpec(resident=True, sampling="device", kernel="fused",
+                    gossip="dense")
+    grid = {"lam": [0.001, 0.01, 0.1]}
+    every = 0 if name == "dpsvrg" else 10
+    sched = graphs.b_connected_ring_schedule(8, 1)
+    before = ops.launches_cells
+    bat = sweep.run_sweep(build, grid, sched, spec, record_every=every)
+    torch.cuda.synchronize()
+    assert ops.launches_cells - before == int(bat.history.steps[-1, 0])
+    seq = sweep.run_sweep(build, grid, sched, spec, record_every=every,
+                          batched=False)
+    np.testing.assert_array_equal(bat.history.epochs, seq.history.epochs)
+    np.testing.assert_allclose(bat.history.objective, seq.history.objective,
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(bat.history.consensus, seq.history.consensus,
+                               rtol=1e-3, atol=1e-6)
+
+
+def _smoke_lm(monkeypatch, algorithm_name="dpsvrg"):
+    """(cfg, loader factory, TrainerConfig factory, trainer) of the smoke
+    danube, its parameters drawn on the CPU so that card and CPU runs start
+    alike."""
+    from repro_torch.data.loader import LMLoader
+    from repro_torch.train import steps as train_steps, trainer
+    cfg = configs.smoke_variant(configs.get_config("h2o-danube-1.8b"))
+    toks = synthetic.make_token_stream(50_000, cfg.vocab_size, seed=0)
+    init = transformer.init_params
+
+    def loader():
+        return LMLoader(toks.tokens, num_nodes=4, per_node_batch=2,
+                        seq_len=32, seed=1)
+
+    def tc(**kw):
+        return trainer.TrainerConfig(**dict(dict(
+            num_steps=12, snapshot_every=5, log_every=3, alpha=0.05,
+            seed=0, algorithm=algorithm_name), **kw))
+
+    monkeypatch.setattr(train_steps.transformer, "init_params",
+                        lambda cfg_, seed, device: pytree.tree_map(
+                            lambda t: t.to(device),
+                            init(cfg_, seed, "cpu")))
+    return cfg, loader, tc, trainer
+
+
+@pytest.mark.parametrize("algorithm_name", ["dpsvrg", "dspg"])
+def test_train_sweep_on_card_matches_train_loop_and_cpu(cuda_device,
+                                                        monkeypatch,
+                                                        algorithm_name):
+    """train_sweep on the card: the cells equal the same sweep on the CPU
+    and each its sequential resident train_loop on the card."""
+    cfg, loader, tc, trainer = _smoke_lm(monkeypatch, algorithm_name)
+    sched = graphs.b_connected_ring_schedule(4, b=2, seed=0)
+    grid = {"lam": [1e-6, 1e-4], "alpha": [0.05, 0.02]}
+    res = trainer.train_sweep(cfg, prox.l1, sched, loader(), tc(), grid,
+                              ExecSpec(resident=True), mode="zip")
+    cpu = trainer.train_sweep(cfg, prox.l1, sched, loader(), tc(), grid,
+                              ExecSpec(resident=True, device="cpu"),
+                              mode="zip")
+    assert res["transfers"] == {"h2d": 1, "d2h": 1}
+    np.testing.assert_allclose(res["loss"], cpu["loss"], rtol=1e-4,
+                               atol=1e-5)
+    for i, cell in enumerate(res["grid"]):
+        seq = trainer.train_loop(cfg, prox.l1(cell["lam"]), sched, loader(),
+                                 tc(alpha=cell["alpha"]),
+                                 exec=ExecSpec(resident=True))
+        np.testing.assert_allclose(np.asarray(res["loss"])[:, i],
+                                   seq["loss"], rtol=1e-4, atol=1e-5)
+
+
+def test_device_sampled_training_on_card_matches_cpu_and_resumes(
+        cuda_device, monkeypatch, tmp_path):
+    """Device-sampled training on the card draws the CPU's windows (within
+    float32 tolerance of the CPU's losses) and resumes bitwise."""
+    import shutil
+    from repro_torch import checkpoint
+    cfg, loader, tc, trainer = _smoke_lm(monkeypatch)
+    sched = graphs.b_connected_ring_schedule(4, b=2, seed=0)
+    spec = ExecSpec(resident=True, sampling="device")
+    cpu = trainer.train_loop(cfg, prox.l1(1e-6), sched, loader(), tc(),
+                             exec=spec.replace(device="cpu"))
+    d = str(tmp_path / "full")
+    full = trainer.train_loop(cfg, prox.l1(1e-6), sched, loader(),
+                              tc(ckpt_dir=d, ckpt_every=6), exec=spec)
+    np.testing.assert_allclose(full["loss"], cpu["loss"], rtol=1e-4,
+                               atol=1e-5)
+    crash = str(tmp_path / "crash")
+    shutil.copytree(d, crash)
+    shutil.rmtree(os.path.join(crash, "step_00000012"))
+    res = trainer.train_loop(cfg, prox.l1(1e-6), sched, loader(),
+                             tc(ckpt_dir=crash, ckpt_every=6), exec=spec,
+                             resume=True)
+    by_step = dict(zip(full["step"], full["loss"]))
+    assert res["step"] == [6, 9, 11]
+    assert [by_step[s] for s in res["step"]] == res["loss"]
+    for a, b in zip(checkpoint.flatten_with_paths(res["final_state"]),
+                    checkpoint.flatten_with_paths(full["final_state"])):
+        assert torch.equal(a[1], b[1]), a[0]

@@ -182,9 +182,11 @@ def test_launch_train_then_serve_the_consensus(tmp_path, capsys):
                               "--ckpt-dir", d, "--ckpt-every", "2",
                               "--device", "cpu", "--host", "--resume"])
     assert hist["step"][0] == 2 and tckpt.latest_step(d) == 4
-    with pytest.raises(NotImplementedError, match=r"item 5 \(d\)"):
-        launch_train.main(["--steps", "2", "--device", "cpu",
-                           "--sampling", "device"])
+    # --sampling device draws the windows on the device, and runs
+    hist = launch_train.main(["--steps", "2", "--device", "cpu",
+                              "--sampling", "device"])
+    assert hist["transfers"] == {"h2d": 1, "d2h": 2}
+    assert np.all(np.isfinite(hist["loss"]))
 
 
 def test_launch_train_module_runs_as_a_script(tmp_path):

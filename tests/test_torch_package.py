@@ -1,7 +1,8 @@
 """The port as a package: it imports neither JAX nor the JAX package, its
 entry points run on the CUDA device unless asked for the CPU, it converts
-parameters to and from the JAX package's numpy layout, and it refuses, by
-name, what it has not ported yet."""
+parameters to and from the JAX package's numpy layout, it runs every
+execution mode of ``ExecSpec`` on one device, and it refuses, by name,
+what it has not ported yet."""
 
 import os
 import subprocess
@@ -100,8 +101,6 @@ def test_params_round_trip_through_numpy():
 
 
 @pytest.mark.parametrize("spec_kw,match", [
-    (dict(scan=True), "Queue 1 item 5"),
-    (dict(resident=True, sampling="device"), "Queue 1 item 5"),
     (dict(gossip="ppermute"), "Queue 1 item 14"),
     (dict(resident=True, gossip="ppermute"), "Queue 1 item 14"),
 ])
@@ -112,6 +111,31 @@ def test_unported_paths_raise_by_name(spec_kw, match):
         trunner.run(build(talgorithm, "dspg", tp), tp,
                     tgraphs.b_connected_ring_schedule(8, 1), TExecSpec(**kw),
                     record_every=10)
+
+
+# DSPG, 150 steps recorded every 10: 15 record windows, each one chunk on
+# the scan path (one upload each) and one pull a record (16 with the first,
+# doubled by the consensus); the resident path stages once and pulls once
+@pytest.mark.parametrize("spec_kw,ledger", [
+    (dict(scan=True), (15, 32)),
+    (dict(resident=True, sampling="device"), (1, 1)),
+    (dict(resident=True, sampling="device", kernel="fused"), (1, 1)),
+])
+def test_scan_and_device_sampling_run(spec_kw, ledger):
+    """The modes once refused by name (ROADMAP Queue 1 item 5 (c), (d))
+    run: the ledger of their path, a finite history that falls."""
+    _, tp = problems()
+    res = trunner.run(build(talgorithm, "dspg", tp), tp,
+                      tgraphs.b_connected_ring_schedule(8, 1),
+                      TExecSpec(gossip="dense", device="cpu", **spec_kw),
+                      record_every=10)
+    assert (res.extras["transfers_h2d"], res.extras["transfers_d2h"]) == \
+        ledger
+    h = res.history
+    assert len(h.objective) == 16
+    assert np.all(np.isfinite(h.objective)) and \
+        np.all(np.isfinite(h.consensus))
+    assert h.objective[-1] < h.objective[0]
 
 
 def test_unported_algorithm_features_raise_by_name():

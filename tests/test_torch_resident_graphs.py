@@ -322,3 +322,42 @@ def test_a_state_that_changes_structure_is_refused():
     pg._adopt((torch.zeros(1),))
     with pytest.raises(ValueError, match="structure"):
         pg._adopt((torch.zeros(1), torch.zeros(1)))
+
+
+@pytest.mark.parametrize("name", ["dpsvrg", "dspg", "loopless_dpsvrg", "dvr",
+                                  "gt_svrg"])
+def test_graph_executor_with_device_sampling(name, monkeypatch,
+                                            counted_fused):
+    """Device sampling under graphs: each piece's static input holds its
+    steps' numbers, from which the captured draw computes the indices, so
+    replays equal the eager executor bit for bit."""
+    eager = run(name, kernel="fused", sampling="device")
+    eager_launches = ops.launches
+    made = use_cpu_graphs(monkeypatch)
+    got = run(name, kernel="fused", sampling="device")
+    assert_same_run(eager, got)
+    assert ops.launches == 2 * eager_launches
+    assert made[0].graphs_built >= 1 and made[0].replays >= 1
+    # another stream from the host-sampled run
+    host = run(name, kernel="fused")
+    assert not np.array_equal(host.params.numpy(), got.params.numpy())
+
+
+@pytest.mark.parametrize("name", ["dpsvrg", "loopless_dpsvrg"])
+def test_scan_path_through_the_graph_executor(name, monkeypatch):
+    """The scan path runs its record windows as the same pieces: through
+    the graph executor it equals its eager run bit for bit, and its
+    scan_executable_count is the graphs the run built."""
+    _, tp = problems()
+    sched = graphs.b_connected_ring_schedule(M, 1)
+    spec = ExecSpec(scan=True, gossip="dense", device="cpu")
+    every = 0 if name == "dpsvrg" else 10
+    eager = runner.run(make(name, tp), tp, sched, spec, record_every=every)
+    made = use_cpu_graphs(monkeypatch)
+    algo = make(name, tp)
+    got = runner.run(algo, tp, sched, spec, record_every=every)
+    assert_same_run(eager, got)
+    (pg,) = made
+    assert got.extras["graphs_built"] == pg.graphs_built >= 2
+    assert runner.scan_executable_count(algo) == pg.graphs_built
+    assert pg.graphs_built <= math.log2(runner.MAX_PIECE) + 1

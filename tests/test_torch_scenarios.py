@@ -399,12 +399,12 @@ def test_scenario_mix_matches_reference(bits):
                                    np.asarray(jstate.sent), **MIX_TOL)
 
 
-@pytest.mark.parametrize("path", ["host", "resident"])
+@pytest.mark.parametrize("path", ["host", "resident", "scan"])
 @pytest.mark.parametrize("name", ["loopless_dpsvrg", "gt_svrg"])
 def test_stale_straggler_histories_match_reference(name, path):
     """Delay + straggler gossip through the algorithm's mix-state slot
-    (gt_svrg threads a pair of states), the port's host loop and resident
-    path against the reference's host loop."""
+    (gt_svrg threads a pair of states), the port's host loop, resident
+    path and scan path against the reference's host loop."""
     jp, tp = _problems()
     models = [jsc.StaleGossip(2), jsc.Stragglers(2.0)]
     jsched, jb = jsc.apply(_ring(jgraphs), models, seed=6)
@@ -413,7 +413,8 @@ def test_stale_straggler_histories_match_reference(name, path):
                        JExecSpec(gossip=jb), seed=2, record_every=5)
     got = trunner.run(_factory(talgorithm, name, tp), tp, tsched,
                       TExecSpec(gossip=tb, device="cpu",
-                                resident=path == "resident"),
+                                resident=path == "resident",
+                                scan=path == "scan"),
                       seed=2, record_every=5)
     for field in ("steps", "epochs", "comm_rounds"):
         np.testing.assert_array_equal(getattr(got.history, field),

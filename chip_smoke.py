@@ -56,11 +56,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    phases 6-8 must replay CUDA graphs;
 9. holds the RMSNorm and flash attention kernels against their plain
    versions on the card (RMSNorm: rows in {1, 3, 4, 8, 6144}, d in {1, 7,
-   128, 2304, 2560, 3584} and the first width past the register tiles;
-   flash: causal, window, softcap, GQA, bidirectional and ragged shapes,
-   head_dim in {32, 33, 80, 128, 256}, and the h2o-danube prefill at
-   L = 6144; float32 within rtol 1e-5 / atol 2e-5, bf16 within the
-   element-wise bound ``ref.bf16_bound``), and times kernel, eager call,
+   128, 2304, 2560, 3584, 5120} and the first width past the register
+   tiles; flash: causal, window, softcap, GQA, bidirectional and ragged
+   shapes, head_dim in {32, 33, 80, 128, 160, 256}, and the 6144-token
+   prefills of h2o-danube-1.8b, stablelm-12b and scout's global layer;
+   float32 within rtol 1e-5 / atol 2e-5, bf16 within the element-wise
+   bound ``ref.bf16_bound``), and times kernel, eager call,
    plain version, ``F.rms_norm`` / ``F.scaled_dot_product_attention``
    (``library_ms``, timed only), a copy of RMSNorm's input (``copy_ms``,
    the memory rate's yardstick) and the bound, with ``share_of_bound``
@@ -182,14 +183,45 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     ``sampling="device"``, 10 steps, and a run stopped at step 5 with its
     checkpoint (under ``build/phase19``, removed after) resumed to step
     10 bitwise the uninterrupted run;
-20. prints the card, a ``{"kernels": [...]}`` line (all seven kernels,
+21. serves stablelm-12b at full width and depth (40 layers, 12.1 B
+    parameters, 48.6 GB of float32 weights from a seed; LayerNorm and
+    qk-norm, flash at head_dim 160 on every layer) through phase 11's
+    engine and requests (``stablelm_serve`` line): flash launches exactly
+    40 a prefill and no RMSNorm launch, tokens equal to the host
+    batcher's, each prefill's last logits and the teacher-forced decode
+    logits within 1e-3 of the plain path, then a short Poisson stream
+    (TTFT, TPOT); prints ms a prefill and a decode step and the peak;
+22. the same for llama4-scout-17b-a16e at full width cut to 4 layers
+    (9.84 B parameters, 39.4 GB; layers 0-2 chunked-local on the plain
+    path, layer 3 global with NoPE through flash; a 16-expert top-1 MoE
+    with a shared expert on every layer): RMSNorm exactly 9 launches a
+    forward, flash 1 a prefill; the tokens capacity drops, by batch size;
+    then layer 0's MoE at full width on a 512-token input held to the same
+    layer on the CPU (routing exactly equal, the output within 1e-4 of its
+    largest magnitude; the tokens dropped per expert) (``scout_serve``);
+23. the same for llama4-maverick-400b-a17b at full width cut to 2 layers
+    in bf16 (17.5 B parameters, 35.0 GB; layer 1 a 128-expert MoE, both
+    layers chunked, so no flash launch): RMSNorm exactly 5 launches a
+    forward, tokens equal to the host batcher's (capacity is 1 an expert
+    at 4 slots: the decode drops are printed), every RMSNorm site of a
+    prefill held to its plain version within the bf16 tolerance; the
+    logits of the bf16 kernel and plain paths are printed, not held (a
+    last-bit difference at a routing near-tie moves a token to another
+    expert) (``maverick_serve``);
+24. trains scout's smoke variant at 4 layers on the card with the aux in
+    the loss (m = 4, resident): each step held to the CPU's step from the
+    same state, two runs bit for bit equal, a resume from step 6 bitwise
+    (``moe_train``);
+25. prints the card, a ``{"kernels": [...]}`` line (all seven kernels,
     each with its ``share_of_bound``; RMSNorm and flash also with
-    ``launches_consensus_serve``, phase 16's count; fused_step_cells with
-    ``launches_scenarios``, phase 17's cell-batched count, and fused_step
-    with the single launches of phase 17's sequential runs; fused_step and
-    fused_step_cells with ``launches_exec_modes``, phase 19's counts),
-    and last ``{"ok": true, "device": {...}}``.  (Until phase 19 came,
-    these final lines were phase 18.)
+    ``launches_consensus_serve``, phase 16's count, and
+    ``launches_{stablelm,scout,maverick}_serve``, phases 21-23's;
+    fused_step_cells with ``launches_scenarios``, phase 17's cell-batched
+    count, and fused_step with the single launches of phase 17's
+    sequential runs; fused_step and fused_step_cells with
+    ``launches_exec_modes``, phase 19's counts),
+    and last ``{"ok": true, "device": {...}}``.  (Until phase 21 came,
+    these final lines were phase 20.)
 
 Needs one card; exits non-zero without one, and without the repository
 around it.
@@ -231,7 +263,7 @@ from repro_torch.kernels.rmsnorm import kernel as rn_kernel  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rn_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as rn_ref  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import moe, transformer  # noqa: E402
 from repro_torch.serve import consensus  # noqa: E402
 from repro_torch.serve import metrics as serve_metrics  # noqa: E402
 from repro_torch.serve import stream as serve_stream  # noqa: E402
@@ -928,12 +960,18 @@ FLASH_F32_TOL = dict(rtol=1e-5, atol=2e-5)
 RMS_ROWS = [1, 3, 4, 8, 6144]
 # widths around the kernel's register tiles: ragged (1, 7: the scalar
 # two-pass path), the smoke variants' 128, the models' 2304 (minicpm), 2560
-# (h2o-danube) and 3584 (gemma2), and the first width past the widest row
-# held in registers (two passes; 10,248 float32, 20,488 bf16)
-RMS_DIMS = [1, 7, 128, 2304, 2560, 3584, "register+8"]
+# (h2o-danube), 3584 (gemma2) and 5120 (the llama4 configs), and the first
+# width past the widest row held in registers (two passes; 10,248 float32,
+# 20,488 bf16)
+RMS_DIMS = [1, 7, 128, 2304, 2560, 3584, 5120, "register+8"]
 # the shape of the kernels line: a decode step of the serving path (4 slots)
 RMS_LINE_SHAPE = (4, 2560)
-# b, h, kv, sq, sk, hd, causal, window, softcap
+# b, h, kv, sq, sk, hd, causal, window, softcap: the prefills of 6144
+# tokens of h2o-danube-1.8b, stablelm-12b (head_dim 160) and scout's global
+# NoPE layer (head_dim 128)
+DANUBE_FLASH_CASE = (1, 32, 8, 6144, 6144, 80, True, 4096, None)
+STABLELM_FLASH_CASE = (1, 32, 8, 6144, 6144, 160, True, None, None)
+SCOUT_FLASH_CASE = (1, 40, 8, 6144, 6144, 128, True, None, None)
 FLASH_CASES = [
     (1, 4, 2, 128, 128, 64, True, None, None),      # GQA 2x, causal
     (2, 4, 4, 256, 256, 32, True, None, None),      # MHA, batch 2
@@ -944,9 +982,8 @@ FLASH_CASES = [
     (1, 4, 4, 200, 200, 128, False, 37, None),      # bidirectional + window
     (1, 4, 2, 300, 300, 256, True, 100, 50.0),      # gemma2's head_dim 256
     (1, 4, 2, 130, 130, 33, True, None, None),      # hd % 4 != 0: loads
-    (1, 32, 8, 6144, 6144, 80, True, 4096, None),   # h2o-danube prefill
+    DANUBE_FLASH_CASE, STABLELM_FLASH_CASE, SCOUT_FLASH_CASE,
 ]
-DANUBE_FLASH_CASE = FLASH_CASES[-1]
 
 
 def bound(nbytes: float, flops: float, dtype=torch.float32):
@@ -1225,15 +1262,211 @@ class TimedEngine(ResidentEngine):
         self.chunk_ms.append((time.perf_counter() - t0) * 1e3)
 
 
-def danube_requests(vocab: int) -> list:
-    rng = np.random.default_rng(DANUBE_SEED)
+def _requests(vocab: int, prompts, new: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
     return [Request(uid=i, tokens=rng.integers(0, vocab, size=n)
-                    .astype(np.int32), max_new_tokens=DANUBE_NEW)
-            for i, n in enumerate(DANUBE_PROMPTS)]
+                    .astype(np.int32), max_new_tokens=new)
+            for i, n in enumerate(prompts)]
+
+
+def danube_requests(vocab: int) -> list:
+    return _requests(vocab, DANUBE_PROMPTS, DANUBE_NEW, DANUBE_SEED)
+
+
+class _DropCounter:
+    """Counts the tokens that capacity drops in each MoE routing, split by
+    batch size (a decode step routes one token a slot), while installed in
+    place of ``moe.route``."""
+
+    def __init__(self):
+        self.dropped: dict[int, int] = {}
+        self.routed: dict[int, int] = {}
+        self._route = moe.route
+
+    def __enter__(self):
+        def counted(params, spec, xt):
+            out = self._route(params, spec, xt)
+            t = int(xt.shape[0])
+            self.dropped[t] = self.dropped.get(t, 0) + int(
+                (~out[4]).sum())
+            self.routed[t] = self.routed.get(t, 0) + out[4].numel()
+            return out
+        moe.route = counted
+        return self
+
+    def __exit__(self, *exc):
+        moe.route = self._route
+
+
+def _rmsnorm_sites(cfg, params, toks, max_len) -> dict:
+    """One kernel-path prefill with every RMSNorm launch held to its plain
+    version on the same input (RMS_BF16_TOL for bf16): the model's own
+    activations at each norm site.  Returns the sites and the largest
+    error."""
+    launch = rn_ops.rmsnorm
+    errs = []
+
+    def held(x, w):
+        out = launch(x, w)
+        plain = rn_ref.rmsnorm_ref(x, w)
+        tol = RMS_F32_TOL if x.dtype == torch.float32 else RMS_BF16_TOL
+        torch.testing.assert_close(out, plain, **tol)
+        errs.append(float((out.float() - plain.float()).abs().max()))
+        return out
+
+    rn_ops.rmsnorm = held
+    try:
+        transformer.prefill(cfg, params, toks, max_len=max_len)
+    finally:
+        rn_ops.rmsnorm = launch
+    return {"sites": len(errs), "max_abs_err": max(errs)}
+
+
+def _check_served(cfg, params, reqs, outs, *, slots: int, max_len: int,
+                  device) -> dict:
+    """Phase 11's checks of a serving run's tokens ``outs``: the host
+    ContinuousBatcher on the same requests gives the same tokens (in an
+    MoE model both decode the same rows, so the capacity a decode batch
+    shares routes them alike; the drops its routings take are counted);
+    then each prompt's prefill and teacher-forced decode on the kernel and
+    the plain path: float32 logits within LOGIT_TOL, bf16 logits recorded
+    and every RMSNorm site of a prefill held to its plain version."""
+    host = ContinuousBatcher(cfg, params, max_slots=slots, max_len=max_len)
+    for r in reqs:
+        host.submit(r)
+    with _DropCounter() as drops:
+        host_out = host.run_until_done()
+    for r in reqs:
+        if not np.array_equal(host_out[r.uid], outs[r.uid]):
+            fail(f"{cfg.name}: request {r.uid}: resident engine and host "
+                 f"batcher tokens differ")
+    del host
+    _free_card()
+    result = {}
+    if drops.routed:
+        result["moe_dropped"] = {
+            f"batch_{t}": {"dropped": drops.dropped[t],
+                           "routed": drops.routed[t]}
+            for t in sorted(drops.routed)}
+    plain_cfg = cfg.scaled(use_flash=False, use_fused_norm=False)
+    bf16 = cfg.param_dtype == "bfloat16"
+    prefill_err = decode_err = 0.0
+    agree = total = 0
+    kernel_ms, plain_ms = {}, {}
+    for r in reqs:
+        toks = torch.as_tensor(r.tokens, device=device)[None]
+        _sync(device)
+        t0 = time.perf_counter()
+        lk, ck = transformer.prefill(cfg, params, toks, max_len=max_len)
+        _sync(device)
+        t1 = time.perf_counter()
+        lp, cp = transformer.prefill(plain_cfg, params, toks,
+                                     max_len=max_len)
+        _sync(device)
+        kernel_ms[len(r.tokens)] = (t1 - t0) * 1e3
+        plain_ms[len(r.tokens)] = (time.perf_counter() - t1) * 1e3
+        if not bool(torch.isfinite(lk).all()) or \
+                tuple(lk.shape) != (1, cfg.vocab_size):
+            fail(f"{cfg.name}: prefill logits of shape {tuple(lk.shape)}, "
+                 f"not all finite")
+        if not bf16:
+            torch.testing.assert_close(lk, lp, **LOGIT_TOL)
+        prefill_err = max(prefill_err, float((lk - lp).abs().max()))
+        out = outs[r.uid]
+        agree += int(int(lk.argmax()) == int(out[0]))
+        total += 1
+        for t in range(len(out) - 1):
+            tok = torch.tensor([int(out[t])], dtype=torch.int32,
+                               device=device)
+            lk, ck = transformer.decode_step(cfg, params, ck, tok)
+            lp, cp = transformer.decode_step(plain_cfg, params, cp, tok)
+            if not bf16:
+                torch.testing.assert_close(lk, lp, **LOGIT_TOL)
+            decode_err = max(decode_err, float((lk - lp).abs().max()))
+            agree += int(int(lk.argmax()) == int(out[t + 1]))
+            total += 1
+        del ck, cp
+    _free_card()
+    result.update({
+        "prefill_ms": {str(k): v for k, v in sorted(kernel_ms.items())},
+        "plain_prefill_ms": {str(k): v for k, v in sorted(plain_ms.items())},
+        "max_abs_logit_err_prefill": prefill_err,
+        "max_abs_logit_err_decode": decode_err,
+        "greedy_batch1_agrees": f"{agree}/{total}"})
+    if bf16 and cfg.use_fused_norm:
+        toks = torch.as_tensor(reqs[0].tokens, device=device)[None]
+        result["rmsnorm_sites"] = _rmsnorm_sites(cfg, params, toks, max_len)
+    return result
+
+
+def serve_model(tag: str, cfg, params, reqs, *, slots: int, max_len: int,
+                chunk: int, flash_per_prefill: int, rms_per_forward: int,
+                stream: serve_stream.StreamConfig, device=SERVE_DEVICE
+                ) -> dict:
+    """Serves ``reqs`` through the ResidentEngine (the main path: launch
+    counts set to 0 just before and read just after, and exact), holds its
+    tokens to the host batcher and its logits to the plain path
+    (``_check_served``), then replays ``stream`` through the engine (TTFT,
+    TPOT)."""
+    _free_card()
+    _peak_reset(device)
+    eng = TimedEngine(cfg, params, max_slots=slots, max_len=max_len,
+                      chunk=chunk)
+    for r in reqs:
+        eng.submit(r)
+    rn_ops.launches = 0
+    fa_ops.launches = 0
+    t0 = time.perf_counter()
+    outs = eng.run_until_done()
+    _sync(device)
+    wall_s = time.perf_counter() - t0
+    flash_n, rms_n = fa_ops.launches, rn_ops.launches
+    chunks = eng.transfers["chunks"]
+    steps_n = chunks * chunk
+    want = (flash_per_prefill * len(reqs),
+            rms_per_forward * (len(reqs) + steps_n)) \
+        if device != "cpu" else (0, 0)
+    if (flash_n, rms_n) != want:
+        fail(f"{tag}: {flash_n} flash and {rms_n} rmsnorm launches, want "
+             f"{want[0]} and {want[1]}")
+    if eng.transfers != {"h2d": len(reqs), "d2h": chunks, "chunks": chunks}:
+        fail(f"{tag}: transfers {eng.transfers}")
+    for r in reqs:
+        if len(outs[r.uid]) != r.max_new_tokens:
+            fail(f"{tag}: request {r.uid} gave {len(outs[r.uid])} tokens")
+    tokens = sum(len(v) for v in outs.values())
+    result = {"launches": {"flash_attention": flash_n, "rmsnorm": rms_n},
+              "transfers": dict(eng.transfers), "decode_steps": steps_n,
+              "wall_s": wall_s, "tokens": tokens,
+              "tokens_per_s": tokens / wall_s,
+              "engine_prefill_ms": {str(k): v for k, v in
+                                    sorted(eng.prefill_ms.items())},
+              "chunk_ms": statistics.median(eng.chunk_ms),
+              "chunk_ms_each": eng.chunk_ms,
+              "decode_step_ms": statistics.median(eng.chunk_ms) / chunk,
+              "max_memory_allocated_bytes": _peak(device)}
+    del eng
+    _free_card()
+    result.update(_check_served(cfg, params, reqs, outs, slots=slots,
+                                max_len=max_len, device=device))
+
+    stream_reqs = serve_stream.make_requests(stream)
+    eng = ResidentEngine(cfg, params, max_slots=slots, max_len=max_len,
+                         chunk=chunk)
+    summary = serve_metrics.summarize(serve_stream.replay(eng, stream_reqs))
+    want = sum(r.max_new_tokens for r in stream_reqs)
+    if summary["requests"] != len(stream_reqs) or summary["tokens"] != want:
+        fail(f"{tag} stream: {summary['requests']} requests, "
+             f"{summary['tokens']} tokens, want {len(stream_reqs)}, {want}")
+    result["stream"] = dict(summary, rate=stream.rate)
+    del eng
+    result["peak_bytes"] = _peak(device)
+    _free_card()
+    return result
 
 
 def serve_danube() -> dict:
-    """Phase 11.  Returns the numbers of the serving run."""
+    """Phases 11-12.  Returns the numbers of the serving run."""
     cfg = configs.get_config("h2o-danube-1.8b").scaled(
         use_flash=True, use_fused_norm=True)
     t0 = time.perf_counter()
@@ -1242,106 +1475,17 @@ def serve_danube() -> dict:
     print(f"danube: {transformer.param_count(params)} parameters (f32) on "
           f"the card in {time.perf_counter() - t0:.1f} s", flush=True)
     reqs = danube_requests(cfg.vocab_size)
-
-    # the main path: counts set to 0 just before, read just after
-    torch.cuda.reset_peak_memory_stats()
-    eng = TimedEngine(cfg, params, max_slots=DANUBE_SLOTS,
-                      max_len=DANUBE_MAX_LEN, chunk=DANUBE_CHUNK)
-    for r in reqs:
-        eng.submit(r)
-    rn_ops.launches = 0
-    fa_ops.launches = 0
-    t0 = time.perf_counter()
-    outs = eng.run_until_done()
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    flash_n, rms_n = fa_ops.launches, rn_ops.launches
-    peak = torch.cuda.max_memory_allocated()
-    chunks = eng.transfers["chunks"]
-    steps = chunks * DANUBE_CHUNK
-    want_flash = cfg.num_layers * len(reqs)
-    want_rms = (2 * cfg.num_layers + 1) * (len(reqs) + steps)
-    if flash_n != want_flash:
-        fail(f"danube: {flash_n} flash launches, want {want_flash}")
-    if rms_n != want_rms:
-        fail(f"danube: {rms_n} rmsnorm launches, want {want_rms}")
-    want_transfers = {"h2d": len(reqs), "d2h": chunks, "chunks": chunks}
-    if eng.transfers != want_transfers:
-        fail(f"danube: transfers {eng.transfers} != {want_transfers}")
-    tokens = 0
-    for r in reqs:
-        if len(outs[r.uid]) != DANUBE_NEW:
-            fail(f"danube: request {r.uid} gave {len(outs[r.uid])} tokens")
-        tokens += len(outs[r.uid])
-    result = {"launches": {"flash_attention": flash_n, "rmsnorm": rms_n},
-              "transfers": dict(eng.transfers), "decode_steps": steps,
-              "wall_s": wall_s, "tokens": tokens,
-              "tokens_per_s": tokens / wall_s,
-              "engine_prefill_ms": {str(k): v for k, v in
-                                    sorted(eng.prefill_ms.items())},
-              "chunk_ms": statistics.median(eng.chunk_ms),
-              "chunk_ms_each": eng.chunk_ms,
-              "decode_step_ms": statistics.median(eng.chunk_ms)
-              / DANUBE_CHUNK,
-              "max_memory_allocated_bytes": peak}
-    del eng
-    torch.cuda.empty_cache()
-
-    # the host batcher on the same requests: the same tokens
-    host = ContinuousBatcher(cfg, params, max_slots=DANUBE_SLOTS,
-                             max_len=DANUBE_MAX_LEN)
-    for r in reqs:
-        host.submit(r)
-    host_out = host.run_until_done()
-    for r in reqs:
-        if not np.array_equal(host_out[r.uid], outs[r.uid]):
-            fail(f"danube: request {r.uid}: resident engine and host "
-                 f"batcher tokens differ")
-    del host
-    torch.cuda.empty_cache()
-
-    # kernel path vs plain path: each prefill's last logits, then the
-    # decode logits with the engine's tokens fed back (teacher forcing)
-    plain_cfg = cfg.scaled(use_flash=False, use_fused_norm=False)
-    prefill_err = decode_err = 0.0
-    greedy_agree = greedy_total = 0
-    kernel_ms, plain_ms = {}, {}
-    for r in reqs:
-        toks = torch.as_tensor(r.tokens, device=SERVE_DEVICE)[None]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        lk, ck = transformer.prefill(cfg, params, toks,
-                                     max_len=DANUBE_MAX_LEN)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        lp, cp = transformer.prefill(plain_cfg, params, toks,
-                                     max_len=DANUBE_MAX_LEN)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        kernel_ms[len(r.tokens)] = (t1 - t0) * 1e3
-        plain_ms[len(r.tokens)] = (t2 - t1) * 1e3
-        torch.testing.assert_close(lk, lp, **LOGIT_TOL)
-        prefill_err = max(prefill_err, float((lk - lp).abs().max()))
-        out = outs[r.uid]
-        greedy_agree += int(int(lk.argmax()) == int(out[0]))
-        greedy_total += 1
-        for t in range(len(out) - 1):
-            tok = torch.tensor([int(out[t])], dtype=torch.int32,
-                               device=SERVE_DEVICE)
-            lk, ck = transformer.decode_step(cfg, params, ck, tok)
-            lp, cp = transformer.decode_step(plain_cfg, params, cp, tok)
-            torch.testing.assert_close(lk, lp, **LOGIT_TOL)
-            decode_err = max(decode_err, float((lk - lp).abs().max()))
-            greedy_agree += int(int(lk.argmax()) == int(out[t + 1]))
-            greedy_total += 1
-        del ck, cp
-    torch.cuda.empty_cache()
-    result.update({
-        "prefill_ms": {str(k): v for k, v in sorted(kernel_ms.items())},
-        "plain_prefill_ms": {str(k): v for k, v in sorted(plain_ms.items())},
-        "max_abs_logit_err_prefill": prefill_err,
-        "max_abs_logit_err_decode": decode_err,
-        "greedy_batch1_agrees": f"{greedy_agree}/{greedy_total}"})
+    # phase 12's stream: a seeded Poisson stream through the same model
+    stream = serve_stream.StreamConfig(
+        num_requests=8, vocab_size=cfg.vocab_size, arrival="poisson",
+        rate=STREAM_RATE, prompt_lens=(512, 2048, 6144), new_low=16,
+        new_high=32, seed=DANUBE_SEED)
+    result = serve_model("danube", cfg, params, reqs, slots=DANUBE_SLOTS,
+                         max_len=DANUBE_MAX_LEN, chunk=DANUBE_CHUNK,
+                         flash_per_prefill=cfg.num_layers,
+                         rms_per_forward=2 * cfg.num_layers + 1,
+                         stream=stream, device=SERVE_DEVICE)
+    summary = result.pop("stream")
 
     # where the card's time goes: one prefill and one decode chunk, traced
     from torch.profiler import ProfilerActivity, profile
@@ -1362,27 +1506,10 @@ def serve_danube() -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     result["profile_prefill2048_and_chunk"] = device_busy(prof, wall_us)
-    del eng
-    torch.cuda.empty_cache()
-    print("danube_serve " + json.dumps(result), flush=True)
-
-    # phase 12: a seeded Poisson stream through the same model
-    sc = serve_stream.StreamConfig(
-        num_requests=8, vocab_size=cfg.vocab_size, arrival="poisson",
-        rate=STREAM_RATE, prompt_lens=(512, 2048, 6144), new_low=16,
-        new_high=32, seed=DANUBE_SEED)
-    stream_reqs = serve_stream.make_requests(sc)
-    eng = ResidentEngine(cfg, params, max_slots=DANUBE_SLOTS,
-                         max_len=DANUBE_MAX_LEN, chunk=DANUBE_CHUNK)
-    summary = serve_metrics.summarize(serve_stream.replay(eng, stream_reqs))
-    want = sum(r.max_new_tokens for r in stream_reqs)
-    if summary["requests"] != len(stream_reqs) or summary["tokens"] != want:
-        fail(f"danube stream: {summary['requests']} requests, "
-             f"{summary['tokens']} tokens, want {len(stream_reqs)}, {want}")
-    print("danube_stream " + json.dumps(dict(summary, rate=STREAM_RATE)),
-          flush=True)
     del eng, params
-    torch.cuda.empty_cache()
+    _free_card()
+    print("danube_serve " + json.dumps(result), flush=True)
+    print("danube_stream " + json.dumps(summary), flush=True)
     return result
 
 
@@ -1860,40 +1987,6 @@ def _steady_ms(hist) -> float:
     return (t[15] - t[10]) / 5 * 1e3
 
 
-def _check_served(cfg, plain_cfg, params, reqs, outs, device) -> dict:
-    """Phase 11's checks at this phase's size: tokens equal the host
-    batcher's; each prefill's last logits and the teacher-forced decode
-    logits within LOGIT_TOL of the plain path."""
-    host = ContinuousBatcher(cfg, params, max_slots=len(reqs),
-                             max_len=TRAIN_MAX_LEN)
-    for r in reqs:
-        host.submit(r)
-    host_out = host.run_until_done()
-    for r in reqs:
-        if not np.array_equal(host_out[r.uid], outs[r.uid]):
-            fail(f"consensus serve: request {r.uid}: resident engine and "
-                 f"host batcher tokens differ")
-    del host
-    prefill_err = decode_err = 0.0
-    for r in reqs:
-        toks = torch.as_tensor(r.tokens, device=device)[None]
-        lk, ck = transformer.prefill(cfg, params, toks, max_len=TRAIN_MAX_LEN)
-        lp, cp = transformer.prefill(plain_cfg, params, toks,
-                                     max_len=TRAIN_MAX_LEN)
-        torch.testing.assert_close(lk, lp, **LOGIT_TOL)
-        prefill_err = max(prefill_err, float((lk - lp).abs().max()))
-        out = outs[r.uid]
-        for t in range(len(out) - 1):
-            tok = torch.tensor([int(out[t])], dtype=torch.int32,
-                               device=device)
-            lk, ck = transformer.decode_step(cfg, params, ck, tok)
-            lp, cp = transformer.decode_step(plain_cfg, params, cp, tok)
-            torch.testing.assert_close(lk, lp, **LOGIT_TOL)
-            decode_err = max(decode_err, float((lk - lp).abs().max()))
-    return {"max_abs_logit_err_prefill": prefill_err,
-            "max_abs_logit_err_decode": decode_err}
-
-
 def train_phase(card: str, device="cuda", cfg=None) -> dict:
     """Phase 16.  Returns the numbers of the phase, launches among them.
     To rehearse it on the CPU: ``device="cpu"`` and a small ``cfg`` (a
@@ -2070,10 +2163,7 @@ def _train_phase(cfg, card, device, work, ckpt_saves, ckpt_restores) -> dict:
     print(info, flush=True)
     if info.step != TRAIN_TC["num_steps"] or info.num_nodes != TRAIN_NODES:
         fail(f"consensus: {info}")
-    rng = np.random.default_rng(DANUBE_SEED)
-    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab_size, size=n)
-                    .astype(np.int32), max_new_tokens=TRAIN_NEW)
-            for i, n in enumerate(TRAIN_PROMPTS)]
+    reqs = _requests(cfg.vocab_size, TRAIN_PROMPTS, TRAIN_NEW, DANUBE_SEED)
     eng = TimedEngine(kcfg, params, max_slots=len(reqs),
                       max_len=TRAIN_MAX_LEN, chunk=DANUBE_CHUNK)
     for r in reqs:
@@ -2096,15 +2186,15 @@ def _train_phase(cfg, card, device, work, ckpt_saves, ckpt_restores) -> dict:
     result["serve"] = {"launches": {"flash_attention": flash_n,
                                     "rmsnorm": rms_n},
                        "transfers": dict(eng.transfers),
-                       "prefill_ms": {str(k): v for k, v in
-                                      sorted(eng.prefill_ms.items())},
+                       "engine_prefill_ms": {str(k): v for k, v in
+                                             sorted(eng.prefill_ms.items())},
                        "chunk_ms": statistics.median(eng.chunk_ms),
                        "decode_step_ms": statistics.median(eng.chunk_ms)
                        / DANUBE_CHUNK}
     del eng
     result["serve"].update(_check_served(
-        kcfg, kcfg.scaled(use_flash=False, use_fused_norm=False), params,
-        reqs, outs, device))
+        kcfg, params, reqs, outs, slots=len(reqs), max_len=TRAIN_MAX_LEN,
+        device=device))
     del params
     _free_card()
 
@@ -3127,6 +3217,297 @@ def exec_modes_phase(parts, dim: int, device="cuda", scale=FIG_SCALE,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 21-24: stablelm-12b and the llama4 MoE configs at full width, and
+# MoE training at smoke size
+# ---------------------------------------------------------------------------
+
+MOE_SEED = 0
+# stablelm-12b at full depth: 40 layers of layernorm and qk-norm attention
+# at head_dim 160, 12.1 B parameters (48.6 GB of float32 weights), phase
+# 11's requests and engine (a 10.2 GB cache at head_dim 160)
+# llama4-scout-17b-a16e cut from 48 to 4 layers (9.84 B parameters, 39.4
+# GB of float32): layers 0-2 chunked-local (the plain attention path),
+# layer 3 global with NoPE (flash); a 16-expert MoE with a shared expert
+# on every layer
+SCOUT_LAYERS = 4
+# llama4-maverick-400b-a17b cut from 48 to 2 layers, bf16 (17.5 B
+# parameters, 35.0 GB; float32 would not fit): layer 0 dense, layer 1 a
+# 128-expert MoE; both chunked-local, so no flash launch
+MAVERICK_LAYERS = 2
+MAVERICK_PROMPTS = [256, 512, 1024, 2048, 256, 512, 1024, 2048]
+MAVERICK_NEW = 16
+MAVERICK_MAX_LEN = 2112
+# a short Poisson stream through each model's engine (TTFT, TPOT)
+MOE_STREAM = dict(num_requests=4, prompt_lens=(512, 2048), new_low=16,
+                  new_high=32)
+# one scout MoE layer at full width on the card against the CPU: routing
+# exactly equal, the output within 1e-4 of its largest magnitude (float32
+# products summed in other orders by cuBLAS and the CPU's BLAS)
+MOE_LAYER_TOKENS = 512
+MOE_LAYER_RTOL = 1e-4
+# the MoE training case: scout's smoke variant at 4 layers (a global NoPE
+# layer among them), m = 4 on the b=2 ring, resident, a checkpoint at
+# step 6 of 12
+MOE_TRAIN_TC = dict(num_steps=12, snapshot_every=5, log_every=3,
+                    alpha=0.05, seed=0)
+MOE_TRAIN_CKPT_EVERY = 6
+# a card step against the CPU's step from the same state: the parameter
+# tolerance of tests/test_torch_train.py
+MOE_PARAM_ATOL = 1e-4
+
+
+def _moe_stream(vocab: int) -> serve_stream.StreamConfig:
+    """A short seeded Poisson stream for the engines of phases 21-23."""
+    return serve_stream.StreamConfig(vocab_size=vocab, arrival="poisson",
+                                     rate=STREAM_RATE, seed=MOE_SEED,
+                                     **MOE_STREAM)
+
+
+def _moe_layer_vs_cpu(cfg, params, device) -> dict:
+    """Layer 0's MoE at full width on a 512-token input, on the card and on
+    the CPU: routing exactly equal, the output within MOE_LAYER_RTOL of its
+    largest magnitude; the tokens dropped per expert."""
+    spec = transformer.layer_plan(cfg)[0].moe
+    lp = params["layers"][0]["moe"]
+    gen = torch.Generator(device=device).manual_seed(MOE_SEED)
+    x = torch.randn(1, MOE_LAYER_TOKENS, cfg.d_model, generator=gen,
+                    device=device)
+    y, aux = moe.moe_forward(lp, spec, x)
+    routing = [t.cpu() for t in moe.route(lp, spec, x[0])]
+    cpu_p = {k: v.cpu() for k, v in lp.items()}
+    t0 = time.perf_counter()
+    yc, auxc = moe.moe_forward(cpu_p, spec, x.cpu())
+    cpu_s = time.perf_counter() - t0
+    routing_c = moe.route(cpu_p, spec, x[0].cpu())
+    del cpu_p
+    for name, got, want in zip(("experts", "slots", "keep"), routing[2:],
+                               routing_c[2:]):
+        if not torch.equal(got, want):
+            fail(f"moe layer: {name} differ between the card and the CPU "
+                 f"at {int((got != want).sum())} places")
+    err = float((y.cpu() - yc).abs().max())
+    scale = float(yc.abs().max())
+    if not err <= MOE_LAYER_RTOL * scale:
+        fail(f"moe layer: card vs CPU max abs err {err:.3g} over "
+             f"{MOE_LAYER_RTOL} of the largest |y| {scale:.3g}")
+    experts, keep = routing[2], routing[4]
+    return {"tokens": MOE_LAYER_TOKENS, "experts": spec.num_experts,
+            "capacity": moe.capacity(spec, MOE_LAYER_TOKENS),
+            "max_abs_err": err, "max_abs_y": scale,
+            "aux": float(aux), "aux_cpu": float(auxc),
+            "dropped_per_expert": torch.bincount(
+                experts[~keep], minlength=spec.num_experts).tolist(),
+            "cpu_s": cpu_s}
+
+
+def stablelm_phase(device=SERVE_DEVICE, cfg=None) -> dict:
+    """Phase 21: stablelm-12b at full width and depth, float32, flash on
+    (every layer at head_dim 160; its norms are LayerNorm, not a kernel)."""
+    if cfg is None:
+        cfg = configs.get_config("stablelm-12b")
+    cfg = cfg.scaled(use_flash=True, use_fused_norm=True)
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, MOE_SEED, device=device)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    result = serve_model(
+        "stablelm", cfg, params, danube_requests(cfg.vocab_size),
+        slots=DANUBE_SLOTS, max_len=DANUBE_MAX_LEN, chunk=DANUBE_CHUNK,
+        flash_per_prefill=cfg.num_layers, rms_per_forward=0,
+        stream=_moe_stream(cfg.vocab_size), device=device)
+    result.update(layers=cfg.num_layers,
+                  params=transformer.param_count(params), init_s=init_s)
+    del params
+    _free_card()
+    print("stablelm_serve " + json.dumps(result), flush=True)
+    return result
+
+
+def scout_phase(device=SERVE_DEVICE, cfg=None) -> dict:
+    """Phase 22: llama4-scout-17b-a16e at full width, 4 layers, float32,
+    flash and RMSNorm on; then one MoE layer held to the CPU."""
+    if cfg is None:
+        cfg = configs.get_config("llama4-scout-17b-a16e").scaled(
+            num_layers=SCOUT_LAYERS)
+    cfg = cfg.scaled(use_flash=True, use_fused_norm=True)
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, MOE_SEED, device=device)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    flash_layers = sum(p.attn.chunk is None
+                       for p in transformer.layer_plan(cfg))
+    result = serve_model(
+        "scout", cfg, params, danube_requests(cfg.vocab_size),
+        slots=DANUBE_SLOTS, max_len=DANUBE_MAX_LEN, chunk=DANUBE_CHUNK,
+        flash_per_prefill=flash_layers,
+        rms_per_forward=2 * cfg.num_layers + 1,
+        stream=_moe_stream(cfg.vocab_size), device=device)
+    result.update(layers=cfg.num_layers,
+                  params=transformer.param_count(params), init_s=init_s)
+    result["moe_layer_vs_cpu"] = _moe_layer_vs_cpu(cfg, params, device)
+    del params
+    _free_card()
+    print("scout_serve " + json.dumps(result), flush=True)
+    return result
+
+
+def maverick_phase(device=SERVE_DEVICE, cfg=None) -> dict:
+    """Phase 23: llama4-maverick-400b-a17b at full width, 2 layers, bf16,
+    RMSNorm on (no layer is global, so flash does not run)."""
+    if cfg is None:
+        cfg = configs.get_config("llama4-maverick-400b-a17b").scaled(
+            num_layers=MAVERICK_LAYERS)
+    cfg = cfg.scaled(param_dtype="bfloat16", use_flash=True,
+                     use_fused_norm=True)
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, MOE_SEED, device=device)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    flash_layers = sum(p.attn.chunk is None
+                       for p in transformer.layer_plan(cfg))
+    reqs = _requests(cfg.vocab_size, MAVERICK_PROMPTS, MAVERICK_NEW,
+                     MOE_SEED)
+    result = serve_model(
+        "maverick", cfg, params, reqs, slots=DANUBE_SLOTS,
+        max_len=MAVERICK_MAX_LEN, chunk=DANUBE_CHUNK,
+        flash_per_prefill=flash_layers,
+        rms_per_forward=2 * cfg.num_layers + 1,
+        stream=_moe_stream(cfg.vocab_size), device=device)
+    result.update(layers=cfg.num_layers,
+                  params=transformer.param_count(params), init_s=init_s,
+                  decode_capacity=moe.capacity(
+                      transformer.layer_plan(cfg)[1].moe, DANUBE_SLOTS))
+    del params
+    _free_card()
+    print("maverick_serve " + json.dumps(result), flush=True)
+    return result
+
+
+def _moe_train_run(cfg, device, ckpt_dir=None, resume=False,
+                   init_scale=1.0):
+    """train_loop of ``cfg`` on ``device``, resident, from parameters drawn
+    on the CPU (so the card and the CPU start from the same point), each
+    times ``init_scale``."""
+    toks = synthetic.make_token_stream(50_000, cfg.vocab_size, seed=0)
+    ld = LMLoader(toks.tokens, num_nodes=4, per_node_batch=2, seq_len=32,
+                  seed=1)
+    tc = trainer.TrainerConfig(
+        ckpt_dir=ckpt_dir, ckpt_every=MOE_TRAIN_CKPT_EVERY if ckpt_dir
+        else 0, **MOE_TRAIN_TC)
+    init = transformer.init_params
+    steps.transformer.init_params = \
+        lambda cfg_, seed, device: pytree.tree_map(
+            lambda t: (t * init_scale).to(device), init(cfg_, seed, "cpu"))
+    try:
+        return trainer.train_loop(
+            cfg, prox.l1(1e-6), graphs.b_connected_ring_schedule(
+                4, b=2, seed=0), ld, tc,
+            exec=ExecSpec(resident=True, device=device), resume=resume)
+    finally:
+        steps.transformer.init_params = init
+
+
+def _moe_steps_vs_cpu(cfg, device) -> float:
+    """The trainer's DPSVRG step on the card from the CPU run's state, step
+    by step (snapshot refreshes at MOE_TRAIN_TC's steps): each card step
+    equals the CPU's within TRAIN_LOSS_TOL in the loss and MOE_PARAM_ATOL
+    in every parameter.  Returns the largest loss difference."""
+    bundle = steps.build_train_step(cfg, prox.l1(1e-6), 4,
+                                    algorithm="dpsvrg")
+    toks = synthetic.make_token_stream(50_000, cfg.vocab_size, seed=0)
+    ld = LMLoader(toks.tokens, num_nodes=4, per_node_batch=2, seq_len=32,
+                  seed=1)
+    sched = graphs.b_connected_ring_schedule(4, b=2, seed=0)
+
+    def batch_of(arrays):
+        return {k: torch.from_numpy(v) for k, v in
+                zip(("tokens", "labels"), arrays)}
+
+    def to_card(tree):
+        return pytree.tree_map(lambda t: None if t is None else t.to(device),
+                               tree)
+
+    state = bundle.init_state(0, "cpu")
+    worst = 0.0
+    for k in range(MOE_TRAIN_TC["num_steps"]):
+        if k % MOE_TRAIN_TC["snapshot_every"] == 0:
+            state = bundle.snapshot_step(
+                state, batch_of(ld.gather(ld.sample_starts(8))))
+        batch = batch_of(ld.sample())
+        phi = torch.as_tensor(sched.consensus_rounds(k, 2),
+                              dtype=torch.float32)
+        alpha = MOE_TRAIN_TC["alpha"]
+        card, card_m = bundle.train_step(to_card(state), to_card(batch),
+                                         phi.to(device), alpha)
+        state, m = bundle.train_step(state, batch, phi, alpha)
+        np.testing.assert_allclose(float(card_m["loss"]), float(m["loss"]),
+                                   **TRAIN_LOSS_TOL,
+                                   err_msg=f"moe train step {k}: card vs CPU")
+        worst = max(worst, abs(float(card_m["loss"]) - float(m["loss"])))
+        for (key, a), (_, b) in zip(
+                checkpoint.flatten_with_paths(card.params),
+                checkpoint.flatten_with_paths(state.params)):
+            err = float((a.cpu() - b).abs().max())
+            if not err <= MOE_PARAM_ATOL:
+                fail(f"moe train step {k}: {key} card vs CPU {err:.3g}")
+    return worst
+
+
+def moe_train_phase(device="cuda") -> dict:
+    """Phase 24: scout's smoke variant at 4 layers trained on the card with
+    the aux in the loss: each step held to the CPU's step from the same
+    state, two runs bit for bit equal, a resume from step 6 bitwise the
+    uninterrupted run.  Whole runs on the card and the CPU are not held to
+    each other: routing is discontinuous, and a last-bit difference that
+    flips one token's expert moves the loss by 1e-3 a few steps later.
+    Their gap is printed, beside the CPU's own gap to a CPU run from the
+    init scaled by 1 + 1e-7."""
+    cfg = configs.smoke_variant(configs.get_config(
+        "llama4-scout-17b-a16e")).scaled(num_layers=4)
+    work = os.path.join(ROOT, "build", "phase24")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        step_err = _moe_steps_vs_cpu(cfg, device)
+        cpu = _moe_train_run(cfg, "cpu")
+        cpu_scaled = _moe_train_run(cfg, "cpu", init_scale=1 + 1e-7)
+        full = _moe_train_run(cfg, device, ckpt_dir=os.path.join(work, "a"))
+        twin = _moe_train_run(cfg, device)
+        if full["step"] != cpu["step"]:
+            fail(f"moe train: records {full['step']} vs {cpu['step']}")
+        if twin["loss"] != full["loss"] or not all(
+                torch.equal(a, b) for (_, a), (_, b) in zip(
+                    checkpoint.flatten_with_paths(twin["final_state"]),
+                    checkpoint.flatten_with_paths(full["final_state"]))):
+            fail("moe train: a second run is not bit for bit the first")
+        shutil.rmtree(os.path.join(work, "a", "step_00000012"))
+        res = _moe_train_run(cfg, device, ckpt_dir=os.path.join(work, "a"),
+                             resume=True)
+        by_step = dict(zip(full["step"], full["loss"]))
+        if res["step"] != [6, 9, 11] or \
+                [by_step[s] for s in res["step"]] != res["loss"]:
+            fail(f"moe train resume: records {res['step']} {res['loss']}")
+        for (k, a), (_, b) in zip(
+                checkpoint.flatten_with_paths(res["final_state"]),
+                checkpoint.flatten_with_paths(full["final_state"])):
+            if not torch.equal(a, b):
+                fail(f"moe train resume: state leaf {k} differs")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if not np.all(np.isfinite(full["loss"])):
+        fail(f"moe train: losses {full['loss']}")
+    result = {"steps": full["step"], "loss": full["loss"],
+              "cpu_loss": cpu["loss"], "cpu_scaled_init_loss":
+              cpu_scaled["loss"],
+              "max_abs_step_loss_vs_cpu": step_err,
+              "max_abs_run_loss_vs_cpu": _max_abs(full["loss"], cpu["loss"]),
+              "max_abs_run_loss_cpu_vs_scaled_init": _max_abs(
+                  cpu_scaled["loss"], cpu["loss"]),
+              "twin_bitwise": True, "resume_bitwise": True,
+              "transfers": full["transfers"]}
+    print("moe_train " + json.dumps(result), flush=True)
+    return result
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
@@ -3308,6 +3689,21 @@ def main() -> None:
     print(f"phase 19 (exec modes): {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    # phases 21-23: stablelm-12b, llama4-scout and llama4-maverick served at
+    # full width; phase 24: MoE training at smoke size
+    served = {}
+    for name, phase in (("stablelm", stablelm_phase), ("scout", scout_phase),
+                        ("maverick", maverick_phase)):
+        t0 = time.perf_counter()
+        served[name] = phase()
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s, peak "
+              f"{served[name]['peak_bytes'] / 1e9:.1f} GB ({card})",
+              flush=True)
+    t0 = time.perf_counter()
+    moe_train_phase(device)
+    print(f"phase 24 (moe train): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
     main_row = rows[(8, 1024, "svrg", "l1")]
     # the shape the kernel bench gives svrg_step and mix_prox
     svrg_row = svrg_mix_rows[("svrg_step", pt_kernel_bench.ROWS)]
@@ -3382,6 +3778,12 @@ def main() -> None:
                 scen["launches"]["fused_step_cells"]
         if row["name"] in modes["launches"]:
             row["launches_exec_modes"] = modes["launches"][row["name"]]
+        # phases 21-23 serve stablelm-12b (flash float32), llama4-scout
+        # (flash float32 on its global layer, RMSNorm) and llama4-maverick
+        # (RMSNorm bf16)
+        for name, res in served.items():
+            if row["name"] in res["launches"]:
+                row[f"launches_{name}_serve"] = res["launches"][row["name"]]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {

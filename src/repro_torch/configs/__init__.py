@@ -4,9 +4,10 @@ language models, with the canonical input shapes.
 The port of ``repro.configs``.  ``get_config(name)`` resolves ids with
 dashes; ``smoke_variant`` produces the reduced CI model (2 layers,
 d_model 128) used by the smoke tests.  The port has the config modules of
-the dense RMSNorm decoders it can run (h2o-danube-1.8b, minicpm-2b,
-gemma2-9b); the other architectures raise ``NotImplementedError`` naming
-the ROADMAP item that ports their family.
+the decoders it can run: the dense ones (h2o-danube-1.8b, minicpm-2b,
+gemma2-9b, stablelm-12b) and the MoE ones (llama4-scout-17b-a16e,
+llama4-maverick-400b-a17b); the other architectures raise
+``NotImplementedError`` naming the ROADMAP item that ports their family.
 """
 
 from __future__ import annotations
@@ -52,12 +53,9 @@ ARCHITECTURES = [
 # architectures whose family the port does not run yet, with the ROADMAP
 # item that ports it
 _UNPORTED = {
-    "jamba-1.5-large-398b": "Queue 1 item 10: SSM and MoE mixers",
-    "llama4-maverick-400b-a17b": "Queue 1 item 10: MoE mixers",
-    "llama4-scout-17b-a16e": "Queue 1 item 10: MoE mixers",
-    "stablelm-12b": "Queue 1 item 10: layernorm and qk-norm decoders",
+    "jamba-1.5-large-398b": "Queue 1 item 10 (b): SSM mixers",
     "whisper-base": "Queue 1 item 10: encoder-decoder and multimodal",
-    "xlstm-350m": "Queue 1 item 10: SSM mixers",
+    "xlstm-350m": "Queue 1 item 10 (b): SSM mixers",
     "llava-next-mistral-7b": "Queue 1 item 10: encoder-decoder and "
                              "multimodal",
 }

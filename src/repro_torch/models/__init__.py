@@ -1,6 +1,6 @@
 """Language-model building blocks of the port (``repro.models``): the
-dense decoder stack of attention blocks with dense FFNs."""
+decoder stack of attention blocks with dense or MoE FFNs."""
 
-from . import api, attention, common, ffn, transformer
+from . import api, attention, common, ffn, moe, transformer
 
-__all__ = ["api", "attention", "common", "ffn", "transformer"]
+__all__ = ["api", "attention", "common", "ffn", "moe", "transformer"]

@@ -4,18 +4,21 @@ The port of ``repro.models.api``.  ``ModelConfig`` carries every field of
 the JAX package's, so a configuration compares as data across the two
 packages; ``layer_plan`` expands it into per-layer block specifications.
 
-The port runs decoder-only stacks of attention blocks with dense FFNs.  A
-plan that needs a mixer, an encoder or a frontend the port does not have
-yet raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+The port runs decoder-only stacks of attention blocks with dense or MoE
+FFNs.  A plan that needs a mixer, an encoder or a frontend the port does
+not have yet raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
-from . import attention
+from . import attention, moe as moe_lib
 
-__all__ = ["ModelConfig", "LayerPlan", "layer_plan", "check_supported"]
+__all__ = ["ModelConfig", "LayerPlan", "layer_plan", "check_supported",
+           "scan_group_size"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,7 +104,8 @@ class ModelConfig:
 class LayerPlan:
     mixer: str                    # attn (the only mixer ported)
     attn: attention.AttnSpec
-    ffn: str                      # swiglu | geglu | gelu | none
+    ffn: str                      # swiglu | geglu | gelu | moe | none
+    moe: moe_lib.MoESpec | None = None
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -111,11 +115,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if mixers:
         raise NotImplementedError(
             f"{cfg.name}: mixers {sorted(mixers)} are not ported yet "
-            "(ROADMAP Queue 1 item 10: SSM mixers)")
-    if cfg.moe_period > 0 and cfg.moe_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP Queue 1 "
-            "item 10: MoE mixers)")
+            "(ROADMAP Queue 1 item 10 (b): SSM mixers)")
     if cfg.encoder_layers > 0 or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: encoders and modality frontends are not ported yet "
@@ -124,6 +124,22 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: attention sharding constraints are multi-device "
             "work, not ported yet (ROADMAP Queue 1 item 14)")
+
+
+def scan_group_size(cfg: ModelConfig) -> int | None:
+    """Size of the repeating layer group the JAX package scans over (with
+    remat), or None if the stack is not periodic-divisible.  The port runs
+    a Python loop over the layers, which computes the same numbers; the
+    group is kept as data."""
+    if cfg.encoder_layers > 0:
+        return None
+    g = 1
+    for p in (len(cfg.mixer_pattern), max(cfg.moe_period, 1),
+              max(cfg.swa_period, 1), max(cfg.chunk_period, 1)):
+        g = math.lcm(g, p)
+    if cfg.num_layers % g != 0 or cfg.num_layers // g < 2:
+        return None
+    return g
 
 
 def _attn_spec(cfg: ModelConfig, i: int) -> attention.AttnSpec:
@@ -150,5 +166,20 @@ def _attn_spec(cfg: ModelConfig, i: int) -> attention.AttnSpec:
 
 def layer_plan(cfg: ModelConfig) -> list[LayerPlan]:
     check_supported(cfg)
-    return [LayerPlan(mixer="attn", attn=_attn_spec(cfg, i), ffn=cfg.ffn_kind)
-            for i in range(cfg.num_layers)]
+    plans = []
+    for i in range(cfg.num_layers):
+        # the reference's rule: every moe_period-th layer, the last of each
+        # period, is MoE
+        use_moe = (cfg.moe_period > 0 and cfg.moe_experts > 0
+                   and i % cfg.moe_period == cfg.moe_period - 1)
+        plans.append(LayerPlan(
+            mixer="attn", attn=_attn_spec(cfg, i),
+            ffn="moe" if use_moe else cfg.ffn_kind,
+            moe=moe_lib.MoESpec(
+                d_model=cfg.d_model, d_ff=cfg.d_ff,
+                num_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
+                capacity_factor=cfg.capacity_factor,
+                shared_expert=cfg.moe_shared_expert,
+                dispatch_groups=cfg.moe_dispatch_groups)
+            if use_moe else None))
+    return plans

@@ -1,5 +1,5 @@
 """Transformer assembly for decoder-only stacks of attention blocks with
-dense FFNs, from a ``ModelConfig`` + ``layer_plan``.
+dense or MoE FFNs, from a ``ModelConfig`` + ``layer_plan``.
 
 The port of ``repro.models.transformer``.  Public surface (plain functions
 over nested-dict params with the JAX package's keys and nesting):
@@ -10,8 +10,13 @@ over nested-dict params with the JAX package's keys and nesting):
   prefill(cfg, params, tokens, max_len)       -> (last_logits, cache)
   decode_step(cfg, params, cache, token)      -> (logits, cache)
 
-The JAX package scans over layer groups to compile one body; the port runs
-a Python loop over the layers and computes the same numbers.  Other mixers,
+The JAX package scans over layer groups (``api.scan_group_size``) with
+remat to compile one body; the port runs a Python loop over the layers
+and computes the same numbers.  MoE layers (``moe.moe_forward``) add their
+load-balance aux: ``forward`` sums it over the layers and ``loss_fn`` adds
+``moe_aux_weight * aux / num_layers``, as the reference does; ``prefill``
+and ``decode_step`` drop it (the reference's prefill sums it and never
+returns the sum).  Other mixers,
 the encoder and modality inputs raise ``NotImplementedError`` by ROADMAP
 item (``api.check_supported``).  ``decode_step`` updates the KV cache in
 place (``attention.attention_decode``).
@@ -26,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import _pytree as pytree
 
-from . import attention, common, ffn as ffn_lib
+from . import attention, common, ffn as ffn_lib, moe as moe_lib
 from .api import LayerPlan, ModelConfig, layer_plan
 
 __all__ = ["init_params", "forward", "loss_fn", "prefill", "decode_step",
@@ -68,8 +73,11 @@ def _init_block(cfg: ModelConfig, plan: LayerPlan, gen, dtype):
         p["post_norm1"] = _init_norm(cfg, dtype, gen.device)
     if plan.ffn != "none":
         p["norm2"] = _init_norm(cfg, dtype, gen.device)
-        p["ffn"] = ffn_lib.init_ffn(gen, cfg.d_model, cfg.d_ff, plan.ffn,
-                                    dtype)
+        if plan.ffn == "moe":
+            p["moe"] = moe_lib.init_moe(gen, plan.moe, dtype)
+        else:
+            p["ffn"] = ffn_lib.init_ffn(gen, cfg.d_model, cfg.d_ff,
+                                        plan.ffn, dtype)
         if cfg.post_norm:
             p["post_norm2"] = _init_norm(cfg, dtype, gen.device)
     return p
@@ -104,20 +112,30 @@ def param_count(params) -> int:
 # Forward
 # ---------------------------------------------------------------------------
 
+def _ffn_block(cfg: ModelConfig, plan: LayerPlan, p, x):
+    """The block's FFN half on the residual stream x: (x, aux), aux None
+    but for an MoE layer."""
+    aux = None
+    if plan.ffn == "none":
+        return x, aux
+    h = _apply_norm(cfg, p["norm2"], x)
+    if plan.ffn == "moe":
+        y, aux = moe_lib.moe_forward(p["moe"], plan.moe, h)
+    else:
+        y = ffn_lib.ffn_forward(p["ffn"], h, plan.ffn)
+    if cfg.post_norm:
+        y = _apply_norm(cfg, p["post_norm2"], y)
+    return x + (cfg.residual_scale or 1.0) * y, aux
+
+
 def _block_forward(cfg: ModelConfig, plan: LayerPlan, p, x):
-    res_scale = cfg.residual_scale or 1.0
+    """Full-sequence block forward.  Returns (x, aux)."""
     h = _apply_norm(cfg, p["norm1"], x)
     mix = attention.attention_forward(p["attn"], plan.attn, h)
     if cfg.post_norm:
         mix = _apply_norm(cfg, p["post_norm1"], mix)
-    x = x + res_scale * mix
-    if plan.ffn != "none":
-        h = _apply_norm(cfg, p["norm2"], x)
-        y = ffn_lib.ffn_forward(p["ffn"], h, plan.ffn)
-        if cfg.post_norm:
-            y = _apply_norm(cfg, p["post_norm2"], y)
-        x = x + res_scale * y
-    return x
+    x = x + (cfg.residual_scale or 1.0) * mix
+    return _ffn_block(cfg, plan, p, x)
 
 
 def _embed_scale(cfg: ModelConfig, x):
@@ -163,24 +181,29 @@ def forward(cfg: ModelConfig, params, tokens, image_embeds=None,
     _no_modalities(cfg, image_embeds, audio_frames)
     plans = layer_plan(cfg)
     x = _embed_inputs(cfg, params, tokens)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, plan in zip(params["layers"], plans):
-        x = _block_forward(cfg, plan, p, x)
-    logits = _lm_logits(cfg, params, x)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux = _block_forward(cfg, plan, p, x)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return _lm_logits(cfg, params, x), aux_total
 
 
 def loss_fn(cfg: ModelConfig):
     """Cross-entropy next-token loss closure.  batch keys: tokens, labels."""
 
     def fn(params, batch):
-        logits, _ = forward(cfg, params, batch["tokens"],
-                            image_embeds=batch.get("image_embeds"),
-                            audio_frames=batch.get("audio_frames"))
+        logits, aux = forward(cfg, params, batch["tokens"],
+                              image_embeds=batch.get("image_embeds"),
+                              audio_frames=batch.get("audio_frames"))
         logits = logits.to(torch.float32)
         logz = torch.logsumexp(logits, dim=-1)
         labels = batch["labels"].to(torch.int64)
         correct = torch.gather(logits, -1, labels[..., None])[..., 0]
-        return torch.mean(logz - correct)
+        loss = torch.mean(logz - correct)
+        if cfg.moe_period > 0:
+            loss = loss + cfg.moe_aux_weight * aux / max(cfg.num_layers, 1)
+        return loss
 
     return fn
 
@@ -210,7 +233,6 @@ def prefill(cfg: ModelConfig, params, tokens, image_embeds=None,
     x = _embed_inputs(cfg, params, tokens)
     total = x.shape[1]
     max_len = max(max_len or (total + 64), total)
-    res_scale = cfg.residual_scale or 1.0
     cache_layers = []
     for p, plan in zip(params["layers"], plans):
         h = _apply_norm(cfg, p["norm1"], x)
@@ -218,13 +240,8 @@ def prefill(cfg: ModelConfig, params, tokens, image_embeds=None,
                                               max_len=max_len)
         if cfg.post_norm:
             mix = _apply_norm(cfg, p["post_norm1"], mix)
-        x = x + res_scale * mix
-        if plan.ffn != "none":
-            hh = _apply_norm(cfg, p["norm2"], x)
-            y = ffn_lib.ffn_forward(p["ffn"], hh, plan.ffn)
-            if cfg.post_norm:
-                y = _apply_norm(cfg, p["post_norm2"], y)
-            x = x + res_scale * y
+        x = x + (cfg.residual_scale or 1.0) * mix
+        x, _ = _ffn_block(cfg, plan, p, x)
         cache_layers.append({"kv": kv})
     logits = _lm_logits(cfg, params, x[:, -1:])
     pos = torch.full((b,), total, dtype=torch.int32, device=x.device)
@@ -243,7 +260,6 @@ def decode_step(cfg: ModelConfig, params, cache, token):
     if not cfg.use_rope:
         x = x + params["pos_embed"][torch.clamp(
             pos, max=params["pos_embed"].shape[0] - 1)][:, None, :]
-    res_scale = cfg.residual_scale or 1.0
     new_layers = []
     for p, plan, entry in zip(params["layers"], plans, cache["layers"]):
         h = _apply_norm(cfg, p["norm1"], x)
@@ -251,13 +267,9 @@ def decode_step(cfg: ModelConfig, params, cache, token):
                                              entry["kv"], pos)
         if cfg.post_norm:
             mix = _apply_norm(cfg, p["post_norm1"], mix)
-        x = x + res_scale * mix
-        if plan.ffn != "none":
-            hh = _apply_norm(cfg, p["norm2"], x)
-            y = ffn_lib.ffn_forward(p["ffn"], hh, plan.ffn)
-            if cfg.post_norm:
-                y = _apply_norm(cfg, p["post_norm2"], y)
-            x = x + res_scale * y
+        x = x + (cfg.residual_scale or 1.0) * mix
+        # a decode batch's rows share the MoE capacity; the aux is dropped
+        x, _ = _ffn_block(cfg, plan, p, x)
         new_layers.append(dict(entry, kv=kv))
     logits = _lm_logits(cfg, params, x)[:, 0]
     return logits, {"pos": pos + 1, "layers": new_layers}

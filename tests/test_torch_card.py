@@ -12,7 +12,10 @@ network-event scenarios (fused_step over per-step degraded mixing matrices,
 a degraded-schedule sweep through the kernel, stale sweeps' graphs against
 eager), and the execution modes (device sampling against the CPU and the
 eager executor, the scan path, device-sampled sweeps, ``train_sweep`` and
-device-sampled training with a bitwise resume).  They skip, with
+device-sampled training with a bitwise resume), and the MoE models
+(stablelm-12b and the llama4 configs' smoke variants through the kernels,
+an MoE layer's routing against the CPU's, MoE training deterministic and
+resumed bitwise).  They skip, with
 the reason, where there is no card.  This file imports neither JAX nor the JAX package, so it also
 runs on a machine that has only PyTorch:
 
@@ -750,19 +753,27 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda_device, dtype):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "gemma2-9b",
-                                  "minicpm-2b"])
+                                  "minicpm-2b", "stablelm-12b",
+                                  "llama4-scout-17b-a16e",
+                                  "llama4-maverick-400b-a17b"])
 def test_model_kernel_routes_match_plain_routes_on_card(cuda_device, arch):
-    """Smoke size, a prompt longer than the window of 16: every norm is one
-    RMSNorm launch, every prefill layer one flash launch, and the logits
-    match the plain routes."""
+    """Smoke size (4 layers for the llama4 configs, so the fourth is
+    global), a prompt longer than the window and the chunk of 16: every
+    RMSNorm is one launch (stablelm's LayerNorm none), every full or
+    windowed prefill layer one flash launch (chunked layers take the plain
+    path), and the logits match the plain routes."""
     cfg = configs.smoke_variant(configs.get_config(arch))
+    if cfg.moe_period:
+        cfg = cfg.scaled(num_layers=4)
     kcfg = cfg.scaled(use_flash=True, use_fused_norm=True)
     params = transformer.init_params(cfg, 0, device=cuda_device)
     toks = torch.randint(0, cfg.vocab_size, (1, 40), device=cuda_device)
-    norms = (4 if cfg.post_norm else 2) * cfg.num_layers + 1
+    norms = (4 if cfg.post_norm else 2) * cfg.num_layers + 1 \
+        if cfg.norm == "rmsnorm" else 0
+    flash = sum(p.attn.chunk is None for p in transformer.layer_plan(cfg))
     rn_ops.launches = fa_ops.launches = 0
     lk, ck = transformer.prefill(kcfg, params, toks, max_len=64)
-    assert (fa_ops.launches, rn_ops.launches) == (cfg.num_layers, norms)
+    assert (fa_ops.launches, rn_ops.launches) == (flash, norms)
     lp, cp = transformer.prefill(cfg, params, toks, max_len=64)
     torch.testing.assert_close(lk, lp, **LOGIT_TOL)
     cur = lp.argmax(-1).to(torch.int32)
@@ -771,7 +782,7 @@ def test_model_kernel_routes_match_plain_routes_on_card(cuda_device, arch):
         lp, cp = transformer.decode_step(cfg, params, cp, cur)
         torch.testing.assert_close(lk, lp, **LOGIT_TOL)
         cur = lp.argmax(-1).to(torch.int32)
-    assert fa_ops.launches == cfg.num_layers
+    assert fa_ops.launches == flash
 
 
 def test_resident_engine_on_card_matches_host_batcher(cuda_device):
@@ -792,6 +803,50 @@ def test_resident_engine_on_card_matches_host_batcher(cuda_device):
         np.testing.assert_array_equal(eout[r.uid], hout[r.uid])
     assert eng.transfers["h2d"] == len(reqs)
     assert eng.transfers["d2h"] == eng.transfers["chunks"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_engine_on_card_matches_host_batcher(cuda_device, dtype):
+    """scout's smoke variant at 4 layers through the kernels: 8 requests of
+    one budget fill and empty the 4 slots together, so both paths decode the
+    same rows, whose tokens share one capacity slot an expert."""
+    cfg = configs.smoke_variant(configs.get_config(
+        "llama4-scout-17b-a16e")).scaled(num_layers=4, param_dtype=dtype,
+                                         use_flash=True, use_fused_norm=True)
+    params = transformer.init_params(cfg, 1, device=cuda_device)
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab_size, size=n)
+                    .astype(np.int32), max_new_tokens=6)
+            for i, n in enumerate((5, 12, 20, 33, 7, 18, 9, 30))]
+    eng = ResidentEngine(cfg, params, max_slots=4, max_len=64, chunk=3)
+    host = ContinuousBatcher(cfg, params, max_slots=4, max_len=64)
+    for r in reqs:
+        eng.submit(r)
+        host.submit(r)
+    eout, hout = eng.run_until_done(), host.run_until_done()
+    for r in reqs:
+        np.testing.assert_array_equal(eout[r.uid], hout[r.uid])
+
+
+def test_moe_layer_on_card_routes_as_the_cpu(cuda_device):
+    """One MoE layer (16 experts, top-1, shared expert; capacity drops
+    tokens): expert indices, slots and keep mask exactly the CPU's, the
+    output within 1e-4 of its largest magnitude."""
+    from repro_torch.models import moe
+    spec = moe.MoESpec(d_model=256, d_ff=512, num_experts=16,
+                       capacity_factor=1.0, shared_expert=True)
+    params = moe.init_moe(torch.Generator().manual_seed(0), spec)
+    x = torch.randn(2, 96, 256, generator=torch.Generator().manual_seed(1))
+    card = {k: v.to(cuda_device) for k, v in params.items()}
+    y, aux = moe.moe_forward(card, spec, x.to(cuda_device))
+    yc, auxc = moe.moe_forward(params, spec, x)
+    got = moe.route(card, spec, x.reshape(-1, 256).to(cuda_device))
+    want = moe.route(params, spec, x.reshape(-1, 256))
+    for g, w in zip(got[2:], want[2:]):
+        assert torch.equal(g.cpu(), w)
+    assert not bool(want[4].all())
+    assert float((y.cpu() - yc).abs().max()) <= 1e-4 * float(yc.abs().max())
+    torch.testing.assert_close(aux.cpu(), auxc, rtol=1e-5, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -832,13 +887,16 @@ def test_flash_kernel_refuses_operands_that_require_grad(cuda_device, which):
     assert fa_ops.launches == before + 1
 
 
-def _train_case(device, resident, ckpt_dir=None, resume=False, steps=12):
-    """The smoke danube trained on ``device`` from parameters drawn on the
-    CPU (a generator on the card draws other values), so that runs on the
-    card and on the CPU start from the same point."""
+def _train_case(device, resident, ckpt_dir=None, resume=False, steps=12,
+                arch="h2o-danube-1.8b", layers=2):
+    """The smoke variant of ``arch`` (the danube's by default) trained on
+    ``device`` from parameters drawn on the CPU (a generator on the card
+    draws other values), so that runs on the card and on the CPU start
+    from the same point."""
     from repro_torch.data.loader import LMLoader
     from repro_torch.train import steps as train_steps, trainer
-    cfg = configs.smoke_variant(configs.get_config("h2o-danube-1.8b"))
+    cfg = configs.smoke_variant(configs.get_config(arch)).scaled(
+        num_layers=layers)
     toks = synthetic.make_token_stream(50_000, cfg.vocab_size, seed=0)
     ld = LMLoader(toks.tokens, num_nodes=4, per_node_batch=2, seq_len=32,
                   seed=1)
@@ -879,6 +937,39 @@ def test_trainer_on_card_matches_cpu_and_resumes_bitwise(cuda_device,
     res = _train_case(cuda_device, True, ckpt_dir=crash, resume=True)
     by_step = dict(zip(full["step"], full["loss"]))
     assert res["step"] == [6, 9, 11]
+    assert [by_step[s] for s in res["step"]] == res["loss"]
+    for a, b in zip(checkpoint.flatten_with_paths(res["final_state"]),
+                    checkpoint.flatten_with_paths(full["final_state"])):
+        assert torch.equal(a[1], b[1]), a[0]
+
+
+def test_moe_trainer_on_card_is_deterministic_and_resumes_bitwise(
+        cuda_device, tmp_path):
+    """scout's smoke variant at 4 layers (the aux in the loss) trained on
+    the card: a second run is bit for bit the first (the dispatch's
+    scatter and the combine's backward are deterministic), a resume from
+    the step-6 checkpoint bitwise the uninterrupted run, and the first
+    records, before routing can part on a last-bit difference, within the
+    CPU's tolerance."""
+    import shutil
+    from repro_torch import checkpoint
+    kw = dict(arch="llama4-scout-17b-a16e", layers=4)
+    full = _train_case(cuda_device, True, ckpt_dir=str(tmp_path / "full"),
+                       **kw)
+    twin = _train_case(cuda_device, True, **kw)
+    assert twin["loss"] == full["loss"]
+    for a, b in zip(checkpoint.flatten_with_paths(twin["final_state"]),
+                    checkpoint.flatten_with_paths(full["final_state"])):
+        assert torch.equal(a[1], b[1]), a[0]
+    cpu = _train_case("cpu", True, steps=4, **kw)
+    assert cpu["step"] == full["step"][:2] == [0, 3]
+    np.testing.assert_allclose(full["loss"][:2], cpu["loss"], rtol=1e-4,
+                               atol=1e-5)
+    crash = str(tmp_path / "crash")
+    shutil.copytree(str(tmp_path / "full"), crash)
+    shutil.rmtree(os.path.join(crash, "step_00000012"))
+    res = _train_case(cuda_device, True, ckpt_dir=crash, resume=True, **kw)
+    by_step = dict(zip(full["step"], full["loss"]))
     assert [by_step[s] for s in res["step"]] == res["loss"]
     for a, b in zip(checkpoint.flatten_with_paths(res["final_state"]),
                     checkpoint.flatten_with_paths(full["final_state"])):

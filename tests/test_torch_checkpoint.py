@@ -84,9 +84,9 @@ def test_codec_round_trips_a_trainer_metadata():
 # leaf keys and cross-package restores
 # ---------------------------------------------------------------------------
 
-def _states(mix_state: bool):
+def _states(mix_state: bool, cfg=TOY):
     """The same TrainState in both packages, from numpy leaves."""
-    jcfg = JModelConfig(**TOY)
+    jcfg = JModelConfig(**cfg)
     params = jax.device_get(jtransformer.init_params(jcfg,
                                                      jax.random.PRNGKey(0)))
     rng = np.random.default_rng(0)
@@ -138,7 +138,23 @@ def test_train_state_keys_equal_the_reference(tmp_path, mix_state):
 
 @pytest.mark.parametrize("mix_state", [False, True])
 def test_checkpoints_cross_packages(tmp_path, mix_state):
-    jstate, tstate = _states(mix_state)
+    _cross_packages(tmp_path, *_states(mix_state))
+
+
+def test_moe_checkpoints_cross_packages(tmp_path):
+    """A dense layer and an MoE layer (router, expert stacks, shared
+    expert): the leaves, keys and bytes cross both ways."""
+    moe = dict(TOY, name="toy-ckpt-moe", arch_type="moe", moe_experts=4,
+               moe_period=2, moe_shared_expert=True)
+    jstate, tstate = _states(False, moe)
+    keys = [k for k, _ in tckpt.flatten_with_paths({"state": tstate})]
+    assert "state/.params/layers/1/moe/w_gate" in keys
+    assert "state/.params/layers/0/ffn/w_gate" in keys
+    assert sorted(keys) == _jax_keys({"state": jstate})
+    _cross_packages(tmp_path, jstate, tstate)
+
+
+def _cross_packages(tmp_path, jstate, tstate):
     md = {"step": 10, "algorithm": "dspg", "loader": None}
     # the reference saves, the port restores
     jckpt.save(str(tmp_path / "j"), 10, {"state": jstate}, md)

@@ -1,14 +1,16 @@
-"""The port's dense decoder LMs (``repro_torch.models``) against the JAX
-package's (``repro.models``): the same numpy inputs and the same parameters
-(JAX-initialized, carried across by ``convert.params_from_numpy``) through
-both, module by module and for the whole model.
+"""The port's decoder LMs (``repro_torch.models``: dense, and the MoE
+llama4 configs) against the JAX package's (``repro.models``): the same
+numpy inputs and the same parameters (JAX-initialized, carried across by
+``convert.params_from_numpy``) through both, module by module and for the
+whole model.  The MoE mixer alone is ``tests/test_torch_moe.py``.
 
 Tolerances: float32 per module rtol 1e-5 / atol 1e-5; logits rtol 1e-4 /
 atol 1e-5, as the reference's own flash-routing test uses
 (tests/test_models.py): the same float32 formulas, summed in other orders
 by XLA and ATen.  The JAX side runs its plain path (the reference's oracle
 for its Pallas kernels) except where a test says it runs a Pallas kernel in
-interpret mode, as the reference's tests do.
+interpret mode, as the reference's tests do; gradients (the 8-layer
+scout) at the logits' rtol 1e-4 / atol 1e-5.
 """
 
 import dataclasses
@@ -31,7 +33,8 @@ torch.set_num_threads(1)
 
 MODULE_TOL = dict(rtol=1e-5, atol=1e-5)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-5)
-DENSE_ARCHS = ["h2o-danube-1.8b", "minicpm-2b", "gemma2-9b"]
+DENSE_ARCHS = ["h2o-danube-1.8b", "minicpm-2b", "gemma2-9b", "stablelm-12b"]
+MOE_ARCHS = ["llama4-scout-17b-a16e", "llama4-maverick-400b-a17b"]
 
 
 def _np(x):
@@ -60,7 +63,7 @@ def _carry(jparams):
 # configs and plans
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_ARCHS)
 def test_configs_compare_as_data(arch):
     j, t = jconfigs.get_config(arch), tconfigs.get_config(arch)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
@@ -70,6 +73,8 @@ def test_configs_compare_as_data(arch):
     for jp, tp in zip(japi.layer_plan(js), tapi.layer_plan(ts)):
         assert (tp.mixer, tp.ffn) == (jp.mixer, jp.ffn)
         assert dataclasses.asdict(tp.attn) == dataclasses.asdict(jp.attn)
+        assert (tp.moe is None and jp.moe is None) or \
+            dataclasses.asdict(tp.moe) == dataclasses.asdict(jp.moe)
 
 
 def test_input_shapes_and_applicability_match():
@@ -77,7 +82,7 @@ def test_input_shapes_and_applicability_match():
             tconfigs.INPUT_SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in jconfigs.INPUT_SHAPES.items()}
     assert tconfigs.list_archs() == jconfigs.list_archs()
-    for arch in DENSE_ARCHS:
+    for arch in DENSE_ARCHS + MOE_ARCHS:
         for shape in jconfigs.INPUT_SHAPES.values():
             tshape = tconfigs.INPUT_SHAPES[shape.name]
             assert tconfigs.shape_applicable(tconfigs.get_config(arch),
@@ -86,16 +91,28 @@ def test_input_shapes_and_applicability_match():
 
 
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "whisper-base",
-                                  "xlstm-350m", "llama4-scout-17b-a16e",
-                                  "stablelm-12b", "llava-next-mistral-7b"])
+                                  "xlstm-350m", "llava-next-mistral-7b"])
 def test_unported_archs_raise_by_name(arch):
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         tconfigs.get_config(arch)
 
 
+def test_jamba_still_raises_for_its_ssm_mixers():
+    """jamba's MoE layers are ported; its Mamba mixers are not (item 10
+    (b)), and both the config table and a plan of its layout say so."""
+    with pytest.raises(NotImplementedError, match="item 10 \\(b\\): SSM"):
+        tconfigs.get_config("jamba-1.5-large-398b")
+    j = jconfigs.smoke_variant(jconfigs.get_config("jamba-1.5-large-398b"))
+    cfg = tconfigs.smoke_variant(tconfigs.get_config("h2o-danube-1.8b"))
+    cfg = cfg.scaled(**{f: getattr(j, f) for f in (
+        "mixer_pattern", "moe_experts", "moe_top_k", "moe_period")})
+    with pytest.raises(NotImplementedError, match="item 10 \\(b\\): SSM"):
+        tapi.layer_plan(cfg)
+    assert len(tapi.layer_plan(cfg.scaled(mixer_pattern=("attn",)))) == 2
+
+
 @pytest.mark.parametrize("override,match", [
     (dict(mixer_pattern=("attn", "mamba")), "SSM"),
-    (dict(moe_experts=4, moe_period=1), "MoE"),
     (dict(encoder_layers=2), "encoder"),
     (dict(frontend="vision_stub"), "encoder"),
     (dict(attn_shard_constraint=("data", "model")), "Queue 1 item 14"),
@@ -378,3 +395,119 @@ def test_cache_layout_matches():
         tc = ttransformer.init_cache(tcfg, 3, 40, device="cpu")
         assert jax.tree.map(lambda a: tuple(a.shape), jc) == \
             jax.tree.map(lambda a: tuple(a.shape), params_to_numpy(tc))
+
+
+# ---------------------------------------------------------------------------
+# the MoE decoders: llama4-scout (MoE every layer) and llama4-maverick (MoE
+# every other layer), with a shared expert, chunked-local attention (chunk
+# 16 in the smoke variants) and NoPE on the global layer (the fourth)
+# ---------------------------------------------------------------------------
+
+def _moe_model(arch, layers):
+    jcfg = jconfigs.smoke_variant(jconfigs.get_config(arch)).scaled(
+        num_layers=layers)
+    tcfg = tconfigs.smoke_variant(tconfigs.get_config(arch)).scaled(
+        num_layers=layers)
+    jp = _jax_params(jcfg)
+    return jcfg, tcfg, jp, _carry(jp)
+
+
+@pytest.mark.parametrize("prompt", [14, 24])
+@pytest.mark.parametrize("flags", [dict(),
+                                   dict(use_flash=True, use_fused_norm=True)],
+                         ids=["plain", "kernels"])
+@pytest.mark.parametrize("layers", [2, 4])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_forward_prefill_decode_logits_match(arch, layers, flags, prompt):
+    """A prompt of 14 decodes across the chunk boundary at 16; one of 24
+    prefills past it (the chunked layers' ring buffer rolls).  At 4 layers
+    the global NoPE layer is on the path.  Capacity drops tokens in the
+    forward and in the decode batch of 2."""
+    jcfg, tcfg, jp, tp = _moe_model(arch, layers)
+    tcfg = tcfg.scaled(**flags)
+    toks = np.random.default_rng(prompt).integers(
+        0, jcfg.vocab_size, (2, prompt)).astype(np.int32)
+    jl, jaux = jtransformer.forward(jcfg, jp, jnp.asarray(toks))
+    tl, taux = ttransformer.forward(tcfg, tp, _t(toks))
+    _close(tl, jl, LOGIT_TOL)
+    _close(taux, jaux, MODULE_TOL)
+    assert float(taux) > 0.0
+    jl, jc = jtransformer.prefill(jcfg, jp, jnp.asarray(toks), max_len=40)
+    tl, tc = ttransformer.prefill(tcfg, tp, _t(toks), max_len=40)
+    _close(tl, jl, LOGIT_TOL)
+    cur = np.argmax(_np(jl), -1).astype(np.int32)
+    for _ in range(4):
+        jl, jc = jtransformer.decode_step(jcfg, jp, jc, jnp.asarray(cur))
+        tl, tc = ttransformer.decode_step(tcfg, tp, tc, _t(cur))
+        _close(tl, jl, LOGIT_TOL)
+        cur = np.argmax(_np(jl), -1).astype(np.int32)
+    np.testing.assert_array_equal(tc["pos"].numpy(), _np(jc["pos"]))
+    for te, je in zip(tc["layers"], jc["layers"]):
+        _close(te["kv"]["k"], je["kv"]["k"])
+
+
+@pytest.mark.parametrize("layers", [2, 4])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_loss_with_aux_matches(arch, layers):
+    jcfg, tcfg, jp, tp = _moe_model(arch, layers)
+    rng = np.random.default_rng(5)
+    batch = {"tokens": rng.integers(0, 512, (2, 16)).astype(np.int32),
+             "labels": rng.integers(0, 512, (2, 16)).astype(np.int32)}
+    jl = jtransformer.loss_fn(jcfg)(jp, {k: jnp.asarray(v)
+                                         for k, v in batch.items()})
+    tl = ttransformer.loss_fn(tcfg)(tp, {k: _t(v) for k, v in batch.items()})
+    _close(tl, jl, LOGIT_TOL)
+    # the aux term is in: without it the loss is another number
+    no_aux = ttransformer.loss_fn(tcfg.scaled(moe_aux_weight=0.0))(
+        tp, {k: _t(v) for k, v in batch.items()})
+    _, aux = ttransformer.forward(tcfg, tp, _t(batch["tokens"]))
+    _close(tl - no_aux, tcfg.moe_aux_weight * aux / layers, MODULE_TOL)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_init_params_has_the_reference_tree(arch):
+    jcfg, tcfg, jp, _ = _moe_model(arch, 4)
+    tp = ttransformer.init_params(tcfg, 0, device="cpu")
+    jshapes = jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)), jp)
+    tshapes = jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)),
+                           params_to_numpy(tp))
+    assert tshapes == jshapes
+    assert ttransformer.param_count(tp) == jtransformer.param_count(jp)
+    moe_layers = ["moe" in layer for layer in tp["layers"]]
+    assert moe_layers == [p.ffn == "moe" for p in tapi.layer_plan(tcfg)]
+    jc = jtransformer.init_cache(jcfg, 3, 40)
+    tc = ttransformer.init_cache(tcfg, 3, 40, device="cpu")
+    assert jax.tree.map(lambda a: tuple(a.shape), jc) == \
+        jax.tree.map(lambda a: tuple(a.shape), params_to_numpy(tc))
+
+
+def test_scout_eight_layers_loop_equals_the_scanned_remat_layers():
+    """At 8 layers the reference scans two groups of 4 with remat
+    (``scan_group_size``); the port's loop over the layers gives the same
+    logits, aux, loss and gradients."""
+    jcfg, tcfg, jp, tp = _moe_model("llama4-scout-17b-a16e", 8)
+    assert japi.scan_group_size(jcfg) == tapi.scan_group_size(tcfg) == 4
+    rng = np.random.default_rng(6)
+    batch = {"tokens": rng.integers(0, 512, (2, 20)).astype(np.int32),
+             "labels": rng.integers(0, 512, (2, 20)).astype(np.int32)}
+    jl, jaux = jtransformer.forward(jcfg, jp, jnp.asarray(batch["tokens"]))
+    tl, taux = ttransformer.forward(tcfg, tp, _t(batch["tokens"]))
+    _close(tl, jl, LOGIT_TOL)
+    _close(taux, jaux, MODULE_TOL)
+    jloss, jgrad = jax.value_and_grad(jtransformer.loss_fn(jcfg))(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    tloss, tgrad = torch.func.grad_and_value(ttransformer.loss_fn(tcfg))(
+        tp, {k: _t(v) for k, v in batch.items()})[::-1]
+    _close(tloss, jloss, LOGIT_TOL)
+    for tg, jg in zip(jax.tree.leaves(params_to_numpy(tgrad)),
+                      jax.tree.leaves(jgrad)):
+        _close(tg, jg, LOGIT_TOL)
+
+
+def test_scan_group_size_equals_the_reference_on_every_architecture():
+    for arch in jconfigs.ARCHITECTURES:
+        full = jconfigs.get_config(arch)
+        for cfg in (full, jconfigs.smoke_variant(full),
+                    full.scaled(num_layers=8), full.scaled(num_layers=12)):
+            assert tapi.scan_group_size(cfg) == japi.scan_group_size(cfg), \
+                (arch, cfg.num_layers)

@@ -6,7 +6,9 @@ their summaries against the reference's, bit for bit.
 
 Greedy tokens are compared exactly: both packages compute the same float32
 logits to ~1e-6 (tests/test_torch_models.py), and the models here are tiny,
-so no argmax sits near a tie.
+so no argmax sits near a tie.  In the MoE models a decode batch's rows share
+the experts' capacity, so the engine and the host batcher are held to each
+other where both decode the same rows.
 """
 
 import dataclasses
@@ -301,3 +303,93 @@ def test_launch_serve_module_runs_as_a_script():
 
 def test_tiny_config_compares_as_data_with_the_reference():
     assert dataclasses.asdict(CFG) == dataclasses.asdict(JModelConfig(**TINY))
+
+
+# ---------------------------------------------------------------------------
+# MoE models: a decode batch's rows share the experts' capacity
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ["llama4-scout-17b-a16e", "llama4-maverick-400b-a17b"]
+
+
+def _moe_models(arch):
+    """Smoke variants at 4 layers (scout's fourth is global, NoPE),
+    the JAX package's init carried across."""
+    jcfg = jconfigs.smoke_variant(jconfigs.get_config(arch)).scaled(
+        num_layers=4)
+    tcfg = tconfigs.smoke_variant(tconfigs.get_config(arch)).scaled(
+        num_layers=4)
+    jp = jtransformer.init_params(jcfg, jax.random.PRNGKey(0))
+    return jcfg, tcfg, jp, params_from_numpy(jax.tree.map(np.asarray, jp),
+                                             "cpu")
+
+
+def _count_drops(monkeypatch):
+    """Counts the tokens capacity drops in decode steps (batches of the
+    slots) while the test runs."""
+    from repro_torch.models import moe
+    route, drops = moe.route, []
+
+    def counted(params, spec, xt):
+        out = route(params, spec, xt)
+        if xt.shape[0] == 4:
+            drops.append(int((~out[4]).sum()))
+        return out
+
+    monkeypatch.setattr(moe, "route", counted)
+    return drops
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_engine_equals_the_host_batcher_and_the_jax_engine(arch,
+                                                               monkeypatch):
+    """At 4 slots an expert has one slot a decode step (4 experts), so
+    decode drops tokens and couples the rows.  Eight requests with one
+    budget fill and empty the 4 slots together, so the engine and the host
+    batcher decode the same rows (the reference engine's claim) and give
+    the same tokens, and the JAX package's engine gives them too."""
+    jcfg, tcfg, jp, tp = _moe_models(arch)
+    kw = dict(lens=(5, 12, 20), new=(6, 7))
+    jreqs = _requests(tcfg, 8, seed=8, cls=JRequest, **kw)
+    treqs = _requests(tcfg, 8, seed=8, **kw)
+    drops = _count_drops(monkeypatch)
+    eng = _run_both(tcfg, tp, treqs, slots=4, max_len=40, chunk=3)
+    assert sum(drops) > 0
+    jeng = JResidentEngine(jcfg, jp, max_slots=4, max_len=40, chunk=3)
+    for r in jreqs:
+        jeng.submit(r)
+    jout = jeng.run_until_done()
+    for uid in jout:
+        np.testing.assert_array_equal(eng.outputs[uid], jout[uid])
+    assert eng.transfers == jeng.transfers
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_engine_equals_the_jax_engine_with_uneven_budgets(arch):
+    """Budgets and prompts of all lengths: slots retire mid-chunk and keep
+    decoding hidden rows that still take capacity, as in the reference's
+    engine, so the two engines give the same tokens."""
+    jcfg, tcfg, jp, tp = _moe_models(arch)
+    kw = dict(lens=(5, 12, 20), new=(2, 9))
+    jreqs = _requests(tcfg, 7, seed=9, cls=JRequest, **kw)
+    treqs = _requests(tcfg, 7, seed=9, **kw)
+    jeng = JResidentEngine(jcfg, jp, max_slots=4, max_len=40, chunk=4)
+    teng = ResidentEngine(tcfg, tp, max_slots=4, max_len=40, chunk=4)
+    for jr, tr in zip(jreqs, treqs):
+        jeng.submit(jr)
+        teng.submit(tr)
+    jout, tout = jeng.run_until_done(), teng.run_until_done()
+    assert set(tout) == set(jout)
+    for uid in jout:
+        np.testing.assert_array_equal(tout[uid], jout[uid])
+
+
+def test_bf16_moe_engine_equals_the_host_batcher():
+    """maverick's smoke variant in bf16 through both paths: the bf16 cache,
+    the cache splice and the sampler on bf16 activations."""
+    cfg = tconfigs.smoke_variant(tconfigs.get_config(
+        "llama4-maverick-400b-a17b")).scaled(param_dtype="bfloat16")
+    params = _params(cfg, seed=3)
+    eng = _run_both(cfg, params, _requests(cfg, 8, seed=10, new=(5, 6)),
+                    slots=4, max_len=40, chunk=5)
+    assert eng.cache["layers"][0]["kv"]["k"].dtype == torch.bfloat16

@@ -8,8 +8,9 @@ datasets at a scale, partitioned over m nodes, on a device), ``f_star``
 ``run_algorithm`` and ``run_sweep`` (the figure drivers' one calling
 convention, the reference's signatures plus ``device`` and ``kernel``),
 ``Sweep`` (one figure sweep, so that ``chip_smoke.py`` runs the figures'
-own grids in every mode) and ``_time_run`` (best-of-N wall time of a whole
-``runner.run``).  Nothing here imports JAX or the JAX package, so the
+own grids in every mode), ``_time_run`` (best-of-N wall time of a whole
+``runner.run``) and ``float64_models`` (the port's models evaluated in
+float64, the yardstick of an ill-conditioned float32 run).  Nothing here imports JAX or the JAX package, so the
 ``benchmarks/pt_*.py`` drivers run where only PyTorch is installed.
 
 Every entry point runs on the CUDA device unless it is asked for the CPU;
@@ -18,6 +19,7 @@ without a card it raises instead of measuring the CPU under a card's name.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import sys
@@ -40,7 +42,7 @@ from repro_torch.data import synthetic  # noqa: E402
 
 __all__ = ["Row", "logreg_loss", "require_device", "setup_problem",
            "make_problem", "run_algorithm", "run_sweep", "Sweep", "f_star",
-           "timed", "sync", "_time_run"]
+           "timed", "sync", "_time_run", "float64_models"]
 
 
 @dataclasses.dataclass
@@ -188,3 +190,37 @@ def _time_run(algo, problem, sched, *, record_every, iters=3, **kw) -> float:
         sync(spec.device)
         best = min(best, time.perf_counter() - t0)
     return best * 1e6
+
+
+@contextlib.contextmanager
+def float64_models():
+    """Within the block the port's models keep float64 where they cast to
+    float32 otherwise: the SSM states (``ssm.F32``), the plain RMSNorm and
+    the loss's logits.  With float64 parameters and
+    ``logit_dtype="float64"`` a model then runs, and trains, in float64:
+    the yardstick of its float32 runs where those are ill-conditioned
+    (xlstm-350m's mLSTM normalizer max(|n.q|, exp(-m)) has poles)."""
+    from repro_torch.models import common, ssm, transformer
+    saved = (ssm.F32, common.rms_norm, transformer.loss_fn)
+
+    def rms_norm(x, weight, eps=1e-6):
+        var = torch.mean(x * x, dim=-1, keepdim=True)
+        return x * torch.rsqrt(var + eps) * (1.0 + weight)
+
+    def loss_fn(cfg):
+        def fn(params, batch):
+            logits, aux = transformer.forward(cfg, params, batch["tokens"])
+            labels = batch["labels"].to(torch.int64)
+            correct = torch.gather(logits, -1, labels[..., None])[..., 0]
+            loss = torch.mean(torch.logsumexp(logits, dim=-1) - correct)
+            if cfg.moe_period > 0:
+                loss = loss + cfg.moe_aux_weight * aux / cfg.num_layers
+            return loss
+        return fn
+
+    ssm.F32, common.rms_norm = torch.float64, rms_norm
+    transformer.loss_fn = loss_fn
+    try:
+        yield
+    finally:
+        ssm.F32, common.rms_norm, transformer.loss_fn = saved

@@ -5,8 +5,10 @@ The port of ``repro.configs``.  ``get_config(name)`` resolves ids with
 dashes; ``smoke_variant`` produces the reduced CI model (2 layers,
 d_model 128) used by the smoke tests.  The port has the config modules of
 the decoders it can run: the dense ones (h2o-danube-1.8b, minicpm-2b,
-gemma2-9b, stablelm-12b) and the MoE ones (llama4-scout-17b-a16e,
-llama4-maverick-400b-a17b); the other architectures raise
+gemma2-9b, stablelm-12b), the MoE ones (llama4-scout-17b-a16e,
+llama4-maverick-400b-a17b), the recurrent xlstm-350m and the Mamba /
+attention / MoE hybrid jamba-1.5-large-398b; the encoder-decoder and
+multimodal architectures (whisper-base, llava-next-mistral-7b) raise
 ``NotImplementedError`` naming the ROADMAP item that ports their family.
 """
 
@@ -53,10 +55,8 @@ ARCHITECTURES = [
 # architectures whose family the port does not run yet, with the ROADMAP
 # item that ports it
 _UNPORTED = {
-    "jamba-1.5-large-398b": "Queue 1 item 10 (b): SSM mixers",
-    "whisper-base": "Queue 1 item 10: encoder-decoder and multimodal",
-    "xlstm-350m": "Queue 1 item 10 (b): SSM mixers",
-    "llava-next-mistral-7b": "Queue 1 item 10: encoder-decoder and "
+    "whisper-base": "Queue 1 item 10 (c): encoder-decoder and multimodal",
+    "llava-next-mistral-7b": "Queue 1 item 10 (c): encoder-decoder and "
                              "multimodal",
 }
 

@@ -4,10 +4,11 @@ The port of ``repro.models.api``.  ``ModelConfig`` carries every field of
 the JAX package's, so a configuration compares as data across the two
 packages; ``layer_plan`` expands it into per-layer block specifications.
 
-The port runs decoder-only stacks of attention blocks with dense or MoE
-FFNs.  A plan that needs a mixer, an encoder or a frontend the port does
-not have yet raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+The port runs decoder-only stacks of blocks whose mixer is attention,
+Mamba, mLSTM or sLSTM (``mixer_pattern``), with dense or MoE FFNs (none
+after an mLSTM or sLSTM mixer: xLSTM blocks are self-contained).  A plan
+that needs an encoder or a frontend the port does not have yet raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
-from . import attention, moe as moe_lib
+from . import attention, moe as moe_lib, ssm
 
 __all__ = ["ModelConfig", "LayerPlan", "layer_plan", "check_supported",
            "scan_group_size"]
@@ -102,24 +103,24 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class LayerPlan:
-    mixer: str                    # attn (the only mixer ported)
-    attn: attention.AttnSpec
+    mixer: str                    # attn | mamba | mlstm | slstm
+    attn: attention.AttnSpec | None
     ffn: str                      # swiglu | geglu | gelu | moe | none
     moe: moe_lib.MoESpec | None = None
+    mamba: ssm.MambaSpec | None = None
+    mlstm: ssm.MLstmSpec | None = None
+    slstm: ssm.SLstmSpec | None = None
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError``, by ROADMAP item, for what the port has
-    not ported yet."""
-    mixers = set(cfg.mixer_pattern) - {"attn"}
-    if mixers:
-        raise NotImplementedError(
-            f"{cfg.name}: mixers {sorted(mixers)} are not ported yet "
-            "(ROADMAP Queue 1 item 10 (b): SSM mixers)")
+    not ported yet: encoders and modality frontends, and multi-device
+    sharding constraints."""
     if cfg.encoder_layers > 0 or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: encoders and modality frontends are not ported yet "
-            "(ROADMAP Queue 1 item 10: encoder-decoder and multimodal)")
+            "(ROADMAP Queue 1 item 10 (c): encoder-decoder and "
+            "multimodal)")
     if cfg.attn_shard_constraint is not None:
         raise NotImplementedError(
             f"{cfg.name}: attention sharding constraints are multi-device "
@@ -168,18 +169,37 @@ def layer_plan(cfg: ModelConfig) -> list[LayerPlan]:
     check_supported(cfg)
     plans = []
     for i in range(cfg.num_layers):
+        mixer = cfg.mixer_pattern[i % len(cfg.mixer_pattern)]
         # the reference's rule: every moe_period-th layer, the last of each
-        # period, is MoE
+        # period, is MoE, but an xLSTM block has no FFN
         use_moe = (cfg.moe_period > 0 and cfg.moe_experts > 0
                    and i % cfg.moe_period == cfg.moe_period - 1)
+        if mixer in ("mlstm", "slstm"):
+            ffn = "none"
+        elif use_moe:
+            ffn = "moe"
+        else:
+            ffn = cfg.ffn_kind
         plans.append(LayerPlan(
-            mixer="attn", attn=_attn_spec(cfg, i),
-            ffn="moe" if use_moe else cfg.ffn_kind,
+            mixer=mixer,
+            attn=_attn_spec(cfg, i) if mixer == "attn" else None,
+            ffn=ffn,
             moe=moe_lib.MoESpec(
                 d_model=cfg.d_model, d_ff=cfg.d_ff,
                 num_experts=cfg.moe_experts, top_k=cfg.moe_top_k,
                 capacity_factor=cfg.capacity_factor,
                 shared_expert=cfg.moe_shared_expert,
                 dispatch_groups=cfg.moe_dispatch_groups)
-            if use_moe else None))
+            if ffn == "moe" else None,
+            mamba=ssm.MambaSpec(
+                d_model=cfg.d_model, expand=cfg.mamba_expand,
+                d_state=cfg.mamba_d_state,
+                chunk_size=cfg.scan_chunk) if mixer == "mamba" else None,
+            mlstm=ssm.MLstmSpec(
+                d_model=cfg.d_model,
+                num_heads=max(cfg.num_heads, 1)) if mixer == "mlstm" else None,
+            slstm=ssm.SLstmSpec(
+                d_model=cfg.d_model,
+                num_heads=max(cfg.num_kv_heads, 1)) if mixer == "slstm"
+            else None))
     return plans

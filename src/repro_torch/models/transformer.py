@@ -1,5 +1,6 @@
-"""Transformer assembly for decoder-only stacks of attention blocks with
-dense or MoE FFNs, from a ``ModelConfig`` + ``layer_plan``.
+"""Transformer assembly for decoder-only stacks of attention, Mamba, mLSTM
+and sLSTM blocks with dense or MoE FFNs, from a ``ModelConfig`` +
+``layer_plan``.
 
 The port of ``repro.models.transformer``.  Public surface (plain functions
 over nested-dict params with the JAX package's keys and nesting):
@@ -16,10 +17,15 @@ and computes the same numbers.  MoE layers (``moe.moe_forward``) add their
 load-balance aux: ``forward`` sums it over the layers and ``loss_fn`` adds
 ``moe_aux_weight * aux / num_layers``, as the reference does; ``prefill``
 and ``decode_step`` drop it (the reference's prefill sums it and never
-returns the sum).  Other mixers,
-the encoder and modality inputs raise ``NotImplementedError`` by ROADMAP
-item (``api.check_supported``).  ``decode_step`` updates the KV cache in
-place (``attention.attention_decode``).
+returns the sum).  The encoder and modality inputs raise
+``NotImplementedError`` by ROADMAP item (``api.check_supported``).
+
+A cache holds a (B,) position vector and one entry a layer: the KV ring
+buffers of an attention layer (``{"kv": ...}``) or the recurrent state of
+an SSM layer (``{"mamba": {h, conv}}``, ``{"mlstm": {c, n, m, conv}}``,
+``{"slstm": {c, n, h, m}}``).  ``decode_step`` updates the KV buffers in
+place (``attention.attention_decode``) and returns each SSM state as new
+tensors in its layer's entry.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import _pytree as pytree
 
-from . import attention, common, ffn as ffn_lib, moe as moe_lib
+from . import attention, common, ffn as ffn_lib, moe as moe_lib, ssm
 from .api import LayerPlan, ModelConfig, layer_plan
 
 __all__ = ["init_params", "forward", "loss_fn", "prefill", "decode_step",
@@ -68,7 +74,14 @@ def _dtype(cfg: ModelConfig):
 
 def _init_block(cfg: ModelConfig, plan: LayerPlan, gen, dtype):
     p: dict[str, Any] = {"norm1": _init_norm(cfg, dtype, gen.device)}
-    p["attn"] = attention.init_attention(gen, plan.attn, dtype)
+    if plan.mixer == "attn":
+        p["attn"] = attention.init_attention(gen, plan.attn, dtype)
+    elif plan.mixer == "mamba":
+        p["mamba"] = ssm.init_mamba(gen, plan.mamba, dtype)
+    elif plan.mixer == "mlstm":
+        p["mlstm"] = ssm.init_mlstm(gen, plan.mlstm, dtype)
+    else:
+        p["slstm"] = ssm.init_slstm(gen, plan.slstm, dtype)
     if cfg.post_norm:
         p["post_norm1"] = _init_norm(cfg, dtype, gen.device)
     if plan.ffn != "none":
@@ -128,14 +141,24 @@ def _ffn_block(cfg: ModelConfig, plan: LayerPlan, p, x):
     return x + (cfg.residual_scale or 1.0) * y, aux
 
 
+def _mixer_residual(cfg: ModelConfig, p, x, mix):
+    if cfg.post_norm:
+        mix = _apply_norm(cfg, p["post_norm1"], mix)
+    return x + (cfg.residual_scale or 1.0) * mix
+
+
 def _block_forward(cfg: ModelConfig, plan: LayerPlan, p, x):
     """Full-sequence block forward.  Returns (x, aux)."""
     h = _apply_norm(cfg, p["norm1"], x)
-    mix = attention.attention_forward(p["attn"], plan.attn, h)
-    if cfg.post_norm:
-        mix = _apply_norm(cfg, p["post_norm1"], mix)
-    x = x + (cfg.residual_scale or 1.0) * mix
-    return _ffn_block(cfg, plan, p, x)
+    if plan.mixer == "attn":
+        mix = attention.attention_forward(p["attn"], plan.attn, h)
+    elif plan.mixer == "mamba":
+        mix = ssm.mamba_forward(p["mamba"], plan.mamba, h)
+    elif plan.mixer == "mlstm":
+        mix = ssm.mlstm_forward(p["mlstm"], plan.mlstm, h)
+    else:
+        mix = ssm.slstm_forward(p["slstm"], plan.slstm, h)
+    return _ffn_block(cfg, plan, p, _mixer_residual(cfg, p, x, mix))
 
 
 def _embed_scale(cfg: ModelConfig, x):
@@ -216,9 +239,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device="cuda"):
     dtype = dtype or _dtype(cfg)
     device = common.resolve_device(device)
-    layers = [{"kv": attention.init_kv_cache(batch, max_len, plan.attn,
-                                             dtype, device)}
-              for plan in layer_plan(cfg)]
+    layers = []
+    for plan in layer_plan(cfg):
+        if plan.mixer == "attn":
+            entry = {"kv": attention.init_kv_cache(batch, max_len, plan.attn,
+                                                   dtype, device)}
+        elif plan.mixer == "mamba":
+            entry = {"mamba": ssm.mamba_init_state(plan.mamba, batch, dtype,
+                                                   device)}
+        elif plan.mixer == "mlstm":
+            entry = {"mlstm": ssm.mlstm_init_state(plan.mlstm, batch, dtype,
+                                                   device)}
+        else:
+            entry = {"slstm": ssm.slstm_init_state(plan.slstm, batch, dtype,
+                                                   device)}
+        layers.append(entry)
     # per-slot positions (continuous batching: rows advance independently)
     return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
             "layers": layers}
@@ -236,16 +271,45 @@ def prefill(cfg: ModelConfig, params, tokens, image_embeds=None,
     cache_layers = []
     for p, plan in zip(params["layers"], plans):
         h = _apply_norm(cfg, p["norm1"], x)
-        mix, kv = attention.attention_prefill(p["attn"], plan.attn, h,
-                                              max_len=max_len)
-        if cfg.post_norm:
-            mix = _apply_norm(cfg, p["post_norm1"], mix)
-        x = x + (cfg.residual_scale or 1.0) * mix
-        x, _ = _ffn_block(cfg, plan, p, x)
-        cache_layers.append({"kv": kv})
+        if plan.mixer == "attn":
+            mix, kv = attention.attention_prefill(p["attn"], plan.attn, h,
+                                                  max_len=max_len)
+            entry = {"kv": kv}
+        elif plan.mixer == "mamba":
+            mix, st = _mamba_prefill(p["mamba"], plan.mamba, h)
+            entry = {"mamba": st}
+        elif plan.mixer == "mlstm":
+            mix, st = _mlstm_prefill(p["mlstm"], plan.mlstm, h)
+            entry = {"mlstm": st}
+        else:
+            mix, st = _slstm_prefill(p["slstm"], plan.slstm, h)
+            entry = {"slstm": st}
+        x, _ = _ffn_block(cfg, plan, p, _mixer_residual(cfg, p, x, mix))
+        cache_layers.append(entry)
     logits = _lm_logits(cfg, params, x[:, -1:])
     pos = torch.full((b,), total, dtype=torch.int32, device=x.device)
     return logits[:, 0], {"pos": pos, "layers": cache_layers}
+
+
+def _mamba_prefill(p, spec, x):
+    """The training forward, returning the final recurrent and conv
+    states with the output."""
+    u, z, dt, b_mat, c_mat, conv_state = ssm._mamba_inputs(p, spec, x)
+    h_final, ys = ssm._mamba_scan(spec, p, u, dt, b_mat, c_mat)
+    return ssm._mamba_out(p, x, u, z, ys), {"h": h_final, "conv": conv_state}
+
+
+def _mlstm_prefill(p, spec, x):
+    inner, gate, q, k, v, i_t, f_t, conv_state = ssm._mlstm_qkvif(p, spec, x)
+    st, hs = ssm._mlstm_scan(spec, q, k, v, i_t, f_t)
+    out = ssm._mlstm_out(p, spec, x, inner, gate, hs)
+    return out, {"c": st[0], "n": st[1], "m": st[2], "conv": conv_state}
+
+
+def _slstm_prefill(p, spec, x):
+    st, hs = ssm._slstm_scan(p, spec, x)
+    return ssm._slstm_out(p, x, hs), {"c": st[0], "n": st[1], "h": st[2],
+                                       "m": st[3]}
 
 
 def decode_step(cfg: ModelConfig, params, cache, token):
@@ -253,7 +317,8 @@ def decode_step(cfg: ModelConfig, params, cache, token):
 
     cache["pos"] is a (B,) vector: rows may sit at different positions
     (continuous batching).  The KV buffers are updated in place; the
-    returned cache holds the same buffers and the advanced positions."""
+    returned cache holds the same buffers, the new SSM states and the
+    advanced positions."""
     plans = layer_plan(cfg)
     pos = torch.broadcast_to(cache["pos"].to(torch.int32), (token.shape[0],))
     x = _embed_scale(cfg, params["embed"][token][:, None, :])
@@ -263,13 +328,24 @@ def decode_step(cfg: ModelConfig, params, cache, token):
     new_layers = []
     for p, plan, entry in zip(params["layers"], plans, cache["layers"]):
         h = _apply_norm(cfg, p["norm1"], x)
-        mix, kv = attention.attention_decode(p["attn"], plan.attn, h,
-                                             entry["kv"], pos)
-        if cfg.post_norm:
-            mix = _apply_norm(cfg, p["post_norm1"], mix)
-        x = x + (cfg.residual_scale or 1.0) * mix
+        if plan.mixer == "attn":
+            mix, kv = attention.attention_decode(p["attn"], plan.attn, h,
+                                                 entry["kv"], pos)
+            new_entry = dict(entry, kv=kv)
+        elif plan.mixer == "mamba":
+            mix, st = ssm.mamba_step(p["mamba"], plan.mamba, h,
+                                     entry["mamba"])
+            new_entry = dict(entry, mamba=st)
+        elif plan.mixer == "mlstm":
+            mix, st = ssm.mlstm_step(p["mlstm"], plan.mlstm, h,
+                                     entry["mlstm"])
+            new_entry = dict(entry, mlstm=st)
+        else:
+            mix, st = ssm.slstm_step(p["slstm"], plan.slstm, h,
+                                     entry["slstm"])
+            new_entry = dict(entry, slstm=st)
         # a decode batch's rows share the MoE capacity; the aux is dropped
-        x, _ = _ffn_block(cfg, plan, p, x)
-        new_layers.append(dict(entry, kv=kv))
+        x, _ = _ffn_block(cfg, plan, p, _mixer_residual(cfg, p, x, mix))
+        new_layers.append(new_entry)
     logits = _lm_logits(cfg, params, x)[:, 0]
     return logits, {"pos": pos + 1, "layers": new_layers}

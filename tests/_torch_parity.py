@@ -6,16 +6,21 @@ port as CPU tensors (``repro_torch.convert``).  The loss is the paper's
 Eq. 26 in each framework, written with the same formula.
 """
 
+import contextlib
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.core import algorithm as jalgorithm, graphs as jgraphs, \
     prox as jprox, runner as jrunner
 from repro.core.exec_spec import ExecSpec as JExecSpec
 from repro.data import synthetic as jsynthetic
+from repro.models import attention as jattention, common as jcommon, \
+    ffn as jffn, moe as jmoe, ssm as jssm, transformer as jtransformer
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import algorithm as talgorithm, graphs as tgraphs, \
     prox as tprox, runner as trunner
@@ -116,3 +121,65 @@ def assert_histories_match(want, got, *, device_gather=False):
     np.testing.assert_allclose(got.params.numpy(), np.asarray(want.params),
                                rtol=HISTORY_RTOL, atol=HISTORY_ATOL,
                                err_msg="params")
+
+
+# ---------------------------------------------------------------------------
+# the reference's models evaluated in float64
+# ---------------------------------------------------------------------------
+
+class _Float64Numpy:
+    """``jax.numpy`` with ``float32`` read as ``float64``: the reference's
+    explicit float32 casts then keep float64, so its own code evaluates its
+    formulas in float64."""
+
+    def __getattr__(self, name):
+        return jnp.float64 if name == "float32" else getattr(jnp, name)
+
+
+@contextlib.contextmanager
+def reference_in_float64():
+    """Within the block, the reference's models (``repro.models``) run in
+    float64 (with JAX's x64 on) on float64 inputs: the yardstick of an
+    ill-conditioned float32 computation, which the reference's float32 run
+    and the port's each miss by their own rounding."""
+    with jax.enable_x64(True), pytest.MonkeyPatch.context() as mp:
+        for mod in (jattention, jcommon, jffn, jmoe, jssm, jtransformer):
+            mp.setattr(mod, "jnp", _Float64Numpy())
+        yield
+
+
+def reference_float64(fn, *args):
+    """``fn(*args)`` of the reference in float64: every float numpy array
+    among ``args`` (nested in dicts and lists too) goes in as float64, and
+    every float leaf of the result comes out as float64 numpy."""
+    def to64(a):
+        if isinstance(a, np.ndarray) and a.dtype.kind == "f":
+            return jnp.asarray(a, jnp.float64)
+        return a
+
+    with reference_in_float64():
+        out = fn(*jax.tree.map(to64, args))
+        return jax.tree.map(np.asarray, out)
+
+
+def assert_as_accurate_as_the_reference(got, want, want64, factor=2.0,
+                                        atol=1e-5, ref_rtol=1e-3):
+    """``got`` (the port) lies at most ``factor`` times as far from
+    ``want64`` (the reference in float64) as ``want`` (the reference)
+    does, plus ``atol``: the parity of an ill-conditioned computation,
+    where two float32 evaluations summing in other orders part by more
+    than either misses the float64 value.  The reference itself must lie
+    within ``ref_rtol`` of the largest |want64| (None: unchecked), so that
+    the float64 run computed the same function (no routing or branch that
+    went another way)."""
+    if isinstance(got, torch.Tensor):
+        got = got.detach().float().numpy()
+    want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    w64 = np.asarray(want64, np.float64)
+    assert got.shape == want.shape == w64.shape
+    ref_err = float(np.abs(want - w64).max())
+    port_err = float(np.abs(got - w64).max())
+    if ref_rtol is not None:
+        assert ref_err <= ref_rtol * max(float(np.abs(w64).max()), 1e-30), \
+            ref_err
+    assert port_err <= factor * ref_err + atol, (port_err, ref_err)

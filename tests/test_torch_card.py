@@ -12,10 +12,13 @@ network-event scenarios (fused_step over per-step degraded mixing matrices,
 a degraded-schedule sweep through the kernel, stale sweeps' graphs against
 eager), and the execution modes (device sampling against the CPU and the
 eager executor, the scan path, device-sampled sweeps, ``train_sweep`` and
-device-sampled training with a bitwise resume), and the MoE models
+device-sampled training with a bitwise resume), the MoE models
 (stablelm-12b and the llama4 configs' smoke variants through the kernels,
 an MoE layer's routing against the CPU's, MoE training deterministic and
-resumed bitwise).  They skip, with
+resumed bitwise), and the SSM models (xlstm-350m and jamba-1.5-large's
+smoke variants through the kernels and against the CPU, their engines
+against the host batcher, xlstm training deterministic and resumed
+bitwise).  They skip, with
 the reason, where there is no card.  This file imports neither JAX nor the JAX package, so it also
 runs on a machine that has only PyTorch:
 
@@ -34,7 +37,7 @@ from torch.utils import _pytree as pytree
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from benchmarks import pt_kernel_bench  # noqa: E402
+from benchmarks import pt_common, pt_kernel_bench  # noqa: E402
 from repro_torch import configs
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import algorithm, graphs, prox, runner
@@ -752,37 +755,150 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda_device, dtype):
 # a served model through the kernels
 # ---------------------------------------------------------------------------
 
+def _norm_sites(cfg) -> int:
+    """The RMSNorm launches of one forward: norm1 (and post_norm1) a
+    layer, norm2 (and post_norm2) a layer with an FFN, the final norm."""
+    if cfg.norm != "rmsnorm":
+        return 0
+    per = 2 if cfg.post_norm else 1
+    return sum(per * (1 + (p.ffn != "none"))
+               for p in transformer.layer_plan(cfg)) + 1
+
+
+def _flash_layers(cfg) -> int:
+    return sum(p.mixer == "attn" and p.attn.chunk is None
+               for p in transformer.layer_plan(cfg))
+
+
+def _as_accurate(got, want, want64, factor=2.0, atol=1e-5):
+    """``got`` lies at most ``factor`` times as far from ``want64`` as
+    ``want`` does, plus ``atol``."""
+    w64 = want64.detach().cpu().double()
+    ref_err = float((want.detach().cpu().double() - w64).abs().max())
+    err = float((got.detach().cpu().double() - w64).abs().max())
+    assert err <= factor * ref_err + atol, (err, ref_err)
+
+
+def _xlstm_f64(cfg, params, toks, steps):
+    """The port's xlstm prefill of ``toks`` and decode of ``steps`` in
+    float64 on the CPU (``pt_common.float64_models``), the yardstick of its
+    ill-conditioned float32 runs (tests/test_torch_ssm.py,
+    tests/test_torch_ssm_models.py): the logits of each, stacked, and the
+    last cache."""
+    cfg64 = cfg.scaled(param_dtype="float64", logit_dtype="float64",
+                       use_flash=False, use_fused_norm=False)
+    p64 = pytree.tree_map(lambda t: t.detach().cpu().double(), params)
+    with pt_common.float64_models():
+        lg, cache = transformer.prefill(cfg64, p64, toks.cpu(), max_len=64)
+        out = [lg]
+        for cur in steps:
+            lg, cache = transformer.decode_step(cfg64, p64, cache, cur.cpu())
+            out.append(lg)
+    return torch.stack(out), cache
+
+
 @pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "gemma2-9b",
                                   "minicpm-2b", "stablelm-12b",
                                   "llama4-scout-17b-a16e",
-                                  "llama4-maverick-400b-a17b"])
+                                  "llama4-maverick-400b-a17b",
+                                  "xlstm-350m", "jamba-1.5-large-398b"])
 def test_model_kernel_routes_match_plain_routes_on_card(cuda_device, arch):
     """Smoke size (4 layers for the llama4 configs, so the fourth is
     global), a prompt longer than the window and the chunk of 16: every
-    RMSNorm is one launch (stablelm's LayerNorm none), every full or
-    windowed prefill layer one flash launch (chunked layers take the plain
-    path), and the logits match the plain routes."""
+    RMSNorm is one launch (stablelm's LayerNorm none; xlstm's blocks one
+    each, having no FFN), every full or windowed prefill attention layer
+    one flash launch (chunked layers take the plain path), and the logits
+    match the plain routes; xlstm's, ill-conditioned, lie no farther from
+    its float64 run than twice the plain route's."""
     cfg = configs.smoke_variant(configs.get_config(arch))
-    if cfg.moe_period:
+    if cfg.moe_period and cfg.mixer_pattern == ("attn",):
         cfg = cfg.scaled(num_layers=4)
     kcfg = cfg.scaled(use_flash=True, use_fused_norm=True)
     params = transformer.init_params(cfg, 0, device=cuda_device)
     toks = torch.randint(0, cfg.vocab_size, (1, 40), device=cuda_device)
-    norms = (4 if cfg.post_norm else 2) * cfg.num_layers + 1 \
-        if cfg.norm == "rmsnorm" else 0
-    flash = sum(p.attn.chunk is None for p in transformer.layer_plan(cfg))
+    norms, flash = _norm_sites(cfg), _flash_layers(cfg)
     rn_ops.launches = fa_ops.launches = 0
     lk, ck = transformer.prefill(kcfg, params, toks, max_len=64)
     assert (fa_ops.launches, rn_ops.launches) == (flash, norms)
     lp, cp = transformer.prefill(cfg, params, toks, max_len=64)
-    torch.testing.assert_close(lk, lp, **LOGIT_TOL)
+    kernel, plain, steps = [lk], [lp], []
     cur = lp.argmax(-1).to(torch.int32)
     for _ in range(3):
+        steps.append(cur)
         lk, ck = transformer.decode_step(kcfg, params, ck, cur)
         lp, cp = transformer.decode_step(cfg, params, cp, cur)
-        torch.testing.assert_close(lk, lp, **LOGIT_TOL)
+        kernel.append(lk)
+        plain.append(lp)
         cur = lp.argmax(-1).to(torch.int32)
     assert fa_ops.launches == flash
+    assert rn_ops.launches == 4 * norms
+    if arch == "xlstm-350m":
+        _as_accurate(torch.stack(kernel), torch.stack(plain),
+                     _xlstm_f64(cfg, params, toks, steps)[0])
+    else:
+        torch.testing.assert_close(torch.stack(kernel), torch.stack(plain),
+                                   **LOGIT_TOL)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "jamba-1.5-large-398b"])
+def test_ssm_smoke_variants_on_card_equal_the_cpu(cuda_device, arch):
+    """The same parameters on the card and on the CPU: the prefill and
+    decode logits and every decode state (jamba's KV and Mamba states,
+    xlstm's mLSTM and sLSTM states) agree, at the logits' tolerance for
+    jamba, and for xlstm no farther from its float64 run than twice the
+    CPU's float32 run."""
+    cfg = configs.smoke_variant(configs.get_config(arch))
+    params = transformer.init_params(cfg, 0, device="cpu")
+    card = pytree.tree_map(lambda t: t.to(cuda_device), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24),
+                         generator=torch.Generator().manual_seed(0))
+    lc, cc = transformer.prefill(cfg, params, toks, max_len=64)
+    lk, ck = transformer.prefill(cfg, card, toks.to(cuda_device), max_len=64)
+    cpu_out, card_out, steps = [lc], [lk], []
+    cur = lc.argmax(-1).to(torch.int32)
+    for _ in range(3):
+        steps.append(cur)
+        lc, cc = transformer.decode_step(cfg, params, cc, cur)
+        lk, ck = transformer.decode_step(cfg, card, ck, cur.to(cuda_device))
+        cpu_out.append(lc)
+        card_out.append(lk)
+        cur = lc.argmax(-1).to(torch.int32)
+    if arch == "xlstm-350m":
+        want64, cache64 = _xlstm_f64(cfg, params, toks, steps)
+        _as_accurate(torch.stack(card_out), torch.stack(cpu_out), want64)
+        for a, b, c in zip(pytree.tree_leaves(ck), pytree.tree_leaves(cc),
+                           pytree.tree_leaves(cache64)):
+            _as_accurate(a, b, c)
+    else:
+        torch.testing.assert_close(torch.stack(card_out).cpu(),
+                                   torch.stack(cpu_out), **LOGIT_TOL)
+        for a, b in zip(pytree.tree_leaves(ck), pytree.tree_leaves(cc)):
+            torch.testing.assert_close(a.cpu(), b, **LOGIT_TOL)
+    for a, b in zip(pytree.tree_leaves(ck), pytree.tree_leaves(cc)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert bool(torch.isfinite(a).all())
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "jamba-1.5-large-398b"])
+def test_ssm_engine_on_card_matches_host_batcher(cuda_device, arch):
+    """The kernel routes on: 8 requests of one budget fill and empty the 4
+    slots together (jamba's MoE decode batch shares capacity), prompts of
+    2 to 33 tokens."""
+    cfg = configs.smoke_variant(configs.get_config(arch)).scaled(
+        use_flash=True, use_fused_norm=True)
+    params = transformer.init_params(cfg, 1, device=cuda_device)
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, tokens=rng.integers(0, cfg.vocab_size, size=n)
+                    .astype(np.int32), max_new_tokens=6)
+            for i, n in enumerate((2, 12, 20, 33, 7, 18, 9, 30))]
+    eng = ResidentEngine(cfg, params, max_slots=4, max_len=64, chunk=3)
+    host = ContinuousBatcher(cfg, params, max_slots=4, max_len=64)
+    for r in reqs:
+        eng.submit(r)
+        host.submit(r)
+    eout, hout = eng.run_until_done(), host.run_until_done()
+    for r in reqs:
+        np.testing.assert_array_equal(eout[r.uid], hout[r.uid])
 
 
 def test_resident_engine_on_card_matches_host_batcher(cuda_device):
@@ -964,6 +1080,38 @@ def test_moe_trainer_on_card_is_deterministic_and_resumes_bitwise(
     cpu = _train_case("cpu", True, steps=4, **kw)
     assert cpu["step"] == full["step"][:2] == [0, 3]
     np.testing.assert_allclose(full["loss"][:2], cpu["loss"], rtol=1e-4,
+                               atol=1e-5)
+    crash = str(tmp_path / "crash")
+    shutil.copytree(str(tmp_path / "full"), crash)
+    shutil.rmtree(os.path.join(crash, "step_00000012"))
+    res = _train_case(cuda_device, True, ckpt_dir=crash, resume=True, **kw)
+    by_step = dict(zip(full["step"], full["loss"]))
+    assert [by_step[s] for s in res["step"]] == res["loss"]
+    for a, b in zip(checkpoint.flatten_with_paths(res["final_state"]),
+                    checkpoint.flatten_with_paths(full["final_state"])):
+        assert torch.equal(a[1], b[1]), a[0]
+
+
+def test_xlstm_trainer_on_card_is_deterministic_and_resumes_bitwise(
+        cuda_device, tmp_path):
+    """xlstm's smoke variant at 4 layers (two mLSTM and two sLSTM blocks,
+    their time loops under the node vmap) trained on the card: a second
+    run is bit for bit the first, a resume from the step-6 checkpoint
+    bitwise the uninterrupted run, and the first record within the CPU's
+    tolerance (the runs are chaotic past it: tests/test_torch_train.py)."""
+    import shutil
+    from repro_torch import checkpoint
+    kw = dict(arch="xlstm-350m", layers=4)
+    full = _train_case(cuda_device, True, ckpt_dir=str(tmp_path / "full"),
+                       **kw)
+    twin = _train_case(cuda_device, True, **kw)
+    assert twin["loss"] == full["loss"]
+    for a, b in zip(checkpoint.flatten_with_paths(twin["final_state"]),
+                    checkpoint.flatten_with_paths(full["final_state"])):
+        assert torch.equal(a[1], b[1]), a[0]
+    cpu = _train_case("cpu", True, steps=1, **kw)
+    assert cpu["step"] == full["step"][:1] == [0]
+    np.testing.assert_allclose(full["loss"][:1], cpu["loss"], rtol=1e-4,
                                atol=1e-5)
     crash = str(tmp_path / "crash")
     shutil.copytree(str(tmp_path / "full"), crash)

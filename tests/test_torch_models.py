@@ -1,8 +1,11 @@
-"""The port's decoder LMs (``repro_torch.models``: dense, and the MoE
-llama4 configs) against the JAX package's (``repro.models``): the same
-numpy inputs and the same parameters (JAX-initialized, carried across by
+"""The port's decoder LMs (``repro_torch.models``: dense, the MoE llama4
+configs, and the SSM configs xlstm-350m and jamba-1.5-large-398b) against
+the JAX package's (``repro.models``): the same numpy inputs and the same
+parameters (JAX-initialized, carried across by
 ``convert.params_from_numpy``) through both, module by module and for the
-whole model.  The MoE mixer alone is ``tests/test_torch_moe.py``.
+whole model.  The MoE mixer alone is ``tests/test_torch_moe.py``, the SSM
+mixers ``tests/test_torch_ssm.py``, the SSM models' forward, prefill,
+decode and gradients ``tests/test_torch_ssm_models.py``.
 
 Tolerances: float32 per module rtol 1e-5 / atol 1e-5; logits rtol 1e-4 /
 atol 1e-5, as the reference's own flash-routing test uses
@@ -35,6 +38,8 @@ MODULE_TOL = dict(rtol=1e-5, atol=1e-5)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-5)
 DENSE_ARCHS = ["h2o-danube-1.8b", "minicpm-2b", "gemma2-9b", "stablelm-12b"]
 MOE_ARCHS = ["llama4-scout-17b-a16e", "llama4-maverick-400b-a17b"]
+SSM_ARCHS = ["xlstm-350m", "jamba-1.5-large-398b"]
+PLAN_SPECS = ("attn", "moe", "mamba", "mlstm", "slstm")
 
 
 def _np(x):
@@ -63,18 +68,28 @@ def _carry(jparams):
 # configs and plans
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_ARCHS)
+def _plans_equal(tcfg, jcfg):
+    tplans, jplans = tapi.layer_plan(tcfg), japi.layer_plan(jcfg)
+    assert len(tplans) == len(jplans) == jcfg.num_layers
+    for tp, jp in zip(tplans, jplans):
+        assert (tp.mixer, tp.ffn) == (jp.mixer, jp.ffn)
+        for f in PLAN_SPECS:
+            t, j = getattr(tp, f), getattr(jp, f)
+            assert (t is None) == (j is None), f
+            assert t is None or dataclasses.asdict(t) == \
+                dataclasses.asdict(j), f
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_ARCHS + SSM_ARCHS)
 def test_configs_compare_as_data(arch):
     j, t = jconfigs.get_config(arch), tconfigs.get_config(arch)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     js, ts = jconfigs.smoke_variant(j), tconfigs.smoke_variant(t)
     assert dataclasses.asdict(ts) == dataclasses.asdict(js)
     assert ts.hd == js.hd
-    for jp, tp in zip(japi.layer_plan(js), tapi.layer_plan(ts)):
-        assert (tp.mixer, tp.ffn) == (jp.mixer, jp.ffn)
-        assert dataclasses.asdict(tp.attn) == dataclasses.asdict(jp.attn)
-        assert (tp.moe is None and jp.moe is None) or \
-            dataclasses.asdict(tp.moe) == dataclasses.asdict(jp.moe)
+    _plans_equal(ts, js)
+    # the full-size plans too: every layer's mixer, FFN and specs
+    _plans_equal(t, j)
 
 
 def test_input_shapes_and_applicability_match():
@@ -82,7 +97,7 @@ def test_input_shapes_and_applicability_match():
             tconfigs.INPUT_SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in jconfigs.INPUT_SHAPES.items()}
     assert tconfigs.list_archs() == jconfigs.list_archs()
-    for arch in DENSE_ARCHS + MOE_ARCHS:
+    for arch in DENSE_ARCHS + MOE_ARCHS + SSM_ARCHS:
         for shape in jconfigs.INPUT_SHAPES.values():
             tshape = tconfigs.INPUT_SHAPES[shape.name]
             assert tconfigs.shape_applicable(tconfigs.get_config(arch),
@@ -90,29 +105,13 @@ def test_input_shapes_and_applicability_match():
                 jconfigs.shape_applicable(jconfigs.get_config(arch), shape)
 
 
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "whisper-base",
-                                  "xlstm-350m", "llava-next-mistral-7b"])
+@pytest.mark.parametrize("arch", ["whisper-base", "llava-next-mistral-7b"])
 def test_unported_archs_raise_by_name(arch):
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         tconfigs.get_config(arch)
 
 
-def test_jamba_still_raises_for_its_ssm_mixers():
-    """jamba's MoE layers are ported; its Mamba mixers are not (item 10
-    (b)), and both the config table and a plan of its layout say so."""
-    with pytest.raises(NotImplementedError, match="item 10 \\(b\\): SSM"):
-        tconfigs.get_config("jamba-1.5-large-398b")
-    j = jconfigs.smoke_variant(jconfigs.get_config("jamba-1.5-large-398b"))
-    cfg = tconfigs.smoke_variant(tconfigs.get_config("h2o-danube-1.8b"))
-    cfg = cfg.scaled(**{f: getattr(j, f) for f in (
-        "mixer_pattern", "moe_experts", "moe_top_k", "moe_period")})
-    with pytest.raises(NotImplementedError, match="item 10 \\(b\\): SSM"):
-        tapi.layer_plan(cfg)
-    assert len(tapi.layer_plan(cfg.scaled(mixer_pattern=("attn",)))) == 2
-
-
 @pytest.mark.parametrize("override,match", [
-    (dict(mixer_pattern=("attn", "mamba")), "SSM"),
     (dict(encoder_layers=2), "encoder"),
     (dict(frontend="vision_stub"), "encoder"),
     (dict(attn_shard_constraint=("data", "model")), "Queue 1 item 14"),
@@ -121,6 +120,23 @@ def test_unported_plans_raise_by_name(override, match):
     cfg = tconfigs.smoke_variant(tconfigs.get_config("h2o-danube-1.8b"))
     with pytest.raises(NotImplementedError, match=match):
         tapi.layer_plan(cfg.scaled(**override))
+
+
+@pytest.mark.parametrize("pattern", [("attn", "mamba"), ("mlstm", "slstm"),
+                                     ("slstm", "attn", "mamba")])
+def test_ssm_mixers_plan_as_the_reference(pattern):
+    """Any pattern of the four mixers, with MoE every other layer: the
+    reference's plans, the xLSTM blocks without an FFN (no MoE on them)."""
+    over = dict(mixer_pattern=pattern, moe_experts=4, moe_top_k=2,
+                moe_period=2, num_layers=6)
+    js = jconfigs.smoke_variant(jconfigs.get_config("h2o-danube-1.8b"))
+    ts = tconfigs.smoke_variant(tconfigs.get_config("h2o-danube-1.8b"))
+    _plans_equal(ts.scaled(**over), js.scaled(**over))
+    plans = tapi.layer_plan(ts.scaled(**over))
+    assert [p.mixer for p in plans] == [pattern[i % len(pattern)]
+                                        for i in range(6)]
+    assert all(p.ffn == "none" for p in plans
+               if p.mixer in ("mlstm", "slstm"))
 
 
 # ---------------------------------------------------------------------------
@@ -511,3 +527,56 @@ def test_scan_group_size_equals_the_reference_on_every_architecture():
                     full.scaled(num_layers=8), full.scaled(num_layers=12)):
             assert tapi.scan_group_size(cfg) == japi.scan_group_size(cfg), \
                 (arch, cfg.num_layers)
+
+
+# ---------------------------------------------------------------------------
+# the SSM configs: xlstm-350m (mLSTM and sLSTM blocks, no FFN) and
+# jamba-1.5-large-398b (attention then 7 Mamba layers, MoE every other
+# layer); in the smoke variants at 2 layers jamba is attention + swiglu,
+# then Mamba + a 4-expert top-2 MoE
+# ---------------------------------------------------------------------------
+
+def _ssm_model(arch, layers):
+    jcfg = jconfigs.smoke_variant(jconfigs.get_config(arch)).scaled(
+        num_layers=layers)
+    tcfg = tconfigs.smoke_variant(tconfigs.get_config(arch)).scaled(
+        num_layers=layers)
+    jp = _jax_params(jcfg)
+    return jcfg, tcfg, jp, _carry(jp)
+
+
+@pytest.mark.parametrize("layers", [2, 4])
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_loss_matches(arch, layers):
+    jcfg, tcfg, jp, tp = _ssm_model(arch, layers)
+    rng = np.random.default_rng(4)
+    batch = {"tokens": rng.integers(0, 512, (2, 16)).astype(np.int32),
+             "labels": rng.integers(0, 512, (2, 16)).astype(np.int32)}
+    jl = jtransformer.loss_fn(jcfg)(jp, {k: jnp.asarray(v)
+                                         for k, v in batch.items()})
+    tl = ttransformer.loss_fn(tcfg)(tp, {k: _t(v) for k, v in batch.items()})
+    _close(tl, jl, LOGIT_TOL)
+
+
+@pytest.mark.parametrize("layers", [2, 4])
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_init_params_and_cache_have_the_reference_trees(arch, layers):
+    jcfg, tcfg, jp, _ = _ssm_model(arch, layers)
+    tp = ttransformer.init_params(tcfg, 0, device="cpu")
+    jshapes = jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)), jp)
+    tshapes = jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)),
+                           params_to_numpy(tp))
+    assert tshapes == jshapes
+    assert ttransformer.param_count(tp) == jtransformer.param_count(jp)
+    mixers = [next(k for k in ("attn", "mamba", "mlstm", "slstm")
+                   if k in layer) for layer in tp["layers"]]
+    assert mixers == [p.mixer for p in tapi.layer_plan(tcfg)]
+    jc = jtransformer.init_cache(jcfg, 3, 40)
+    tc = ttransformer.init_cache(tcfg, 3, 40, device="cpu")
+    assert jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)), jc) == \
+        jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)),
+                     params_to_numpy(tc))
+    # every state leaf its own buffer: the engine splices rows in place
+    leaves = [t for e in tc["layers"] for st in e.values()
+              for t in st.values()]
+    assert len({t.data_ptr() for t in leaves}) == len(leaves)

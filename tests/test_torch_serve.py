@@ -6,9 +6,11 @@ their summaries against the reference's, bit for bit.
 
 Greedy tokens are compared exactly: both packages compute the same float32
 logits to ~1e-6 (tests/test_torch_models.py), and the models here are tiny,
-so no argmax sits near a tie.  In the MoE models a decode batch's rows share
-the experts' capacity, so the engine and the host batcher are held to each
-other where both decode the same rows.
+so no argmax sits near a tie.  In the MoE models (jamba's among them) a
+decode batch's rows share the experts' capacity, so the engine and the host
+batcher are held to each other where both decode the same rows.  The SSM
+models keep recurrent states in the cache, which no position masks: an
+admission must overwrite all of its slot's row.
 """
 
 import dataclasses
@@ -21,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils import _pytree as pytree
 
 from repro import configs as jconfigs
 from repro.models import transformer as jtransformer
@@ -393,3 +396,130 @@ def test_bf16_moe_engine_equals_the_host_batcher():
     eng = _run_both(cfg, params, _requests(cfg, 8, seed=10, new=(5, 6)),
                     slots=4, max_len=40, chunk=5)
     assert eng.cache["layers"][0]["kv"]["k"].dtype == torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# the SSM models: recurrent states in the cache, which no position masks
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ["xlstm-350m", "jamba-1.5-large-398b"]
+
+
+def _ssm_models(arch):
+    """Smoke variants (2 layers: xlstm's mLSTM then sLSTM block; jamba's
+    attention + swiglu then Mamba + a 4-expert top-2 MoE), the JAX
+    package's init carried across."""
+    jcfg = jconfigs.smoke_variant(jconfigs.get_config(arch))
+    tcfg = tconfigs.smoke_variant(tconfigs.get_config(arch))
+    jp = jtransformer.init_params(jcfg, jax.random.PRNGKey(0))
+    return jcfg, tcfg, jp, params_from_numpy(jax.tree.map(np.asarray, jp),
+                                             "cpu")
+
+
+def _jax_engine(jcfg, jp, **kw):
+    """The reference's engine with its cache leaves in buffers of their
+    own: its ``slstm_init_state`` returns one zero array for all four
+    states, and the engine's donated admission refuses to donate a buffer
+    twice (a fault of the reference, ROADMAP Queue 3)."""
+    eng = JResidentEngine(jcfg, jp, **kw)
+    eng.cache = jax.tree.map(jnp.copy, eng.cache)
+    return eng
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_engine_equals_the_host_batcher_and_the_jax_engine(arch):
+    """Eight requests of one budget through 4 slots (jamba's MoE decode
+    batch shares capacity, so both paths decode the same rows), prompts of
+    2 (shorter than the conv state), 5, 12 and 20 tokens: the engine, the
+    host batcher and the JAX package's engine give the same tokens and the
+    engines the same ledger."""
+    jcfg, tcfg, jp, tp = _ssm_models(arch)
+    kw = dict(lens=(2, 5, 12, 20), new=(6, 7))
+    jreqs = _requests(tcfg, 8, seed=8, cls=JRequest, **kw)
+    treqs = _requests(tcfg, 8, seed=8, **kw)
+    eng = _run_both(tcfg, tp, treqs, slots=4, max_len=40, chunk=3)
+    jeng = _jax_engine(jcfg, jp, max_slots=4, max_len=40, chunk=3)
+    for r in jreqs:
+        jeng.submit(r)
+    jout = jeng.run_until_done()
+    for uid in jout:
+        np.testing.assert_array_equal(eng.outputs[uid], jout[uid])
+    assert eng.transfers == jeng.transfers
+
+
+def test_xlstm_engine_equals_the_jax_engine_with_uneven_budgets():
+    """Budgets and prompts of all lengths: slots retire mid-chunk and are
+    refilled while the others decode on."""
+    jcfg, tcfg, jp, tp = _ssm_models("xlstm-350m")
+    kw = dict(lens=(1, 5, 12, 20), new=(2, 9))
+    jreqs = _requests(tcfg, 7, seed=9, cls=JRequest, **kw)
+    treqs = _requests(tcfg, 7, seed=9, **kw)
+    teng = _run_both(tcfg, tp, treqs, slots=3, max_len=40, chunk=4)
+    jeng = _jax_engine(jcfg, jp, max_slots=3, max_len=40, chunk=4)
+    for r in jreqs:
+        jeng.submit(r)
+    jout = jeng.run_until_done()
+    assert set(teng.outputs) == set(jout)
+    for uid in jout:
+        np.testing.assert_array_equal(teng.outputs[uid], jout[uid])
+    assert teng.transfers == jeng.transfers
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_engine_chunk_size_invariance(arch):
+    _, tcfg, _, tp = _ssm_models(arch)
+    reqs = _requests(tcfg, 6, seed=5, lens=(3, 9, 14), new=(5, 6))
+    outs = {}
+    for chunk in (1, 4, 16):
+        eng = ResidentEngine(tcfg, tp, max_slots=3, max_len=32, chunk=chunk)
+        for r in reqs:
+            eng.submit(r)
+        outs[chunk] = eng.run_until_done()
+    for chunk in (4, 16):
+        assert set(outs[1]) == set(outs[chunk])
+        for uid in outs[1]:
+            np.testing.assert_array_equal(outs[1][uid], outs[chunk][uid])
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_admission_resets_every_recurrent_state_of_the_slot(arch):
+    """A slot reused after a retirement: its row of every state leaf
+    (conv, h; c, n, m; the sLSTM's c, n, h, m) is the new prompt's prefill
+    state, whatever the retired request left there, and the request's
+    tokens equal a fresh engine's.  A stale recurrent state, unlike a
+    stale KV entry, is masked by no position."""
+    _, tcfg, _, tp = _ssm_models(arch)
+    first, second = _requests(tcfg, 2, seed=11, lens=(7, 13), new=(9, 10))
+    eng = ResidentEngine(tcfg, tp, max_slots=1, max_len=32, chunk=4)
+    eng.submit(first)
+    while eng.busy:
+        eng.step()
+    before = [t.clone() for t in pytree.tree_leaves(eng.cache["layers"])]
+    eng.submit(second)
+    eng._admit_all()
+    _, row = transformer.prefill(tcfg, tp,
+                                 torch.from_numpy(second.tokens)[None],
+                                 max_len=32)
+    changed = 0
+    for (key, got), want, old in zip(
+            pytree.tree_flatten_with_path(eng.cache["layers"])[0],
+            pytree.tree_leaves(row["layers"]), before):
+        if "kv" in pytree.keystr(key):
+            continue
+        assert torch.equal(got[0], want[0].to(got.dtype)), key
+        changed += int(not torch.equal(got, old))
+    assert changed > 0
+    while eng.busy:
+        eng.step()
+    fresh = ResidentEngine(tcfg, tp, max_slots=1, max_len=32, chunk=4)
+    fresh.submit(second)
+    np.testing.assert_array_equal(eng.outputs[second.uid],
+                                  fresh.run_until_done()[second.uid])
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_launch_serve_serves_the_ssm_smoke_variants_on_the_cpu(arch):
+    from repro_torch.launch import serve as launch_serve
+    summary = launch_serve.main(["--arch", arch, "--device", "cpu",
+                                 "--requests", "3", "--new", "4"])
+    assert summary["tokens"] == 12

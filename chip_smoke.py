@@ -58,10 +58,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    versions on the card (RMSNorm: rows in {1, 3, 4, 8, 6144}, d in {1, 7,
    128, 2304, 2560, 3584, 5120} and the first width past the register
    tiles, and the SSM models' float32 block norms at (4, 1024), (512,
-   1024), (4, 8192) and (2048, 8192); flash: causal, window, softcap, GQA,
+   1024), (4, 8192) and (2048, 8192), and llava's at (4, 4096) and (3200,
+   4096); flash: causal, window, softcap, GQA,
    bidirectional and ragged shapes, head_dim in {32, 33, 80, 128, 160,
    256}, the 6144-token prefills of h2o-danube-1.8b, stablelm-12b and
-   scout's global layer, and jamba's (1, 64/8, 2048, 128) causal;
+   scout's global layer, jamba's (1, 64/8, 2048, 128) causal, whisper's
+   (1, 8/8, 224, 64) and llava's (1, 32/8, 3200, 128);
    float32 within rtol 1e-5 / atol 2e-5, bf16 within the element-wise
    bound ``ref.bf16_bound``), and times kernel, eager call,
    plain version, ``F.rms_norm`` / ``F.scaled_dot_product_attention``
@@ -237,17 +239,37 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     batcher's, logits within 1e-3 of the plain path, the capacity drops,
     the same timings, and the Mamba layer on 512 tokens held to the CPU
     (``jamba_serve``);
-27. prints the card, a ``{"kernels": [...]}`` line (all seven kernels,
+27. serves whisper-base at full size (6 encoder and 6 decoder layers, d
+    512, 105 M parameters, float32, from a seed) through phase 11's
+    engine: 8 requests, each with its own 1500 frames of stub audio
+    (``models.multimodal.fake_audio_frames``, seed = uid), prompts of
+    4-224 tokens, 32 new each, 4 slots, chunk 8: flash exactly 6 launches
+    a prefill (the decoder's causal self-attention; the encoder and the
+    cross-attention take the plain path), no RMSNorm launch (LayerNorm),
+    tokens equal to the host batcher's, logits within 1e-3 of the plain
+    path; a Poisson stream whose requests carry their audio; the encoder
+    on 1500 frames held to the same weights on the CPU (within 1e-4 of
+    its largest magnitude) and timed; two requests with the same tokens
+    and other audio decode to other tokens; a decode step against its
+    bound (``whisper_serve``);
+28. the same for llava-next-mistral-7b at full width cut from 32 to 16
+    layers (d 4096, 32 / 8 heads, 3.63 B parameters, 14.5 GB float32):
+    8 requests, each with its own 1152-token stub image prefix, prompts
+    of 64-2048 tokens, max_len 4096: flash exactly 16 launches a prefill
+    over prefix and prompt, RMSNorm 33 a forward; then layer 0 at full
+    width on the prefix and 128 tokens held to the CPU (``llava_serve``);
+29. prints the card, a ``{"kernels": [...]}`` line (all seven kernels,
     each with its ``share_of_bound``; RMSNorm and flash also with
     ``launches_consensus_serve``, phase 16's count, and
-    ``launches_{stablelm,scout,maverick,xlstm,jamba}_serve``, phases
-    21-23's and 25-26's;
+    ``launches_{stablelm,scout,maverick,xlstm,jamba,whisper,llava}_serve``,
+    phases 21-23's and 25-28's;
     fused_step_cells with ``launches_scenarios``, phase 17's cell-batched
     count, and fused_step with the single launches of phase 17's
     sequential runs; fused_step and fused_step_cells with
     ``launches_exec_modes``, phase 19's counts),
     and last ``{"ok": true, "device": {...}}``.  (Until phase 21 came,
-    these final lines were phase 20; until phase 25, phase 25.)
+    these final lines were phase 20; until phase 25, phase 25; until
+    phase 27, phase 27.)
 
 Needs one card; exits non-zero without one, and without the repository
 around it.
@@ -289,13 +311,13 @@ from repro_torch.kernels.rmsnorm import kernel as rn_kernel  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rn_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as rn_ref  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
-from repro_torch.models import moe, transformer  # noqa: E402
+from repro_torch.models import moe, multimodal, transformer  # noqa: E402
 from repro_torch.serve import consensus  # noqa: E402
 from repro_torch.serve import metrics as serve_metrics  # noqa: E402
 from repro_torch.serve import stream as serve_stream  # noqa: E402
 from repro_torch.serve.engine import ResidentEngine  # noqa: E402
 from repro_torch.serve.scheduler import (ContinuousBatcher,  # noqa: E402
-                                         Request)
+                                         Request, modality_inputs)
 from repro_torch.train import steps, trainer  # noqa: E402
 from benchmarks import pt_common, pt_kernel_bench  # noqa: E402
 
@@ -996,6 +1018,10 @@ RMS_LINE_SHAPE = (4, 2560)
 # jamba-1.5-large (d 8192) at a 4-slot decode step and at their longest
 # prefill (512 and 2048 tokens)
 RMS_SSM_SHAPES = [(4, 1024), (512, 1024), (4, 8192), (2048, 8192)]
+# llava-next-mistral-7b's norms (d 4096, phase 28), float32: a 4-slot
+# decode step and its longest prefill (the 1152-token image prefix and a
+# 2048-token prompt)
+RMS_LLAVA_SHAPES = [(4, 4096), (3200, 4096)]
 # b, h, kv, sq, sk, hd, causal, window, softcap: the prefills of 6144
 # tokens of h2o-danube-1.8b, stablelm-12b (head_dim 160) and scout's global
 # NoPE layer (head_dim 128)
@@ -1004,6 +1030,12 @@ STABLELM_FLASH_CASE = (1, 32, 8, 6144, 6144, 160, True, None, None)
 SCOUT_FLASH_CASE = (1, 40, 8, 6144, 6144, 128, True, None, None)
 # jamba-1.5-large's attention layer at its longest prefill of phase 26
 JAMBA_FLASH_CASE = (1, 64, 8, 2048, 2048, 128, True, None, None)
+# the decoders' causal self-attention at the longest prefills of phases
+# 27-28: whisper-base (MHA, head_dim 64) on a 224-token prompt, and
+# llava-next-mistral-7b (GQA 4x, head_dim 128) on its 1152-token image
+# prefix and a 2048-token prompt
+WHISPER_FLASH_CASE = (1, 8, 8, 224, 224, 64, True, None, None)
+LLAVA_FLASH_CASE = (1, 32, 8, 3200, 3200, 128, True, None, None)
 FLASH_CASES = [
     (1, 4, 2, 128, 128, 64, True, None, None),      # GQA 2x, causal
     (2, 4, 4, 256, 256, 32, True, None, None),      # MHA, batch 2
@@ -1015,7 +1047,7 @@ FLASH_CASES = [
     (1, 4, 2, 300, 300, 256, True, 100, 50.0),      # gemma2's head_dim 256
     (1, 4, 2, 130, 130, 33, True, None, None),      # hd % 4 != 0: loads
     DANUBE_FLASH_CASE, STABLELM_FLASH_CASE, SCOUT_FLASH_CASE,
-    JAMBA_FLASH_CASE,
+    JAMBA_FLASH_CASE, WHISPER_FLASH_CASE, LLAVA_FLASH_CASE,
 ]
 
 
@@ -1094,7 +1126,8 @@ def check_rmsnorm(device) -> dict:
     rows_out = {}
     cases = [(n, width, dtype) for width in RMS_DIMS for n in RMS_ROWS
              for dtype in (torch.float32, torch.bfloat16)]
-    cases += [(n, d, torch.float32) for n, d in RMS_SSM_SHAPES]
+    cases += [(n, d, torch.float32)
+              for n, d in RMS_SSM_SHAPES + RMS_LLAVA_SHAPES]
     for n, width, dtype in cases:
         d = width if width != "register+8" else \
             rn_kernel.max_register_d(dtype) + 8
@@ -1371,7 +1404,8 @@ def _check_served(cfg, params, reqs, outs, *, slots: int, max_len: int,
 
     ``compare_logits=False`` stops after the tokens: a model whose
     float32 logits the arithmetic does not determine to LOGIT_TOL is held
-    elsewhere (xlstm-350m: ``_prefix_check``)."""
+    elsewhere (xlstm-350m: ``_prefix_check``).  A request's image or audio
+    goes to every prefill (``scheduler.modality_inputs``)."""
     host = ContinuousBatcher(cfg, params, max_slots=slots, max_len=max_len)
     for r in reqs:
         host.submit(r)
@@ -1398,13 +1432,15 @@ def _check_served(cfg, params, reqs, outs, *, slots: int, max_len: int,
         return result
     for r in reqs:
         toks = torch.as_tensor(r.tokens, device=device)[None]
+        kw = modality_inputs(cfg, r, max_len, device)
         _sync(device)
         t0 = time.perf_counter()
-        lk, ck = transformer.prefill(cfg, params, toks, max_len=max_len)
+        lk, ck = transformer.prefill(cfg, params, toks, max_len=max_len,
+                                     **kw)
         _sync(device)
         t1 = time.perf_counter()
         lp, cp = transformer.prefill(plain_cfg, params, toks,
-                                     max_len=max_len)
+                                     max_len=max_len, **kw)
         _sync(device)
         kernel_ms[len(r.tokens)] = (t1 - t0) * 1e3
         plain_ms[len(r.tokens)] = (time.perf_counter() - t1) * 1e3
@@ -1445,12 +1481,13 @@ def _check_served(cfg, params, reqs, outs, *, slots: int, max_len: int,
 def serve_model(tag: str, cfg, params, reqs, *, slots: int, max_len: int,
                 chunk: int, flash_per_prefill: int, rms_per_forward: int,
                 stream: serve_stream.StreamConfig, device=SERVE_DEVICE,
-                compare_logits=True) -> dict:
+                compare_logits=True, stream_modality=None) -> dict:
     """Serves ``reqs`` through the ResidentEngine (the main path: launch
     counts set to 0 just before and read just after, and exact), holds its
     tokens to the host batcher and its logits to the plain path
     (``_check_served``, with ``compare_logits``), then replays ``stream``
-    through the engine (TTFT, TPOT)."""
+    through the engine (TTFT, TPOT), each stream request with the image or
+    audio ``stream_modality(uid)`` gives, where it is given."""
     _free_card()
     _peak_reset(device)
     eng = TimedEngine(cfg, params, max_slots=slots, max_len=max_len,
@@ -1495,6 +1532,10 @@ def serve_model(tag: str, cfg, params, reqs, *, slots: int, max_len: int,
                                 compare_logits=compare_logits))
 
     stream_reqs = serve_stream.make_requests(stream)
+    if stream_modality is not None:
+        stream_reqs = [_ModalStreamRequest(**{
+            f.name: getattr(r, f.name) for f in dataclasses.fields(r)},
+            modality=stream_modality(r.uid)) for r in stream_reqs]
     eng = ResidentEngine(cfg, params, max_slots=slots, max_len=max_len,
                          chunk=chunk)
     summary = serve_metrics.summarize(serve_stream.replay(eng, stream_reqs))
@@ -1507,6 +1548,16 @@ def serve_model(tag: str, cfg, params, reqs, *, slots: int, max_len: int,
     result["peak_bytes"] = _peak(device)
     _free_card()
     return result
+
+
+@dataclasses.dataclass(frozen=True)
+class _ModalStreamRequest(serve_stream.StreamRequest):
+    """A stream request with its image or audio, which ``to_request`` puts
+    on the ``Request`` (the stream's own API is the reference's)."""
+    modality: dict = dataclasses.field(default_factory=dict)
+
+    def to_request(self) -> Request:
+        return dataclasses.replace(super().to_request(), **self.modality)
 
 
 def serve_danube() -> dict:
@@ -3710,6 +3761,10 @@ def _float64_yardstick(cfg, params, max_len: int):
     return run
 
 
+def _bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in pytree.tree_leaves(tree))
+
+
 def _state_bytes(cfg, slots: int, max_len: int) -> int:
     cache = transformer.init_cache(cfg, slots, max_len, device="meta")
     return sum(t.numel() * t.element_size()
@@ -3717,17 +3772,18 @@ def _state_bytes(cfg, slots: int, max_len: int) -> int:
 
 
 def _decode_profile(cfg, params, reqs, slots: int, max_len: int,
-                    device) -> dict:
+                    device, weights=None) -> dict:
     """One decode step of ``slots`` admitted rows, traced: the card's busy
-    time and idle share; and the step's bound, its weights read once and
-    its states (KV caches or recurrent states) read and written once at
-    the memory rate."""
+    time and idle share; and the step's bound, its weights (``weights``
+    bytes where given, else all of ``params``) read once and its states
+    (KV caches or recurrent states, cross-attention K/V) read and written
+    once at the memory rate."""
     from torch.profiler import ProfilerActivity, profile
     eng = ResidentEngine(cfg, params, max_slots=slots, max_len=max_len,
                          chunk=1)
     for r in reqs[:slots]:
-        eng.submit(Request(uid=r.uid, tokens=r.tokens[:128],
-                           max_new_tokens=64))
+        eng.submit(dataclasses.replace(r, tokens=r.tokens[:128],
+                                       max_new_tokens=64))
     eng._admit_all()
     tok = eng.state.next_tok
     transformer.decode_step(cfg, params, eng.cache, tok)
@@ -3738,8 +3794,8 @@ def _decode_profile(cfg, params, reqs, slots: int, max_len: int,
         transformer.decode_step(cfg, params, eng.cache, tok)
         _sync(device)
         wall_us = (time.perf_counter() - t0) * 1e6
-    weights = sum(t.numel() * t.element_size()
-                  for t in pytree.tree_leaves(params))
+    if weights is None:
+        weights = _bytes(params)
     states = _state_bytes(cfg, slots, max_len)
     del eng
     _free_card()
@@ -3922,6 +3978,221 @@ def jamba_phase(device=SERVE_DEVICE, cfg=None) -> dict:
     del params
     _free_card()
     print("jamba_serve " + json.dumps(result), flush=True)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phases 27-28: the encoder-decoder and the image prefix at full width:
+# whisper-base, llava-next-mistral-7b
+# ---------------------------------------------------------------------------
+
+MM_SEED = 0
+# whisper-base at full size (6 encoder + 6 decoder layers, d_model 512, 8
+# heads, vocab 51,865, 65,536 learned positions; 105 M parameters, 0.42 GB
+# float32): 8 requests, each with its own 30 s of stub audio (1500 frames,
+# seed = uid), short decoder prompts: the transcription shape
+WHISPER_PROMPTS = [4, 32, 64, 96, 128, 160, 192, 224]
+WHISPER_NEW = 32
+WHISPER_MAX_LEN = 256
+WHISPER_STREAM = dict(num_requests=4, prompt_lens=(4, 224), new_low=16,
+                      new_high=32)
+# whisper's encoder on 1500 frames on the card against the same weights on
+# the CPU: float32 products in other orders through 6 layers of a
+# LayerNorm'd stream, held within ENCODER_RTOL of the output's largest
+# magnitude
+ENCODER_RTOL = 1e-4
+# llava-next-mistral-7b at full width (d_model 4096, 32 / 8 heads, d_ff
+# 14,336, vocab 32,000, a tied head) cut from 32 to 16 layers (3.63 B
+# parameters, 14.5 GB float32; at full depth, 7.13 B and 28.5 GB, the
+# phase took 64.8 s and the whole script 1097 s, too near its 1200 s
+# limit): 8 requests, each with its own 1152-token stub image prefix (2
+# anyres tiles of 576 patches, seed = uid); max_len holds the prefix, the
+# longest prompt and the new tokens
+LLAVA_LAYERS = 16
+LLAVA_PROMPTS = [64, 128, 256, 512, 768, 1024, 1536, 2048]
+LLAVA_NEW = 32
+LLAVA_MAX_LEN = 4096
+LLAVA_STREAM = dict(num_requests=4, prompt_lens=(64, 2048), new_low=16,
+                    new_high=32)
+# llava's layer 0 at full width on the image prefix and 128 prompt tokens
+# (1280 positions), through the kernels on the card against the same layer
+# on the CPU, within LLAVA_LAYER_RTOL of the output's largest magnitude
+LLAVA_LAYER_TOKENS = 128
+LLAVA_LAYER_RTOL = 1e-4
+# stream requests take their image or audio from seeds past the requests'
+MM_STREAM_SEED = 1000
+
+
+def _mm_inputs(cfg, seed: int) -> dict:
+    """One request's stub input, without the batch axis
+    (``models.multimodal``): 1500 frames of audio or the 1152-token image
+    prefix, from ``seed``."""
+    if cfg.frontend == "vision_stub":
+        return {"image_embeds": multimodal.fake_image_patches(
+            1, cfg.d_model, cfg.image_tokens, seed=seed)[0]}
+    return {"audio_frames": multimodal.fake_audio_frames(
+        1, cfg.d_model, cfg.encoder_seq, seed=seed)[0]}
+
+
+def _mm_requests(cfg, prompts, new: int) -> list:
+    return [dataclasses.replace(r, **_mm_inputs(cfg, r.uid))
+            for r in _requests(cfg.vocab_size, prompts, new, MM_SEED)]
+
+
+def _mm_stream(cfg, kw: dict):
+    """(stream config, stream_modality) for serve_model."""
+    sc = serve_stream.StreamConfig(vocab_size=cfg.vocab_size,
+                                   arrival="poisson", rate=STREAM_RATE,
+                                   seed=MM_SEED, **kw)
+    return sc, lambda uid: _mm_inputs(cfg, MM_STREAM_SEED + uid)
+
+
+def _held_to_cpu_rel(name: str, y, yc, rtol: float) -> dict:
+    err = float((y.cpu() - yc).abs().max())
+    scale = float(yc.abs().max())
+    if not err <= rtol * scale:
+        fail(f"{name}: card vs CPU max abs err {err:.3g} over {rtol} of the "
+             f"largest |y| {scale:.3g}")
+    return {"max_abs_err": err, "max_abs_y": scale}
+
+
+def _encoder_vs_cpu(cfg, params, req, device) -> dict:
+    """whisper's encoder on one request's 1500 frames: ms an encode on the
+    card, and its output held to the same weights' run on the CPU."""
+    frames = torch.as_tensor(req.audio_frames, device=device)[None]
+    out = {"frames": int(frames.shape[1])}
+    if device != "cpu":
+        out["encode_ms"] = time_ms(
+            lambda: transformer._encode(cfg, params, frames), iters=5,
+            samples=3)
+    y = transformer._encode(cfg, params, frames)
+    cpu_p = {"encoder": pytree.tree_map(lambda t: t.cpu(),
+                                        params["encoder"])}
+    t0 = time.perf_counter()
+    yc = transformer._encode(cfg, cpu_p, frames.cpu())
+    out["cpu_s"] = time.perf_counter() - t0
+    out.update(_held_to_cpu_rel("whisper encoder", y, yc, ENCODER_RTOL))
+    return out
+
+
+def _conditioned_decode(cfg, params, req, slots: int, max_len: int) -> dict:
+    """Two requests with ``req``'s tokens, one with its audio and one with
+    the next request's, through the engine decode to different tokens: the
+    decoder reads its encoder (the card twin of the reference's
+    test_whisper_conditioned_decode)."""
+    eng = ResidentEngine(cfg, params, max_slots=slots, max_len=max_len,
+                         chunk=DANUBE_CHUNK)
+    for uid in (0, 1):
+        eng.submit(dataclasses.replace(req, uid=uid,
+                                       **_mm_inputs(cfg, req.uid + uid)))
+    outs = eng.run_until_done()
+    differ = int((outs[0] != outs[1]).sum())
+    if differ == 0:
+        fail("whisper: two audios decode to the same tokens: the decoder "
+             "ignores its encoder")
+    return {"tokens": len(outs[0]), "positions_that_differ": differ}
+
+
+def _decoder_bytes(params) -> int:
+    """What a whisper decode step reads of the weights: the decoder layers,
+    the tied head (the embedding) and the final norm; not the encoder, nor
+    the 65,536 learned positions (one row a step)."""
+    return _bytes({k: params[k] for k in ("layers", "embed", "final_norm")})
+
+
+def whisper_phase(device=SERVE_DEVICE, cfg=None) -> dict:
+    """Phase 27: whisper-base at full size, float32, flash on (the
+    decoder's causal self-attention, 6 launches a prefill; the encoder's
+    bidirectional layers and the cross-attention take the plain path by
+    the reference's rule; LayerNorm, so no RMSNorm launch); each request
+    with its own audio; then the encoder held to the CPU and the decoder
+    shown to read it."""
+    if cfg is None:
+        cfg = configs.get_config("whisper-base")
+    cfg = cfg.scaled(use_flash=True, use_fused_norm=True)
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, MM_SEED, device=device)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    reqs = _mm_requests(cfg, WHISPER_PROMPTS, WHISPER_NEW)
+    stream, modality = _mm_stream(cfg, WHISPER_STREAM)
+    result = serve_model(
+        "whisper", cfg, params, reqs, slots=DANUBE_SLOTS,
+        max_len=WHISPER_MAX_LEN, chunk=DANUBE_CHUNK,
+        flash_per_prefill=cfg.num_layers, rms_per_forward=0, stream=stream,
+        stream_modality=modality, device=device)
+    result.update(layers=cfg.num_layers, encoder_layers=cfg.encoder_layers,
+                  params=transformer.param_count(params), init_s=init_s)
+    result["encoder_vs_cpu"] = _encoder_vs_cpu(cfg, params, reqs[0], device)
+    result["conditioned_decode"] = _conditioned_decode(
+        cfg, params, reqs[0], DANUBE_SLOTS, WHISPER_MAX_LEN)
+    result.update(_decode_profile(cfg, params, reqs, DANUBE_SLOTS,
+                                  WHISPER_MAX_LEN, device,
+                                  weights=_decoder_bytes(params)))
+    del params
+    _free_card()
+    print("whisper_serve " + json.dumps(result), flush=True)
+    return result
+
+
+def _llava_layer_vs_cpu(cfg, params, req, device) -> dict:
+    """Layer 0 at full width on ``req``'s image prefix and first
+    LLAVA_LAYER_TOKENS tokens, through the kernels on the card and on the
+    CPU (where the wrappers run their plain versions)."""
+    toks = torch.as_tensor(req.tokens[:LLAVA_LAYER_TOKENS], device=device)
+    img = torch.as_tensor(req.image_embeds, device=device)
+    x, prefix = transformer._embed_inputs(cfg, params, toks[None], img[None])
+    plan = transformer.layer_plan(cfg)[0]
+    lp = params["layers"][0]
+    _sync(device)
+    t0 = time.perf_counter()
+    y, _ = transformer._block_forward(cfg, plan, lp, x)
+    _sync(device)
+    card_s = time.perf_counter() - t0
+    cpu_p = pytree.tree_map(lambda t: t.cpu(), lp)
+    t0 = time.perf_counter()
+    yc, _ = transformer._block_forward(cfg, plan, cpu_p, x.cpu())
+    cpu_s = time.perf_counter() - t0
+    out = {"positions": int(x.shape[1]), "prefix": prefix,
+           "card_s": card_s, "cpu_s": cpu_s}
+    out.update(_held_to_cpu_rel("llava layer 0", y, yc, LLAVA_LAYER_RTOL))
+    return out
+
+
+def llava_phase(device=SERVE_DEVICE, cfg=None) -> dict:
+    """Phase 28: llava-next-mistral-7b at full width, LLAVA_LAYERS deep,
+    float32, flash and RMSNorm on: flash once a layer a prefill over
+    the image prefix and the prompt, RMSNorm 2 a layer and the final norm a
+    forward; each request with its own image prefix; then layer 0 held to
+    the CPU."""
+    if cfg is None:
+        cfg = configs.get_config("llava-next-mistral-7b").scaled(
+            num_layers=LLAVA_LAYERS)
+    cfg = cfg.scaled(use_flash=True, use_fused_norm=True)
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, MM_SEED, device=device)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    reqs = _mm_requests(cfg, LLAVA_PROMPTS, LLAVA_NEW)
+    stream, modality = _mm_stream(cfg, LLAVA_STREAM)
+    result = serve_model(
+        "llava", cfg, params, reqs, slots=DANUBE_SLOTS,
+        max_len=LLAVA_MAX_LEN, chunk=DANUBE_CHUNK,
+        flash_per_prefill=cfg.num_layers,
+        rms_per_forward=2 * cfg.num_layers + 1, stream=stream,
+        stream_modality=modality, device=device)
+    result.update(layers=cfg.num_layers, image_tokens=cfg.image_tokens,
+                  params=transformer.param_count(params), init_s=init_s)
+    result.update(_decode_profile(cfg, params, reqs, DANUBE_SLOTS,
+                                  LLAVA_MAX_LEN, device))
+    result["weights_bound_ms"] = \
+        result["weight_bytes"] / HBM_BYTES_PER_S * 1e3
+    result["layer0_vs_cpu"] = _llava_layer_vs_cpu(
+        cfg, params, next(r for r in reqs
+                          if len(r.tokens) >= LLAVA_LAYER_TOKENS), device)
+    del params
+    _free_card()
+    print("llava_serve " + json.dumps(result), flush=True)
     return result
 
 
@@ -4143,15 +4414,18 @@ def main() -> None:
           flush=True)
 
     # phases 25-26: xlstm-350m at full size and jamba-1.5-large at full
-    # width (2 layers) served
-    for name, phase in (("xlstm", xlstm_phase), ("jamba", jamba_phase)):
+    # width (2 layers) served; phases 27-28: whisper-base at full size and
+    # llava-next-mistral-7b at full width (16 layers) served with their
+    # audio and image prefixes
+    for name, phase in (("xlstm", xlstm_phase), ("jamba", jamba_phase),
+                        ("whisper", whisper_phase), ("llava", llava_phase)):
         t0 = time.perf_counter()
         served[name] = phase()
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s, peak "
               f"{served[name]['peak_bytes'] / 1e9:.1f} GB ({card})",
               flush=True)
 
-    elapsed("phase 26")
+    elapsed("phase 28")
 
     main_row = rows[(8, 1024, "svrg", "l1")]
     # the shape the kernel bench gives svrg_step and mix_prox
@@ -4230,7 +4504,9 @@ def main() -> None:
         # phases 21-23 serve stablelm-12b (flash float32), llama4-scout
         # (flash float32 on its global layer, RMSNorm) and llama4-maverick
         # (RMSNorm bf16); phases 25-26 xlstm-350m (RMSNorm) and
-        # jamba-1.5-large (flash float32 and RMSNorm)
+        # jamba-1.5-large (flash float32 and RMSNorm); phases 27-28
+        # whisper-base (flash float32) and llava-next-mistral-7b (flash
+        # float32 and RMSNorm)
         for name, res in served.items():
             if row["name"] in res["launches"]:
                 row[f"launches_{name}_serve"] = res["launches"][row["name"]]

@@ -4,12 +4,11 @@ language models, with the canonical input shapes.
 The port of ``repro.configs``.  ``get_config(name)`` resolves ids with
 dashes; ``smoke_variant`` produces the reduced CI model (2 layers,
 d_model 128) used by the smoke tests.  The port has the config modules of
-the decoders it can run: the dense ones (h2o-danube-1.8b, minicpm-2b,
+all ten architectures: the dense decoders (h2o-danube-1.8b, minicpm-2b,
 gemma2-9b, stablelm-12b), the MoE ones (llama4-scout-17b-a16e,
-llama4-maverick-400b-a17b), the recurrent xlstm-350m and the Mamba /
-attention / MoE hybrid jamba-1.5-large-398b; the encoder-decoder and
-multimodal architectures (whisper-base, llava-next-mistral-7b) raise
-``NotImplementedError`` naming the ROADMAP item that ports their family.
+llama4-maverick-400b-a17b), the recurrent xlstm-350m, the Mamba /
+attention / MoE hybrid jamba-1.5-large-398b, the encoder-decoder
+whisper-base and the image-prefix decoder llava-next-mistral-7b.
 """
 
 from __future__ import annotations
@@ -52,14 +51,6 @@ ARCHITECTURES = [
     "llama4-scout-17b-a16e",
 ]
 
-# architectures whose family the port does not run yet, with the ROADMAP
-# item that ports it
-_UNPORTED = {
-    "whisper-base": "Queue 1 item 10 (c): encoder-decoder and multimodal",
-    "llava-next-mistral-7b": "Queue 1 item 10 (c): encoder-decoder and "
-                             "multimodal",
-}
-
 
 def _module_name(arch: str) -> str:
     return arch.replace("-", "_").replace(".", "_")
@@ -68,10 +59,6 @@ def _module_name(arch: str) -> str:
 def get_config(arch: str):
     if arch not in ARCHITECTURES and arch != "paper_logreg":
         raise KeyError(f"unknown arch '{arch}'; have {ARCHITECTURES}")
-    if arch in _UNPORTED:
-        raise NotImplementedError(
-            f"{arch}: its config is not ported yet (ROADMAP "
-            f"{_UNPORTED[arch]})")
     mod = importlib.import_module(f"{__name__}.{_module_name(arch)}")
     return mod.CONFIG
 

@@ -4,10 +4,11 @@ The port of ``repro.models.api``.  ``ModelConfig`` carries every field of
 the JAX package's, so a configuration compares as data across the two
 packages; ``layer_plan`` expands it into per-layer block specifications.
 
-The port runs decoder-only stacks of blocks whose mixer is attention,
-Mamba, mLSTM or sLSTM (``mixer_pattern``), with dense or MoE FFNs (none
-after an mLSTM or sLSTM mixer: xLSTM blocks are self-contained).  A plan
-that needs an encoder or a frontend the port does not have yet raises
+The port runs stacks of blocks whose mixer is attention, Mamba, mLSTM or
+sLSTM (``mixer_pattern``), with dense or MoE FFNs (none after an mLSTM or
+sLSTM mixer: xLSTM blocks are self-contained), an encoder with
+cross-attention (``encoder_layers``) and an image-token prefix
+(``frontend="vision_stub"``).  A multi-device sharding constraint raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
@@ -114,13 +115,7 @@ class LayerPlan:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError``, by ROADMAP item, for what the port has
-    not ported yet: encoders and modality frontends, and multi-device
-    sharding constraints."""
-    if cfg.encoder_layers > 0 or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: encoders and modality frontends are not ported yet "
-            "(ROADMAP Queue 1 item 10 (c): encoder-decoder and "
-            "multimodal)")
+    not ported yet: multi-device sharding constraints."""
     if cfg.attn_shard_constraint is not None:
         raise NotImplementedError(
             f"{cfg.name}: attention sharding constraints are multi-device "

@@ -1,16 +1,19 @@
-"""Grouped-query attention with the masking variants of the dense decoders,
-plus the KV-cache prefill and decode paths.
+"""Grouped-query attention with the masking variants the zoo needs, plus
+the KV-cache prefill and decode paths and cross-attention.
 
 The port of ``repro.models.attention``.  Variants (selected per layer by
 the config): full causal, sliding-window causal, chunked-local causal,
-bidirectional, and logit softcap.  Cross-attention waits for the
-encoder-decoder slice (ROADMAP Queue 1 item 10).
+bidirectional (whisper's encoder), cross-attention (whisper's decoder over
+the encoder output: ``cross_attention_cache`` computes its K and V once,
+``cross_attention_apply`` attends over them), and logit softcap.
 
 The plain path is tensor code (``_sdpa``).  ``use_flash`` routes the
 no-cache forward through ``kernels.flash_attention`` where ``_flash_ok``
 allows it: on the card that is the hand-written CUDA kernel, which launches
 or raises; on the CPU its plain version.  Decode attention stays tensor
-code, as the JAX package computes it outside any kernel.
+code, as the JAX package computes it outside any kernel, and so do the
+encoder's bidirectional layers and every cross-attention, by the
+reference's own routing rule (``_flash_ok``).
 
 The decode path writes the new key and value into the cache in place: the
 cache passed to ``attention_decode`` is the cache it returns.
@@ -26,7 +29,8 @@ import torch
 from . import common
 
 __all__ = ["AttnSpec", "init_attention", "attention_forward",
-           "init_kv_cache", "attention_decode", "attention_prefill"]
+           "init_kv_cache", "attention_decode", "attention_prefill",
+           "cross_attention_cache", "cross_attention_apply", "kv_alloc"]
 
 NEG_INF = -1e30
 
@@ -41,7 +45,7 @@ class AttnSpec:
     chunk: int | None = None            # chunked-local (llama4)
     softcap: float | None = None        # attn logit softcap (gemma2: 50.0)
     causal: bool = True                 # False for encoder self-attn
-    cross: bool = False                 # cross-attention (not ported)
+    cross: bool = False                 # cross-attention (no RoPE on kv)
     use_rope: bool = True
     rope_theta: float = 10000.0
     qk_norm: bool = False
@@ -109,10 +113,11 @@ def _sdpa(spec: AttnSpec, q, k, v, bias):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _qkv(params, spec: AttnSpec, x):
+def _qkv(params, spec: AttnSpec, x, kv_src=None):
+    kv_src = x if kv_src is None else kv_src
     q = _split_heads(x @ params["wq"], spec.num_heads, spec.head_dim)
-    k = _split_heads(x @ params["wk"], spec.num_kv_heads, spec.head_dim)
-    v = _split_heads(x @ params["wv"], spec.num_kv_heads, spec.head_dim)
+    k = _split_heads(kv_src @ params["wk"], spec.num_kv_heads, spec.head_dim)
+    v = _split_heads(kv_src @ params["wv"], spec.num_kv_heads, spec.head_dim)
     if spec.qk_norm:
         q = common.rms_norm(q, params["q_norm"])
         k = common.rms_norm(k, params["k_norm"])
@@ -129,11 +134,7 @@ def _flash_ok(spec: AttnSpec, kv_src, positions) -> bool:
             and spec.shard_constraint is None)
 
 
-def _check_spec(spec: AttnSpec, kv_src=None):
-    if spec.cross or kv_src is not None:
-        raise NotImplementedError(
-            "cross-attention is not ported yet (ROADMAP Queue 1 item 10: "
-            "encoder-decoder and multimodal)")
+def _check_spec(spec: AttnSpec):
     if spec.shard_constraint is not None:
         raise NotImplementedError(
             "attention sharding constraints are multi-device work, not "
@@ -149,14 +150,14 @@ def _forward(params, spec: AttnSpec, x, kv_src=None, positions=None):
     """attention_forward's output, with the RoPE'd k and v (B, S, KV, hd)
     it attended over, so that prefill caches them without projecting
     twice."""
-    _check_spec(spec, kv_src)
+    _check_spec(spec)
     b, s, _ = x.shape
-    q, k, v = _qkv(params, spec, x)
+    q, k, v = _qkv(params, spec, x, kv_src)
     sk = k.shape[1]
     q_pos = torch.arange(s, device=x.device) if positions is None \
         else positions
     k_pos = torch.arange(sk, device=x.device)
-    if spec.use_rope:
+    if spec.use_rope and not spec.cross:
         cos, sin = common.rope_angles(q_pos, spec.head_dim, spec.rope_theta)
         q = common.apply_rope(q, cos, sin)
         kcos, ksin = common.rope_angles(k_pos, spec.head_dim, spec.rope_theta)
@@ -177,17 +178,20 @@ def _forward(params, spec: AttnSpec, x, kv_src=None, positions=None):
 # KV cache serving paths
 # ---------------------------------------------------------------------------
 
+def kv_alloc(spec: AttnSpec, max_len: int) -> int:
+    """Positions a layer's cache holds for ``max_len``: sliding-window
+    layers only the window (ring buffer), chunked layers the chunk."""
+    if spec.sliding_window is not None:
+        return min(max_len, spec.sliding_window)
+    if spec.chunk is not None:
+        return min(max_len, spec.chunk)
+    return max_len
+
+
 def init_kv_cache(batch: int, max_len: int, spec: AttnSpec,
                   dtype=torch.float32, device=None):
-    """Cache layout (B, S_max, KV, hd).  Sliding-window layers allocate only
-    the window (ring buffer); chunked layers allocate the chunk."""
-    if spec.sliding_window is not None:
-        alloc = min(max_len, spec.sliding_window)
-    elif spec.chunk is not None:
-        alloc = min(max_len, spec.chunk)
-    else:
-        alloc = max_len
-    shp = (batch, alloc, spec.num_kv_heads, spec.head_dim)
+    """Cache layout (B, alloc, KV, hd), alloc = ``kv_alloc``."""
+    shp = (batch, kv_alloc(spec, max_len), spec.num_kv_heads, spec.head_dim)
     return {"k": torch.zeros(shp, dtype=dtype, device=device),
             "v": torch.zeros(shp, dtype=dtype, device=device)}
 
@@ -228,7 +232,7 @@ def attention_decode(params, spec: AttnSpec, x, cache, pos):
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     pos = torch.broadcast_to(pos, (b,)).to(torch.int64)         # (B,)
     q, k_new, v_new = _qkv(params, spec, x)
-    if spec.use_rope:
+    if spec.use_rope and not spec.cross:
         cos, sin = common.rope_angles(pos[:, None], spec.head_dim,
                                       spec.rope_theta)           # (B,1,half)
         q = common.apply_rope(q, cos, sin)
@@ -251,7 +255,7 @@ def attention_decode(params, spec: AttnSpec, x, cache, pos):
     if spec.chunk is not None:
         valid &= torch.div(abs_pos, spec.chunk, rounding_mode="floor") == \
             torch.div(p, spec.chunk, rounding_mode="floor")
-    if spec.causal:
+    if spec.causal and not spec.cross:
         valid &= abs_pos <= p
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     bias = torch.where(valid, zero, torch.full_like(zero, NEG_INF))
@@ -269,3 +273,23 @@ def attention_decode(params, spec: AttnSpec, x, cache, pos):
     out = torch.matmul(probs, v_cache.permute(0, 2, 1, 3))      # (B,KV,r,hd)
     out = out.reshape(b, 1, h * hd)
     return out @ params["wo"], cache
+
+
+def cross_attention_cache(params, spec: AttnSpec, enc_out):
+    """K and V (B, S_enc, KV, hd) of the encoder output, computed once
+    (whisper's decoder): no RoPE, as the reference computes them."""
+    k = _split_heads(enc_out @ params["wk"], spec.num_kv_heads, spec.head_dim)
+    v = _split_heads(enc_out @ params["wv"], spec.num_kv_heads, spec.head_dim)
+    return {"k": k, "v": v}
+
+
+def cross_attention_apply(params, spec: AttnSpec, x, cross_cache):
+    """Queries from ``x`` (B, S, d) over a ``cross_attention_cache``, every
+    key visible (a zero bias)."""
+    q = _split_heads(x @ params["wq"], spec.num_heads, spec.head_dim)
+    k = _repeat_kv(cross_cache["k"], spec.num_heads)
+    v = _repeat_kv(cross_cache["v"], spec.num_heads)
+    bias = torch.zeros((x.shape[1], k.shape[1]), dtype=torch.float32,
+                       device=x.device)
+    out = _sdpa(spec, q, k, v, bias)
+    return _merge_heads(out) @ params["wo"]

@@ -1,15 +1,23 @@
-"""Transformer assembly for decoder-only stacks of attention, Mamba, mLSTM
-and sLSTM blocks with dense or MoE FFNs, from a ``ModelConfig`` +
-``layer_plan``.
+"""Transformer assembly: decoder stacks of attention, Mamba, mLSTM and
+sLSTM blocks with dense or MoE FFNs, encoder-decoder (whisper) and an
+early-fused image prefix (llava), from a ``ModelConfig`` + ``layer_plan``.
 
 The port of ``repro.models.transformer``.  Public surface (plain functions
 over nested-dict params with the JAX package's keys and nesting):
 
-  init_params(cfg, seed_or_generator, device) -> params
-  forward(cfg, params, tokens)                -> (logits, aux_loss)
-  loss_fn(cfg) -> fn(params, batch)           -> scalar
-  prefill(cfg, params, tokens, max_len)       -> (last_logits, cache)
-  decode_step(cfg, params, cache, token)      -> (logits, cache)
+  init_params(cfg, seed_or_generator, device)          -> params
+  forward(cfg, params, tokens, **modality)             -> (logits, aux_loss)
+  loss_fn(cfg) -> fn(params, batch)                    -> scalar
+  prefill(cfg, params, tokens, **modality, max_len)    -> (last_logits, cache)
+  decode_step(cfg, params, cache, token)               -> (logits, cache)
+
+``modality`` is ``image_embeds`` (B, P, d) for a ``vision_stub`` config:
+projected by ``vision_proj`` and put before the tokens, so the learned
+positions and the cache count the prefix and ``forward`` cuts the logits
+to the text positions; or ``audio_frames`` (B, F, d), which an encoder
+config requires: the encoder (bidirectional, no RoPE, its own learned
+positions) runs once and every decoder layer cross-attends to its output
+after the mixer's residual and before the FFN.
 
 The JAX package scans over layer groups (``api.scan_group_size``) with
 remat to compile one body; the port runs a Python loop over the layers
@@ -17,19 +25,21 @@ and computes the same numbers.  MoE layers (``moe.moe_forward``) add their
 load-balance aux: ``forward`` sums it over the layers and ``loss_fn`` adds
 ``moe_aux_weight * aux / num_layers``, as the reference does; ``prefill``
 and ``decode_step`` drop it (the reference's prefill sums it and never
-returns the sum).  The encoder and modality inputs raise
-``NotImplementedError`` by ROADMAP item (``api.check_supported``).
+returns the sum).
 
 A cache holds a (B,) position vector and one entry a layer: the KV ring
-buffers of an attention layer (``{"kv": ...}``) or the recurrent state of
-an SSM layer (``{"mamba": {h, conv}}``, ``{"mlstm": {c, n, m, conv}}``,
-``{"slstm": {c, n, h, m}}``).  ``decode_step`` updates the KV buffers in
-place (``attention.attention_decode``) and returns each SSM state as new
-tensors in its layer's entry.
+buffers of an attention layer (``{"kv": ...}``, and in an encoder-decoder
+``"cross"``, the K and V of the encoder output, which decode reads and
+never writes) or the recurrent state of an SSM layer (``{"mamba": {h,
+conv}}``, ``{"mlstm": {c, n, m, conv}}``, ``{"slstm": {c, n, h, m}}``).
+``decode_step`` updates the KV buffers in place
+(``attention.attention_decode``) and returns each SSM state as new tensors
+in its layer's entry.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any
 
@@ -72,7 +82,8 @@ def _dtype(cfg: ModelConfig):
 # Init
 # ---------------------------------------------------------------------------
 
-def _init_block(cfg: ModelConfig, plan: LayerPlan, gen, dtype):
+def _init_block(cfg: ModelConfig, plan: LayerPlan, gen, dtype,
+                cross: bool = False):
     p: dict[str, Any] = {"norm1": _init_norm(cfg, dtype, gen.device)}
     if plan.mixer == "attn":
         p["attn"] = attention.init_attention(gen, plan.attn, dtype)
@@ -84,6 +95,9 @@ def _init_block(cfg: ModelConfig, plan: LayerPlan, gen, dtype):
         p["slstm"] = ssm.init_slstm(gen, plan.slstm, dtype)
     if cfg.post_norm:
         p["post_norm1"] = _init_norm(cfg, dtype, gen.device)
+    if cross:
+        p["cross_norm"] = _init_norm(cfg, dtype, gen.device)
+        p["cross"] = attention.init_attention(gen, _cross_spec(plan), dtype)
     if plan.ffn != "none":
         p["norm2"] = _init_norm(cfg, dtype, gen.device)
         if plan.ffn == "moe":
@@ -103,10 +117,12 @@ def init_params(cfg: ModelConfig, seed_or_generator=0, device="cuda"):
     gen = common.make_generator(seed_or_generator, device)
     dtype = _dtype(cfg)
     plans = layer_plan(cfg)
+    is_encdec = cfg.encoder_layers > 0
     params: dict[str, Any] = {
         "embed": common.embed_init(gen, cfg.vocab_size, cfg.d_model, dtype),
         "final_norm": _init_norm(cfg, dtype, device),
-        "layers": [_init_block(cfg, pl, gen, dtype) for pl in plans],
+        "layers": [_init_block(cfg, pl, gen, dtype, cross=is_encdec)
+                   for pl in plans],
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = common.dense_init(
@@ -114,6 +130,20 @@ def init_params(cfg: ModelConfig, seed_or_generator=0, device="cuda"):
     if not cfg.use_rope:
         params["pos_embed"] = common.dense_init(
             gen, (cfg.max_position, cfg.d_model), dtype, scale=0.02)
+    if is_encdec:
+        enc_plan = _encoder_plan(cfg)
+        params["encoder"] = {
+            "layers": [_init_block(cfg, enc_plan, gen, dtype)
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": _init_norm(cfg, dtype, device),
+            "pos_embed": common.dense_init(
+                gen, (max(cfg.encoder_seq, 1), cfg.d_model), dtype,
+                scale=0.02),
+        }
+    if cfg.frontend == "vision_stub":
+        # the projector is part of the backbone (the vision tower a stub)
+        params["vision_proj"] = common.dense_init(
+            gen, (cfg.d_model, cfg.d_model), dtype)
     return params
 
 
@@ -147,7 +177,19 @@ def _mixer_residual(cfg: ModelConfig, p, x, mix):
     return x + (cfg.residual_scale or 1.0) * mix
 
 
-def _block_forward(cfg: ModelConfig, plan: LayerPlan, p, x):
+def _cross_spec(plan: LayerPlan) -> attention.AttnSpec:
+    return dataclasses.replace(plan.attn, cross=True, causal=False)
+
+
+def _cross_block(cfg: ModelConfig, plan: LayerPlan, p, x, cross_cache):
+    """The cross-attention sub-block on the residual stream x (no residual
+    scale, as the reference adds it)."""
+    h = _apply_norm(cfg, p["cross_norm"], x)
+    return x + attention.cross_attention_apply(p["cross"], _cross_spec(plan),
+                                               h, cross_cache)
+
+
+def _block_forward(cfg: ModelConfig, plan: LayerPlan, p, x, enc_out=None):
     """Full-sequence block forward.  Returns (x, aux)."""
     h = _apply_norm(cfg, p["norm1"], x)
     if plan.mixer == "attn":
@@ -158,7 +200,43 @@ def _block_forward(cfg: ModelConfig, plan: LayerPlan, p, x):
         mix = ssm.mlstm_forward(p["mlstm"], plan.mlstm, h)
     else:
         mix = ssm.slstm_forward(p["slstm"], plan.slstm, h)
-    return _ffn_block(cfg, plan, p, _mixer_residual(cfg, p, x, mix))
+    x = _mixer_residual(cfg, p, x, mix)
+    if enc_out is not None:
+        cc = attention.cross_attention_cache(p["cross"], _cross_spec(plan),
+                                             enc_out)
+        x = _cross_block(cfg, plan, p, x, cc)
+    return _ffn_block(cfg, plan, p, x)
+
+
+def _encoder_plan(cfg: ModelConfig) -> LayerPlan:
+    """The encoder's block: bidirectional attention without RoPE (so never
+    the flash kernel), a gelu FFN."""
+    return LayerPlan(
+        mixer="attn",
+        attn=attention.AttnSpec(
+            d_model=cfg.d_model, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.hd,
+            causal=False, use_rope=False),
+        ffn="gelu")
+
+
+def _encode(cfg: ModelConfig, params, frames):
+    """Whisper's encoder over precomputed (stub) frame embeddings."""
+    enc = params["encoder"]
+    x = frames + enc["pos_embed"][None, :frames.shape[1]]
+    plan = _encoder_plan(cfg)
+    for p in enc["layers"]:
+        x, _ = _block_forward(cfg, plan, p, x)
+    return _apply_norm(cfg, enc["final_norm"], x)
+
+
+def _encoder_output(cfg: ModelConfig, params, audio_frames):
+    """The encoder's output for an encoder-decoder config, else None."""
+    if cfg.encoder_layers == 0:
+        return None
+    if audio_frames is None:
+        raise ValueError(f"{cfg.name} requires audio_frames")
+    return _encode(cfg, params, audio_frames)
 
 
 def _embed_scale(cfg: ModelConfig, x):
@@ -170,15 +248,23 @@ def _embed_scale(cfg: ModelConfig, x):
     return x * float(scale.to(x.dtype))
 
 
-def _embed_inputs(cfg: ModelConfig, params, tokens):
+def _embed_inputs(cfg: ModelConfig, params, tokens, image_embeds=None,
+                  position_offset: int = 0):
+    """(x, prefix): the embedded tokens, after the projected image rows
+    where there are any (prefix = their count)."""
     # F.embedding, not indexing: the same rows, and under the trainer's
     # vmap over nodes its backward sums repeated tokens in a fixed order,
     # where indexing's batched backward does not (a resume must be bitwise)
     x = _embed_scale(cfg, F.embedding(tokens, params["embed"]))
+    prefix = 0
+    if image_embeds is not None:
+        img = image_embeds.to(x.dtype) @ params["vision_proj"]
+        x = torch.cat([img, x], dim=1)
+        prefix = image_embeds.shape[1]
     if not cfg.use_rope:
-        pos = torch.arange(x.shape[1], device=x.device)
+        pos = torch.arange(x.shape[1], device=x.device) + position_offset
         x = x + params["pos_embed"][pos][None]
-    return x
+    return x, prefix
 
 
 def _lm_logits(cfg: ModelConfig, params, x):
@@ -191,29 +277,27 @@ def _lm_logits(cfg: ModelConfig, params, x):
     return common.softcap(logits, cfg.final_softcap)
 
 
-def _no_modalities(cfg: ModelConfig, image_embeds, audio_frames):
-    if image_embeds is not None or audio_frames is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: image and audio inputs are not ported yet (ROADMAP "
-            "Queue 1 item 10: encoder-decoder and multimodal)")
-
-
 def forward(cfg: ModelConfig, params, tokens, image_embeds=None,
             audio_frames=None):
-    """Training forward.  tokens: (B, L) int -> (logits (B, L, V), aux)."""
-    _no_modalities(cfg, image_embeds, audio_frames)
+    """Training forward.  tokens: (B, L) int -> (logits (B, L, V), aux):
+    the logits of the text positions only, an image prefix cut off."""
     plans = layer_plan(cfg)
-    x = _embed_inputs(cfg, params, tokens)
+    enc_out = _encoder_output(cfg, params, audio_frames)
+    x, prefix = _embed_inputs(cfg, params, tokens, image_embeds)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, plan in zip(params["layers"], plans):
-        x, aux = _block_forward(cfg, plan, p, x)
+        x, aux = _block_forward(cfg, plan, p, x, enc_out)
         if aux is not None:
             aux_total = aux_total + aux
-    return _lm_logits(cfg, params, x), aux_total
+    logits = _lm_logits(cfg, params, x)
+    if prefix:
+        logits = logits[:, prefix:]
+    return logits, aux_total
 
 
 def loss_fn(cfg: ModelConfig):
-    """Cross-entropy next-token loss closure.  batch keys: tokens, labels."""
+    """Cross-entropy next-token loss closure.  batch keys: tokens, labels
+    (+ image_embeds / audio_frames for the stub modalities)."""
 
     def fn(params, batch):
         logits, aux = forward(cfg, params, batch["tokens"],
@@ -253,6 +337,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
         else:
             entry = {"slstm": ssm.slstm_init_state(plan.slstm, batch, dtype,
                                                    device)}
+        if cfg.encoder_layers > 0 and plan.mixer == "attn":
+            shp = (batch, max(cfg.encoder_seq, 1), cfg.num_kv_heads, cfg.hd)
+            entry["cross"] = {
+                "k": torch.zeros(shp, dtype=dtype, device=device),
+                "v": torch.zeros(shp, dtype=dtype, device=device)}
         layers.append(entry)
     # per-slot positions (continuous batching: rows advance independently)
     return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
@@ -261,11 +350,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
 
 def prefill(cfg: ModelConfig, params, tokens, image_embeds=None,
             audio_frames=None, max_len: int | None = None):
-    """Run the prompt, returning last-position logits + a ready cache."""
-    _no_modalities(cfg, image_embeds, audio_frames)
+    """Run the prompt, returning last-position logits + a ready cache.
+    ``max_len`` counts every cache position, an image prefix included; the
+    cache's positions start at prefix + L."""
     plans = layer_plan(cfg)
     b = tokens.shape[0]
-    x = _embed_inputs(cfg, params, tokens)
+    enc_out = _encoder_output(cfg, params, audio_frames)
+    x, _ = _embed_inputs(cfg, params, tokens, image_embeds)
     total = x.shape[1]
     max_len = max(max_len or (total + 64), total)
     cache_layers = []
@@ -284,7 +375,12 @@ def prefill(cfg: ModelConfig, params, tokens, image_embeds=None,
         else:
             mix, st = _slstm_prefill(p["slstm"], plan.slstm, h)
             entry = {"slstm": st}
-        x, _ = _ffn_block(cfg, plan, p, _mixer_residual(cfg, p, x, mix))
+        x = _mixer_residual(cfg, p, x, mix)
+        if enc_out is not None:
+            entry["cross"] = attention.cross_attention_cache(
+                p["cross"], _cross_spec(plan), enc_out)
+            x = _cross_block(cfg, plan, p, x, entry["cross"])
+        x, _ = _ffn_block(cfg, plan, p, x)
         cache_layers.append(entry)
     logits = _lm_logits(cfg, params, x[:, -1:])
     pos = torch.full((b,), total, dtype=torch.int32, device=x.device)
@@ -344,8 +440,11 @@ def decode_step(cfg: ModelConfig, params, cache, token):
             mix, st = ssm.slstm_step(p["slstm"], plan.slstm, h,
                                      entry["slstm"])
             new_entry = dict(entry, slstm=st)
+        x = _mixer_residual(cfg, p, x, mix)
+        if "cross" in entry:
+            x = _cross_block(cfg, plan, p, x, entry["cross"])
         # a decode batch's rows share the MoE capacity; the aux is dropped
-        x, _ = _ffn_block(cfg, plan, p, _mixer_residual(cfg, p, x, mix))
+        x, _ = _ffn_block(cfg, plan, p, x)
         new_layers.append(new_entry)
     logits = _lm_logits(cfg, params, x)[:, 0]
     return logits, {"pos": pos + 1, "layers": new_layers}

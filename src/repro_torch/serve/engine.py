@@ -14,9 +14,11 @@ on the device:
   (retired slots keep decoding garbage that the emission mask hides,
   exactly like the host batcher's idle slots), and picks the next token on
   the device.
-* **Admission** prefills the prompt as a batch-1 row against the engine's
-  fixed ``max_len`` (uniform row-cache shapes) and splices it into the
-  shared cache by slot index, seeding the slot state on the device.
+* **Admission** prefills the prompt (with its image or audio, as
+  ``scheduler.modality_inputs`` gives them) as a batch-1 row against the
+  engine's fixed ``max_len`` (uniform row-cache shapes) and splices it into
+  the shared cache by slot index, the cross-attention K/V included, seeding
+  the slot state on the device.
 * **Generated tokens accumulate on the device** in a preallocated
   ``(chunk, slots)`` emission buffer and are pulled ONCE per chunk together
   with the emission mask and the post-chunk active mask.
@@ -40,7 +42,8 @@ import torch
 
 from ..models import transformer
 from ..models.api import ModelConfig
-from .scheduler import Request, _no_modalities, cache_insert, params_device
+from .scheduler import (Request, cache_insert, modality_inputs,
+                        params_device)
 
 __all__ = ["ResidentEngine", "SlotState"]
 
@@ -117,11 +120,13 @@ class ResidentEngine:
     # -- engine -------------------------------------------------------------
 
     def _admit(self, slot: int, req: Request):
+        kw = modality_inputs(self.cfg, req, self.max_len, self.device)
         toks = torch.as_tensor(np.asarray(req.tokens, np.int32),
                                device=self.device)[None]
-        self.transfers["h2d"] += 1          # the prompt upload
+        # the prompt upload, modality or not, as the JAX engine counts it
+        self.transfers["h2d"] += 1
         logits, row_cache = transformer.prefill(self.cfg, self.params, toks,
-                                                max_len=self.max_len)
+                                                max_len=self.max_len, **kw)
         self.cache = cache_insert(self.cache, row_cache, slot)
         st = self.state
         st.active[slot] = True
@@ -137,7 +142,6 @@ class ResidentEngine:
                 raise ValueError(
                     f"request {req.uid}: prompt length {len(req.tokens)} "
                     f"does not fit the engine's max_len={self.max_len} cache")
-            _no_modalities(req)
             self._admit(slot, req)
             self.slot_req[slot] = req
             self.slot_generated[slot] = []

@@ -9,8 +9,9 @@ independently.
 Flow:
   submit(Request)  -> queued
   step():
-    1. admit queued requests into free slots (single-row prefill, row
-       spliced into the shared cache with ``cache_insert``),
+    1. admit queued requests into free slots (single-row prefill of the
+       prompt and its image or audio, the row spliced into the shared cache
+       with ``cache_insert``),
     2. one batched decode step for ALL slots (idle slots decode garbage
        that is ignored and overwritten on admission),
     3. retire slots that hit max_new_tokens or EOS.
@@ -19,6 +20,13 @@ Flow:
 One decode dispatch and one pull of the picked tokens per token: the
 resident engine (``engine.ResidentEngine``) is the fast path.  Greedy
 decoding by default; plug a ``sampler(logits) -> tokens`` for others.
+
+A request's ``image_embeds`` (P, d) or ``audio_frames`` (F, d) go to
+``prefill`` as batch-1 tensors on the params' device.  Its row cache must
+have the shared cache's shape, so a request whose image prefix pushes the
+cache past ``max_len``, or whose audio has other than the config's
+``encoder_seq`` frames, is refused with a ``ValueError`` that names the
+cause (the JAX package's splice fails on such a row with a shape error).
 """
 
 from __future__ import annotations
@@ -31,10 +39,11 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from ..models import transformer
-from ..models.api import ModelConfig
+from ..models import attention, transformer
+from ..models.api import ModelConfig, layer_plan
 
-__all__ = ["Request", "ContinuousBatcher", "cache_insert"]
+__all__ = ["Request", "ContinuousBatcher", "cache_insert",
+           "modality_inputs"]
 
 
 @dataclasses.dataclass
@@ -63,11 +72,33 @@ def params_device(params) -> torch.device:
     return params["embed"].device
 
 
-def _no_modalities(req: Request):
-    if req.image_embeds is not None or req.audio_frames is not None:
-        raise NotImplementedError(
-            f"request {req.uid}: image and audio inputs are not ported yet "
-            "(ROADMAP Queue 1 item 10: encoder-decoder and multimodal)")
+def modality_inputs(cfg: ModelConfig, req: Request, max_len: int,
+                    device) -> dict:
+    """``prefill``'s image_embeds / audio_frames for ``req``, batch-1
+    tensors on ``device``; raises ``ValueError`` where the row cache would
+    not fit the shared one (``max_len`` slots, ``encoder_seq`` frames)."""
+    kw = {}
+    if req.image_embeds is not None:
+        total = len(req.image_embeds) + len(req.tokens)
+        if total > max_len and any(
+                p.mixer == "attn" and attention.kv_alloc(p.attn, total) !=
+                attention.kv_alloc(p.attn, max_len) for p in layer_plan(cfg)):
+            raise ValueError(
+                f"request {req.uid}: image prefix of {len(req.image_embeds)} "
+                f"and prompt of {len(req.tokens)} tokens take {total} cache "
+                f"positions, past max_len={max_len}")
+        kw["image_embeds"] = torch.as_tensor(
+            np.asarray(req.image_embeds), device=device)[None]
+    if req.audio_frames is not None:
+        frames = len(req.audio_frames)
+        if cfg.encoder_layers > 0 and frames != max(cfg.encoder_seq, 1):
+            raise ValueError(
+                f"request {req.uid}: audio of {frames} frames, but the "
+                f"cross-attention cache holds encoder_seq="
+                f"{cfg.encoder_seq}")
+        kw["audio_frames"] = torch.as_tensor(
+            np.asarray(req.audio_frames), device=device)[None]
+    return kw
 
 
 class ContinuousBatcher:
@@ -112,11 +143,11 @@ class ContinuousBatcher:
             if self.slot_req[slot] is not None or not self.queue:
                 continue
             req = self.queue.popleft()
-            _no_modalities(req)
+            kw = modality_inputs(self.cfg, req, self.max_len, self.device)
             toks = torch.as_tensor(np.asarray(req.tokens, np.int32),
                                    device=self.device)[None]
             logits, row_cache = transformer.prefill(
-                self.cfg, self.params, toks, max_len=self.max_len)
+                self.cfg, self.params, toks, max_len=self.max_len, **kw)
             self.cache = cache_insert(self.cache, row_cache, slot)
             self.slot_req[slot] = req
             self.slot_generated[slot] = []

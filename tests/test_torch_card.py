@@ -18,7 +18,10 @@ an MoE layer's routing against the CPU's, MoE training deterministic and
 resumed bitwise), and the SSM models (xlstm-350m and jamba-1.5-large's
 smoke variants through the kernels and against the CPU, their engines
 against the host batcher, xlstm training deterministic and resumed
-bitwise).  They skip, with
+bitwise), and the encoder-decoder and image-prefix models (whisper-base
+and llava-next-mistral-7b's smoke variants through the kernels against the
+plain routes and the CPU, their engines against the host batcher, flash at
+their prefill shapes).  They skip, with
 the reason, where there is no card.  This file imports neither JAX nor the JAX package, so it also
 runs on a machine that has only PyTorch:
 
@@ -639,6 +642,11 @@ FLASH_CARD_CASES = [
     (1, 2, 2, 140, 140, 160, False, 70, None),      # hd 160, bidirectional
     (1, 2, 1, 256, 256, 256, True, None, None),     # hd 256, two q tiles
     (1, 2, 1, 70, 70, 13, True, None, None),        # odd hd, hd % 8 != 0
+    # whisper-base's decoder self-attention (MHA, hd 64) at its longest
+    # prompt, and llava-next-mistral-7b's (GQA 4x, hd 128) over the
+    # 1152-token image prefix and 128 prompt tokens
+    (1, 8, 8, 224, 224, 64, True, None, None),
+    (1, 32, 8, 1280, 1280, 128, True, None, None),
 ]
 
 
@@ -942,6 +950,96 @@ def test_moe_engine_on_card_matches_host_batcher(cuda_device, dtype):
     eout, hout = eng.run_until_done(), host.run_until_done()
     for r in reqs:
         np.testing.assert_array_equal(eout[r.uid], hout[r.uid])
+
+
+def _mm_inputs(cfg, batch, seed, device):
+    """The config's stub input (``models.multimodal``) on ``device``."""
+    from repro_torch.models import multimodal
+    if cfg.frontend == "vision_stub":
+        arr = multimodal.fake_image_patches(batch, cfg.d_model,
+                                            cfg.image_tokens, seed=seed)
+        return {"image_embeds": torch.as_tensor(arr, device=device)}
+    arr = multimodal.fake_audio_frames(batch, cfg.d_model, cfg.encoder_seq,
+                                       seed=seed)
+    return {"audio_frames": torch.as_tensor(arr, device=device)}
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "llava-next-mistral-7b"])
+def test_multimodal_smoke_variants_on_card(cuda_device, arch):
+    """The kernel routes on the card against the plain routes on the card
+    and against the CPU, the same parameters and inputs: flash one launch a
+    decoder layer a prefill (whisper's encoder and cross-attention take the
+    plain path), RMSNorm every norm site of llava (whisper's LayerNorm
+    none), logits and the cache's cross K/V within the logits'
+    tolerance."""
+    cfg = configs.smoke_variant(configs.get_config(arch))
+    kcfg = cfg.scaled(use_flash=True, use_fused_norm=True)
+    params = transformer.init_params(cfg, 0, device="cpu")
+    card = pytree.tree_map(lambda t: t.to(cuda_device), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24),
+                         generator=torch.Generator().manual_seed(0))
+    kw_cpu = _mm_inputs(cfg, 2, 1, "cpu")
+    kw = _mm_inputs(cfg, 2, 1, cuda_device)
+    rn_ops.launches = fa_ops.launches = 0
+    lk, ck = transformer.prefill(kcfg, card, toks.to(cuda_device),
+                                 max_len=64, **kw)
+    assert (fa_ops.launches, rn_ops.launches) == \
+        (cfg.num_layers, _norm_sites(cfg))
+    lp, cp = transformer.prefill(cfg, card, toks.to(cuda_device), max_len=64,
+                                 **kw)
+    lc, cc = transformer.prefill(cfg, params, toks, max_len=64, **kw_cpu)
+    kernel, plain, cpu = [lk], [lp], [lc]
+    cur = lc.argmax(-1).to(torch.int32)
+    for _ in range(3):
+        lk, ck = transformer.decode_step(kcfg, card, ck, cur.to(cuda_device))
+        lp, cp = transformer.decode_step(cfg, card, cp, cur.to(cuda_device))
+        lc, cc = transformer.decode_step(cfg, params, cc, cur)
+        kernel.append(lk)
+        plain.append(lp)
+        cpu.append(lc)
+        cur = lc.argmax(-1).to(torch.int32)
+    assert fa_ops.launches == cfg.num_layers
+    assert rn_ops.launches == 4 * _norm_sites(cfg)
+    torch.testing.assert_close(torch.stack(kernel), torch.stack(plain),
+                               **LOGIT_TOL)
+    torch.testing.assert_close(torch.stack(kernel).cpu(), torch.stack(cpu),
+                               **LOGIT_TOL)
+    for a, b in zip(pytree.tree_leaves(ck), pytree.tree_leaves(cc)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        torch.testing.assert_close(a.cpu(), b, **LOGIT_TOL)
+    full, _ = transformer.forward(kcfg, card, toks.to(cuda_device), **kw)
+    assert tuple(full.shape) == (2, 24, cfg.vocab_size)
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "llava-next-mistral-7b"])
+def test_multimodal_engine_on_card_matches_host_batcher(cuda_device, arch):
+    """The kernel routes on: 6 requests, each with its own audio or image,
+    through 2 slots; one upload an admission."""
+    from repro_torch.models import multimodal
+    cfg = configs.smoke_variant(configs.get_config(arch)).scaled(
+        use_flash=True, use_fused_norm=True)
+    params = transformer.init_params(cfg, 1, device=cuda_device)
+    rng = np.random.default_rng(0)
+    reqs = []
+    for i, n in enumerate((3, 12, 20, 7, 18, 9)):
+        if cfg.frontend == "vision_stub":
+            kw = {"image_embeds": multimodal.fake_image_patches(
+                1, cfg.d_model, cfg.image_tokens, seed=i)[0]}
+        else:
+            kw = {"audio_frames": multimodal.fake_audio_frames(
+                1, cfg.d_model, cfg.encoder_seq, seed=i)[0]}
+        reqs.append(Request(uid=i, tokens=rng.integers(
+            0, cfg.vocab_size, size=n).astype(np.int32),
+            max_new_tokens=int(rng.integers(2, 9)), **kw))
+    eng = ResidentEngine(cfg, params, max_slots=2, max_len=64, chunk=4)
+    host = ContinuousBatcher(cfg, params, max_slots=2, max_len=64)
+    for r in reqs:
+        eng.submit(r)
+        host.submit(r)
+    eout, hout = eng.run_until_done(), host.run_until_done()
+    for r in reqs:
+        np.testing.assert_array_equal(eout[r.uid], hout[r.uid])
+    assert eng.transfers["h2d"] == len(reqs)
 
 
 def test_moe_layer_on_card_routes_as_the_cpu(cuda_device):

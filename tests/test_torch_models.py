@@ -1,11 +1,14 @@
-"""The port's decoder LMs (``repro_torch.models``: dense, the MoE llama4
-configs, and the SSM configs xlstm-350m and jamba-1.5-large-398b) against
+"""The port's LMs (``repro_torch.models``: dense, the MoE llama4 configs,
+and the SSM configs xlstm-350m and jamba-1.5-large-398b; the configs of
+all ten architectures) against
 the JAX package's (``repro.models``): the same numpy inputs and the same
 parameters (JAX-initialized, carried across by
 ``convert.params_from_numpy``) through both, module by module and for the
 whole model.  The MoE mixer alone is ``tests/test_torch_moe.py``, the SSM
 mixers ``tests/test_torch_ssm.py``, the SSM models' forward, prefill,
-decode and gradients ``tests/test_torch_ssm_models.py``.
+decode and gradients ``tests/test_torch_ssm_models.py``, whisper-base and
+llava-next-mistral-7b (cross-attention, the encoder, the image prefix)
+``tests/test_torch_multimodal.py``.
 
 Tolerances: float32 per module rtol 1e-5 / atol 1e-5; logits rtol 1e-4 /
 atol 1e-5, as the reference's own flash-routing test uses
@@ -39,6 +42,8 @@ LOGIT_TOL = dict(rtol=1e-4, atol=1e-5)
 DENSE_ARCHS = ["h2o-danube-1.8b", "minicpm-2b", "gemma2-9b", "stablelm-12b"]
 MOE_ARCHS = ["llama4-scout-17b-a16e", "llama4-maverick-400b-a17b"]
 SSM_ARCHS = ["xlstm-350m", "jamba-1.5-large-398b"]
+MULTIMODAL_ARCHS = ["whisper-base", "llava-next-mistral-7b"]
+ALL_ARCHS = DENSE_ARCHS + MOE_ARCHS + SSM_ARCHS + MULTIMODAL_ARCHS
 PLAN_SPECS = ("attn", "moe", "mamba", "mlstm", "slstm")
 
 
@@ -80,7 +85,7 @@ def _plans_equal(tcfg, jcfg):
                 dataclasses.asdict(j), f
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_ARCHS + SSM_ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_configs_compare_as_data(arch):
     j, t = jconfigs.get_config(arch), tconfigs.get_config(arch)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
@@ -97,7 +102,8 @@ def test_input_shapes_and_applicability_match():
             tconfigs.INPUT_SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in jconfigs.INPUT_SHAPES.items()}
     assert tconfigs.list_archs() == jconfigs.list_archs()
-    for arch in DENSE_ARCHS + MOE_ARCHS + SSM_ARCHS:
+    assert sorted(ALL_ARCHS) == sorted(jconfigs.ARCHITECTURES)
+    for arch in ALL_ARCHS:
         for shape in jconfigs.INPUT_SHAPES.values():
             tshape = tconfigs.INPUT_SHAPES[shape.name]
             assert tconfigs.shape_applicable(tconfigs.get_config(arch),
@@ -105,15 +111,7 @@ def test_input_shapes_and_applicability_match():
                 jconfigs.shape_applicable(jconfigs.get_config(arch), shape)
 
 
-@pytest.mark.parametrize("arch", ["whisper-base", "llava-next-mistral-7b"])
-def test_unported_archs_raise_by_name(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tconfigs.get_config(arch)
-
-
 @pytest.mark.parametrize("override,match", [
-    (dict(encoder_layers=2), "encoder"),
-    (dict(frontend="vision_stub"), "encoder"),
     (dict(attn_shard_constraint=("data", "model")), "Queue 1 item 14"),
 ])
 def test_unported_plans_raise_by_name(override, match):
@@ -292,14 +290,6 @@ def test_flash_routing_rule_is_the_reference_rule():
     t = tattn.AttnSpec(**kw)
     assert not tattn._flash_ok(t, torch.zeros(1, 4, 16), None)
     assert not tattn._flash_ok(t, None, torch.arange(4))
-
-
-def test_cross_attention_waits_for_its_slice():
-    _, tspec = _specs("causal_gqa")
-    _, tp = _attn_params(_specs("causal_gqa")[0])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tattn.attention_forward(tp, tspec, torch.zeros(1, 4, 64),
-                                kv_src=torch.zeros(1, 4, 64))
 
 
 # ---------------------------------------------------------------------------

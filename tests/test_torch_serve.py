@@ -10,7 +10,11 @@ so no argmax sits near a tie.  In the MoE models (jamba's among them) a
 decode batch's rows share the experts' capacity, so the engine and the host
 batcher are held to each other where both decode the same rows.  The SSM
 models keep recurrent states in the cache, which no position masks: an
-admission must overwrite all of its slot's row.
+admission must overwrite all of its slot's row, and so must an
+encoder-decoder's (the cross-attention K/V of the request's audio).
+Requests with an image prefix or audio go through both engines and the
+JAX engine; those whose row cache would not fit the shared one are refused
+by name.
 """
 
 import dataclasses
@@ -33,11 +37,12 @@ from repro.serve.engine import ResidentEngine as JResidentEngine
 from repro.serve.scheduler import Request as JRequest
 from repro_torch import configs as tconfigs
 from repro_torch.convert import params_from_numpy
-from repro_torch.models import transformer
+from repro_torch.models import multimodal, transformer
 from repro_torch.models.api import ModelConfig
 from repro_torch.serve import metrics, stream
 from repro_torch.serve.engine import ResidentEngine
-from repro_torch.serve.scheduler import ContinuousBatcher, Request
+from repro_torch.serve.scheduler import ContinuousBatcher, Request, \
+    cache_insert
 
 torch.set_num_threads(1)
 
@@ -196,12 +201,135 @@ def test_engine_rejects_bad_chunk():
         ResidentEngine(CFG, _params(CFG), max_slots=1, max_len=16, chunk=0)
 
 
-def test_image_and_audio_requests_wait_for_their_slice():
-    eng = ResidentEngine(CFG, _params(CFG), max_slots=1, max_len=16)
-    eng.submit(Request(uid=0, tokens=np.zeros(4, np.int32),
-                       image_embeds=np.zeros((2, 16), np.float32)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+# ---------------------------------------------------------------------------
+# requests with an image prefix (llava) or audio (whisper)
+# ---------------------------------------------------------------------------
+
+MM_ARCHS = ["whisper-base", "llava-next-mistral-7b"]
+
+
+def _mm_model(arch):
+    jcfg = jconfigs.smoke_variant(jconfigs.get_config(arch))
+    tcfg = tconfigs.smoke_variant(tconfigs.get_config(arch))
+    jp = jtransformer.init_params(jcfg, jax.random.PRNGKey(0))
+    return jcfg, tcfg, jp, params_from_numpy(jax.tree.map(np.asarray, jp),
+                                             "cpu")
+
+
+def _modality(cfg, seed, frames=None) -> dict:
+    """One request's stub input (no batch axis), as a Request carries it."""
+    if cfg.frontend == "vision_stub":
+        return {"image_embeds": multimodal.fake_image_patches(
+            1, cfg.d_model, cfg.image_tokens, seed=seed)[0]}
+    return {"audio_frames": multimodal.fake_audio_frames(
+        1, cfg.d_model, frames or cfg.encoder_seq, seed=seed)[0]}
+
+
+def _mm_requests(cfg, n, seed, cls=Request, lens=(3, 9, 14), new=(2, 8)):
+    rng = np.random.default_rng(seed)
+    return [cls(uid=i, tokens=rng.integers(0, cfg.vocab_size,
+                                           size=int(rng.choice(lens)))
+                .astype(np.int32), max_new_tokens=int(rng.integers(*new)),
+                **_modality(cfg, seed + i))
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("arch", MM_ARCHS)
+def test_modality_engine_equals_host_batcher_and_the_jax_engine(arch):
+    """Five requests, each with its own image or audio, through two slots:
+    the port's engine, its host batcher and the JAX engine give the same
+    tokens, and the engines the same transfer ledger (one upload an
+    admission, modality or not)."""
+    jcfg, tcfg, jp, tp = _mm_model(arch)
+    treqs = _mm_requests(tcfg, 5, seed=3)
+    jreqs = _mm_requests(tcfg, 5, seed=3, cls=JRequest)
+    eng = _run_both(tcfg, tp, treqs, slots=2, max_len=48, chunk=3)
+    jeng = JResidentEngine(jcfg, jp, max_slots=2, max_len=48, chunk=3)
+    for r in jreqs:
+        jeng.submit(r)
+    jout = jeng.run_until_done()
+    assert set(eng.outputs) == set(jout)
+    for uid in jout:
+        np.testing.assert_array_equal(eng.outputs[uid], jout[uid])
+    assert eng.transfers == jeng.transfers
+    assert eng.transfers["h2d"] == len(treqs)
+
+
+def test_cache_insert_overwrites_a_slots_cross_kv():
+    """A slot's cross K/V are the last admitted request's audio's: the
+    splice overwrites them as it overwrites the KV rows, in the engine and
+    in cache_insert alone (the other slots untouched)."""
+    _, cfg, _, params = _mm_model("whisper-base")
+    a, b = _mm_requests(cfg, 2, seed=8, new=(2, 3))
+    eng = ResidentEngine(cfg, params, max_slots=1, max_len=32, chunk=2)
+    eng.submit(a)
+    eng.run_until_done()
+    eng.submit(b)
+    eng._admit_all()
+    rows = {}
+    for r in (a, b):
+        _, rows[r.uid] = transformer.prefill(
+            cfg, params, torch.from_numpy(r.tokens)[None], max_len=32,
+            audio_frames=torch.from_numpy(r.audio_frames)[None])
+    for got, want, old in zip(eng.cache["layers"], rows[b.uid]["layers"],
+                              rows[a.uid]["layers"]):
+        for name in ("k", "v"):
+            assert torch.equal(got["cross"][name][0], want["cross"][name][0])
+            assert not torch.equal(got["cross"][name][0],
+                                   old["cross"][name][0])
+    shared = transformer.init_cache(cfg, 3, 32, device="cpu")
+    for leaf in pytree.tree_leaves(shared["layers"]):
+        leaf.fill_(7.0)
+    shared = cache_insert(shared, rows[b.uid], 1)
+    for got, want in zip(shared["layers"], rows[b.uid]["layers"]):
+        for name in ("k", "v"):
+            assert torch.equal(got["cross"][name][1], want["cross"][name][0])
+            assert bool((got["cross"][name][[0, 2]] == 7.0).all())
+
+
+def _refused(engine, cfg, params, req, max_len, match):
+    cls = ResidentEngine if engine == "resident" else ContinuousBatcher
+    eng = cls(cfg, params, max_slots=1, max_len=max_len)
+    eng.submit(req)
+    with pytest.raises(ValueError, match=match):
         eng.step()
+
+
+@pytest.mark.parametrize("engine", ["resident", "host"])
+def test_oversize_image_prefix_is_refused_by_name(engine):
+    """16 image tokens and a 6-token prompt take 22 cache positions: past
+    max_len=20, although the prompt alone fits."""
+    _, cfg, _, params = _mm_model("llava-next-mistral-7b")
+    req = Request(uid=4, tokens=np.arange(6, dtype=np.int32),
+                  **_modality(cfg, 0))
+    _refused(engine, cfg, params, req, 20,
+             "request 4: image prefix of 16 and prompt of 6 tokens take 22 "
+             "cache positions, past max_len=20")
+
+
+@pytest.mark.parametrize("frames", [20, 40])
+@pytest.mark.parametrize("engine", ["resident", "host"])
+def test_audio_of_another_length_is_refused_by_name(engine, frames):
+    _, cfg, _, params = _mm_model("whisper-base")
+    req = Request(uid=5, tokens=np.arange(4, dtype=np.int32),
+                  **_modality(cfg, 0, frames=frames))
+    _refused(engine, cfg, params, req, 32,
+             f"request 5: audio of {frames} frames, but the cross-attention "
+             f"cache holds encoder_seq=32")
+
+
+def test_image_prefix_that_fills_max_len_is_admitted_as_the_reference():
+    """prefix + prompt == max_len gives a row cache of the shared shape:
+    the JAX engine admits it, and so does the port, with its tokens."""
+    jcfg, tcfg, jp, tp = _mm_model("llava-next-mistral-7b")
+    kw = _modality(tcfg, 2)
+    toks = np.arange(8, dtype=np.int32)
+    teng = ResidentEngine(tcfg, tp, max_slots=1, max_len=24, chunk=2)
+    jeng = JResidentEngine(jcfg, jp, max_slots=1, max_len=24, chunk=2)
+    teng.submit(Request(uid=0, tokens=toks, max_new_tokens=3, **kw))
+    jeng.submit(JRequest(uid=0, tokens=toks, max_new_tokens=3, **kw))
+    np.testing.assert_array_equal(teng.run_until_done()[0],
+                                  jeng.run_until_done()[0])
 
 
 # ---------------------------------------------------------------------------

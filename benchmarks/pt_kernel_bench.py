@@ -61,8 +61,9 @@ from . import pt_common as common
 from repro_torch.core import algorithm, dpsvrg, gossip, graphs, prox, runner
 from repro_torch.core.exec_spec import ExecSpec
 from repro_torch.kernels.fused_update import ops as fu_ops, ref as fu_ref
+from repro_torch.launch import roofline
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+HBM_BYTES_PER_S = roofline.HW().hbm_bw     # H100 SXM device memory
 LARGE_D = 131072
 MOVING_LAM = 1e-4             # an l1 weight at which the large-d iterate moves
 ROWS = 2048                   # (2048, 1024) float32: 8 MiB per stream

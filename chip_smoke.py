@@ -11,9 +11,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    two kernels, float32 and bf16, behind one entry point, and fused_step
    one kernel for one run or the cells of a sweep)
    from this checkout (``nvcc``, sm_90a, one process each, all started
-   together), prints the build time and each ptxas report, and a
-   ``flash_sass`` line: the number of ``HGMMA`` (wgmma) instructions in the
-   built flash library, from ``cuobjdump -sass``;
+   together), prints the build time and each ptxas report.  The flash
+   library, the longest build, goes on building while phases 3-8 (which
+   launch none of its kernels) run; phase 9 waits for it, prints its
+   report and a ``flash_sass`` line: the number of ``HGMMA`` (wgmma)
+   instructions in the built flash library, from ``cuobjdump -sass``;
 3. holds the fused resident-step kernel against its plain PyTorch version
    on the card for both rules x three proxes at four shapes, and times
    kernel, plain version, ``torch.matmul(W, q)`` (``library_ms``: no single
@@ -69,7 +71,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    plain version, ``F.rms_norm`` / ``F.scaled_dot_product_attention``
    (``library_ms``, timed only), a copy of RMSNorm's input (``copy_ms``,
    the memory rate's yardstick) and the bound, with ``share_of_bound``
-   (bound / kernel time) on every row;
+   (bound / kernel time) on every row.  A kernel's time (``graph_ms``)
+   is the median of 7 samples of a CUDA graph of 20 calls, or, where a
+   call takes longer than 50 us, of as many calls as fill 1 ms of the
+   card's time (flash's eager calls alike);
 10. runs h2o-danube-1.8b at full width in bf16 (random weights from a
    seed, 3.5 GB) through a 2048-token and a 6144-token prefill on the
    kernel path (exactly 24 bf16 flash launches each; each prefill is timed
@@ -91,13 +96,17 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 13. runs ``repro_torch.launch.serve --arch h2o-danube-1.8b --stream`` at the
     launcher's smoke size;
 14. holds fused_step's cell-batched launch (one launch for the B cells of
-    a sweep) bitwise to B single-cell launches at (B, 8, d), d in {30, 54,
+    a sweep) bitwise to B single-cell launches (operands drawn on the
+    card) at (B, 8, d), d in {30, 54,
     784, 1024, 131072}, B in {1, 3, 4, 16}, both rules, three proxes, W
     and alpha / lam shared and per cell, and times it in a CUDA graph at
     (3, 8, 784), (4, 8, 784) and (4, 8, 1024) beside its bound, the same
     cells as single launches, the plain version and ``torch.bmm(W, q)``;
-15. runs the paper's figures at scale 1.0 (Table I sizes, m = 8) as
-    batched sweeps through the kernel (``core/sweep.py``, CUDA graphs):
+15. holds F(x*)'s proximal gradient replayed from a CUDA graph bit for
+    bit to its eager loop (100 steps on Fig. 5's data; ``f_star_replay``
+    line), then runs the paper's figures at scale 1.0 (Table I sizes, m =
+    8) as batched sweeps through the kernel (``core/sweep.py``, CUDA
+    graphs):
     Fig. 4 (three lambdas), Fig. 5 (four connectivities, one schedule a
     cell) and Fig. 1 (four seeds on each of the four datasets), DPSVRG then
     DSPG.  Every launch count is set to 0 before and read after: the
@@ -215,11 +224,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 24. trains scout's smoke variant at 4 layers on the card with the aux in
     the loss (m = 4, resident): each step held to the CPU's step from the
     same state, two runs bit for bit equal, a resume from step 6 bitwise
-    (``moe_train``); then the same for xlstm-350m's smoke variant at 4
-    layers (``xlstm_train``);
+    (``moe_train``); then the same for xlstm-350m's smoke variant at 2
+    layers, an mLSTM and an sLSTM block (``xlstm_train``);
 25. serves xlstm-350m at full width and depth (24 mLSTM / sLSTM blocks,
     391.7 M parameters, float32, from a seed) through phase 11's engine: 8
-    requests of 128-512 tokens, 16 new each, 4 slots, chunk 8: RMSNorm
+    requests of 32-128 tokens, 16 new each, 4 slots, chunk 8: RMSNorm
     exactly 25 launches a forward, no flash launch, tokens equal to the
     host batcher's; its float32 logits are mostly not determined to 1e-3
     at random init (the mLSTM normalizer has poles), so the kernel path's
@@ -258,23 +267,49 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     of 64-2048 tokens, max_len 4096: flash exactly 16 launches a prefill
     over prefix and prompt, RMSNorm 33 a forward; then layer 0 at full
     width on the prefix and 128 tokens held to the CPU (``llava_serve``);
-29. prints the card, a ``{"kernels": [...]}`` line (all seven kernels,
+29. (run right after phase 12, on phase 11's weights, so that their 7 GB
+    are not held through phases 13-28) the launch tools
+    (``launch_tools`` line).  (a) h2o-danube-1.8b at full width (24
+    layers, float32, the kernel path): a 6144-token prefill (batch 1) and
+    a 4-slot decode step at context 6144, each timed on the host clock
+    around ``synchronize()`` (median of 5 after a warm-up, launch counts
+    exact), read against ``launch.analytic`` and ``launch.roofline`` at
+    the card's rates (``HW.from_device``): one ``launch_roofline`` line
+    each, with the analytic GFLOP and GB (``dtype_bytes=4``),
+    ``t_compute``, ``t_memory``, the bottleneck (the prefill must be
+    bound by operations, the decode by bytes), the measured ms and
+    ``share = max(t_c, t_m) / measured``, which must not pass 1.05;
+    (b) one prefill and one decode step traced with ``torch.profiler``,
+    exported to ``build/phase29/danube_steps.json`` and read by
+    ``launch.inspect_trace``: its top list must name the port's flash and
+    RMSNorm kernels, and its counts equal the wrappers' (a decode step
+    launches no flash kernel); (c) ``examples/torch_decentralized_logreg
+    .py`` on the card against the same code on the CPU (every run's
+    histories at the card-vs-CPU tolerances, one fused_step launch a
+    step), ``examples/torch_continuous_batching.py`` (tokens equal to the
+    CPU's on the same weights, flash and RMSNorm launched) and
+    ``benchmarks/pt_serve_bench.py`` (host and engine tokens equal, the
+    ledger O(1) a chunk);
+30. prints the card, a ``{"kernels": [...]}`` line (all seven kernels,
     each with its ``share_of_bound``; RMSNorm and flash also with
-    ``launches_consensus_serve``, phase 16's count, and
+    ``launches_consensus_serve``, phase 16's count,
     ``launches_{stablelm,scout,maverick,xlstm,jamba,whisper,llava}_serve``,
-    phases 21-23's and 25-28's;
+    phases 21-23's and 25-28's, and ``launches_launch_tools``, phase 29's
+    timed danube steps; fused_step with ``launches_logreg_example``, phase
+    29's;
     fused_step_cells with ``launches_scenarios``, phase 17's cell-batched
     count, and fused_step with the single launches of phase 17's
     sequential runs; fused_step and fused_step_cells with
     ``launches_exec_modes``, phase 19's counts),
     and last ``{"ok": true, "device": {...}}``.  (Until phase 21 came,
     these final lines were phase 20; until phase 25, phase 25; until
-    phase 27, phase 27.)
+    phase 27, phase 27; until phase 29, phase 29.)
 
 Needs one card; exits non-zero without one, and without the repository
 around it.
 """
 
+import atexit
 import dataclasses
 import json
 import math
@@ -310,6 +345,9 @@ from repro_torch.kernels.fused_update import kernel, ops, ref  # noqa: E402
 from repro_torch.kernels.rmsnorm import kernel as rn_kernel  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rn_ops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as rn_ref  # noqa: E402
+from repro_torch.launch import analytic as launch_analytic  # noqa: E402
+from repro_torch.launch import inspect_trace  # noqa: E402
+from repro_torch.launch import roofline as launch_roofline  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import moe, multimodal, transformer  # noqa: E402
 from repro_torch.serve import consensus  # noqa: E402
@@ -320,13 +358,17 @@ from repro_torch.serve.scheduler import (ContinuousBatcher,  # noqa: E402
                                          Request, modality_inputs)
 from repro_torch.train import steps, trainer  # noqa: E402
 from benchmarks import pt_common, pt_kernel_bench  # noqa: E402
+from benchmarks import pt_serve_bench  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
-# peak operation rates by operand type, dense (NVIDIA's H100 SXM data
-# sheet): float32 outside the tensor cores, bf16 on the tensor cores.  A
+# the card's rates from the package's one table (launch/roofline.py's HW,
+# NVIDIA's H100 SXM data sheet, dense): device memory, and peak operation
+# rates by operand type, float32 outside the tensor cores, bf16 on them.  A
 # bf16 bound is taken at the tensor-core rate even for a kernel that does
 # not use them, since the card could do the work at that rate.
-FLOPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+H100 = launch_roofline.HW()
+HBM_BYTES_PER_S = H100.hbm_bw
+FLOPS_PER_S = {torch.float32: H100.peak_flops(torch.float32),
+               torch.bfloat16: H100.peak_flops(torch.bfloat16)}
 KERNEL_SHAPES = [(8, 1024), (8, 1000), (8, 131072), (32, 4096)]
 AUTO_DIMS = [30, 1024, 8192, 131072]
 # kernel vs plain version on the card: both float32, but the kernel sums
@@ -341,17 +383,64 @@ HISTORY_RTOL = 1e-4
 HISTORY_ATOL = 1e-6
 
 
+# builds running in the background, stopped when the script exits (a
+# failed phase does not leave an nvcc behind)
+_BACKGROUND: list = []
+atexit.register(lambda: [job.kill() for job in _BACKGROUND])
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
-def time_ms(fn, iters: int = 20, samples: int = 7) -> float:
-    """Median per-call time in ms: CUDA events around ``iters`` calls, over
-    ``samples`` samples, after a warm-up."""
+def print_build(logs: dict, sources, t_build: float) -> None:
+    """The compiler's report of each source built, and the time since the
+    build started (``t_build``, a ``perf_counter`` reading)."""
+    for source, log in logs.items():
+        print(f"--- ptxas: {source.name} "
+              f"({log.count('Compiling entry function')} kernels)",
+              flush=True)
+        print(log.strip(), flush=True)
+    print(f"build: {', '.join(s.name for s in sources)} in "
+          f"{time.perf_counter() - t_build:.1f} s", flush=True)
+
+
+# a timed sample makes TIMED_CALLS calls, or fewer where a call is slow:
+# as many as take SAMPLE_MS of the card's time, at least one (a sample of a
+# millisecond or more is far above the events' resolution)
+TIMED_CALLS = 20
+SAMPLE_MS = 1.0
+
+
+def _calls_for(fn) -> int:
+    """The calls a sample of ``fn`` makes: TIMED_CALLS, or as many as fill
+    SAMPLE_MS where one call takes longer than SAMPLE_MS / TIMED_CALLS.
+    A call's time is the least of three single calls timed warm: one slow
+    call (a lazy set-up on this stream) must not shrink the sample of a
+    microsecond kernel to one call and its graph launch."""
+    once = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        once.append(start.elapsed_time(stop))
+    return max(1, min(TIMED_CALLS,
+                      math.ceil(SAMPLE_MS / max(min(once), 1e-9))))
+
+
+def time_ms(fn, iters: int | None = TIMED_CALLS, samples: int = 7) -> float:
+    """Median per-call time in ms: CUDA events around ``iters`` calls
+    (``None``: ``_calls_for``), over ``samples`` samples, after a
+    warm-up."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    if iters is None:
+        iters = _calls_for(fn)
     per_call = []
     for _ in range(samples):
         start = torch.cuda.Event(enable_timing=True)
@@ -365,17 +454,20 @@ def time_ms(fn, iters: int = 20, samples: int = 7) -> float:
     return statistics.median(per_call)
 
 
-def graph_ms(fn, iters: int = 20) -> float:
-    """Median device time per call of ``fn``: ``iters`` calls captured in
-    one CUDA graph, the graph's replays timed by ``time_ms``.  The host's
-    Python and launch overhead is out of the graph, so this is the card's
-    time for the work, gaps between the captured kernels included."""
+def graph_ms(fn, iters: int | None = None) -> float:
+    """Median device time per call of ``fn``: ``iters`` calls (``None``:
+    ``_calls_for``) captured in one CUDA graph, the graph's replays timed
+    by ``time_ms``.  The host's Python and launch overhead is out of the
+    graph, so this is the card's time for the work, gaps between the
+    captured kernels included."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
+    if iters is None:
+        iters = _calls_for(fn)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(iters):
@@ -1015,8 +1107,9 @@ RMS_DIMS = [1, 7, 128, 2304, 2560, 3584, 5120, "register+8"]
 # the shape of the kernels line: a decode step of the serving path (4 slots)
 RMS_LINE_SHAPE = (4, 2560)
 # the block norms of phases 25-26, float32: xlstm-350m (d 1024) and
-# jamba-1.5-large (d 8192) at a 4-slot decode step and at their longest
-# prefill (512 and 2048 tokens)
+# jamba-1.5-large (d 8192) at a 4-slot decode step and at a long prefill
+# (512 tokens, four times xlstm's longest served prompt; jamba's longest,
+# 2048)
 RMS_SSM_SHAPES = [(4, 1024), (512, 1024), (4, 8192), (2048, 8192)]
 # llava-next-mistral-7b's norms (d 4096, phase 28), float32: a 4-slot
 # decode step and its longest prefill (the 1152-token image prefix and a
@@ -1141,7 +1234,6 @@ def check_flash(device) -> dict:
     rows_out = {}
     for case in FLASH_CASES:
         b, h, kv, sq, sk, hd, causal, win, cap = case
-        big = sq * sk * h > 1 << 28
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.randn(b, s, n, hd, generator=gen,
                                    device=device).to(dtype)
@@ -1183,16 +1275,15 @@ def check_flash(device) -> dict:
                 return F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=ok, enable_gqa=True)
 
-            iters = 2 if big else 20
             row = {"case": list(case), "dtype": str(dtype).split(".")[-1],
                    "max_abs_err": err, "max_err_over_bound": over,
                    "pairs": pairs,
-                   "ms": graph_ms(kern, iters),
-                   "call_ms": time_ms(kern, iters=iters),
-                   "plain_ms": graph_ms(plain_fn, iters),
+                   "ms": graph_ms(kern),
+                   "call_ms": time_ms(kern, iters=None),
+                   "plain_ms": graph_ms(plain_fn),
                    # the library has no softcap: no call computes that case
                    "library_ms": None if cap is not None
-                   else graph_ms(library, iters),
+                   else graph_ms(library),
                    "bound_ms": bnd, "bound_by": bnd_by}
             row["share_of_bound"] = bnd / row["ms"]
             rows_out[(case, row["dtype"])] = row
@@ -1560,8 +1651,9 @@ class _ModalStreamRequest(serve_stream.StreamRequest):
         return dataclasses.replace(super().to_request(), **self.modality)
 
 
-def serve_danube() -> dict:
-    """Phases 11-12.  Returns the numbers of the serving run."""
+def danube_weights() -> tuple:
+    """(cfg, params): h2o-danube-1.8b at full width on the kernel path,
+    float32 weights from a seed on the card (phases 11-12 and 29)."""
     cfg = configs.get_config("h2o-danube-1.8b").scaled(
         use_flash=True, use_fused_norm=True)
     t0 = time.perf_counter()
@@ -1569,6 +1661,12 @@ def serve_danube() -> dict:
     torch.cuda.synchronize()
     print(f"danube: {transformer.param_count(params)} parameters (f32) on "
           f"the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    return cfg, params
+
+
+def serve_danube(cfg, params) -> dict:
+    """Phases 11-12 on ``danube_weights()``.  Returns the numbers of the
+    serving run."""
     reqs = danube_requests(cfg.vocab_size)
     # phase 12's stream: a seeded Poisson stream through the same model
     stream = serve_stream.StreamConfig(
@@ -1601,7 +1699,7 @@ def serve_danube() -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     result["profile_prefill2048_and_chunk"] = device_busy(prof, wall_us)
-    del eng, params
+    del eng
     _free_card()
     print("danube_serve " + json.dumps(result), flush=True)
     print("danube_stream " + json.dumps(summary), flush=True)
@@ -1623,13 +1721,14 @@ CELL_TIMED = [(3, 8, 784), (4, 8, 784), (4, 8, 1024)]
 
 def cells_case(cells: int, m: int, d: int, rule: str, seed: int, device,
                w_shared: bool, scalars_shared: bool):
-    """Seeded operands of a cell-batched launch: streams (cells, m, d), W
-    (m, m) or one ring product a cell, alpha and lam as Python floats or
-    one value a cell on the card."""
+    """Seeded operands of a cell-batched launch: streams (cells, m, d),
+    drawn on the card (up to 16 x 8 x 131,072 a stream), W (m, m) or one
+    ring product a cell, alpha and lam as Python floats or one value a cell
+    on the card."""
     rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
     n_streams = 4 if rule == "svrg" else 2
-    streams = [torch.as_tensor(rng.normal(size=(cells, m, d)),
-                               dtype=torch.float32, device=device)
+    streams = [torch.randn(cells, m, d, generator=gen, device=device)
                for _ in range(n_streams)]
     ws = [graphs.b_connected_ring_schedule(m, 2, seed=seed + c)
           .consensus_rounds(0, 3) for c in range(1 if w_shared else cells)]
@@ -1768,6 +1867,45 @@ INT8_OBJ_RTOL = 1e-3
 BEYOND_EARLY_STEPS = 12
 
 
+# F(x*)'s proximal gradient (benchmarks/pt_common.f_star, 4000 steps a
+# figure dataset) replays one step from a CUDA graph on the card; its first
+# F_STAR_CHECK_STEPS are held bit for bit to the eager loop on Fig. 5's data
+F_STAR_CHECK_STEPS = 100
+
+
+def check_f_star_replay(device, scale: float) -> dict:
+    """``dpsvrg.centralized_prox_gd`` on Fig. 5's problem (mnist_like at
+    ``scale``) replayed from its CUDA graph and run eagerly
+    (``runner.CUDA_GRAPHS`` off): the iterates and the objective histories
+    must be equal.  Returns the seconds of each."""
+    from repro_torch.core import dpsvrg
+    _, flat, h, _, d = pt_common.setup_problem("mnist_like", scale,
+                                               device=device)
+    out, secs = [], []
+    for graphed in (True, False):
+        runner.CUDA_GRAPHS = graphed
+        try:
+            _sync(device)
+            t0 = time.perf_counter()
+            out.append(dpsvrg.centralized_prox_gd(
+                pt_common.logreg_loss, h, torch.zeros(d, device=device),
+                flat, 0.4, F_STAR_CHECK_STEPS))
+            _sync(device)
+            secs.append(time.perf_counter() - t0)
+        finally:
+            runner.CUDA_GRAPHS = True
+    (x, hist), (x_eager, hist_eager) = out
+    if not (torch.equal(x, x_eager) and np.array_equal(hist, hist_eager)):
+        fail(f"F(x*)'s proximal gradient replayed from a CUDA graph differs "
+             f"from the eager loop: objectives {hist[:3]} vs "
+             f"{hist_eager[:3]}, iterates by "
+             f"{float((x - x_eager).abs().max())}")
+    row = {"steps": F_STAR_CHECK_STEPS, "replayed_s": secs[0],
+           "eager_s": secs[1], "objective_last": float(hist[-1])}
+    print("f_star_replay " + json.dumps(row), flush=True)
+    return row
+
+
 def figure_sweeps(device, scale: float) -> list:
     """[(figure, method, Sweep, F(x*) or None)]: the paper's figure grids as
     the port's figure drivers define them, Fig. 4 (three lambdas), Fig. 5
@@ -1842,6 +1980,7 @@ def paper_figures_phase(device="cuda", scale: float = FIG_SCALE) -> dict:
     from benchmarks import (pt_fig1_convergence, pt_fig4_lambda,
                             pt_fig5_connectivity)
     t_setup = time.perf_counter()
+    f_star_check = check_f_star_replay(device, scale)
     exps = figure_sweeps(device, scale)
     setup_s = time.perf_counter() - t_setup
 
@@ -1978,7 +2117,7 @@ def paper_figures_phase(device="cuda", scale: float = FIG_SCALE) -> dict:
         print("profile_figure_sweep " + json.dumps(
             profile_sweep(fig5, "fig5/dpsvrg")), flush=True)
     return {"launches": counts, "sweeps": results, "setup_s": setup_s,
-            "orderings": orderings}
+            "orderings": orderings, "f_star_replay": f_star_check}
 
 
 def profile_sweep(sw, name: str) -> dict:
@@ -3354,6 +3493,10 @@ MOE_TRAIN_CKPT_EVERY = 6
 # a card step against the CPU's step from the same state: the parameter
 # tolerance of tests/test_torch_train.py
 MOE_PARAM_ATOL = 1e-4
+# xlstm's training case: its smoke variant cut from 4 to 2 layers (one
+# mLSTM and one sLSTM block; its time loops, a Python step a token a block,
+# in float32 and float64 on the CPU took 102 s of the script at 4)
+XLSTM_TRAIN_LAYERS = 2
 
 
 def _moe_stream(vocab: int) -> serve_stream.StreamConfig:
@@ -3644,16 +3787,17 @@ def moe_train_phase(device="cuda") -> dict:
     return result
 
 def xlstm_train_phase(device="cuda") -> dict:
-    """Phase 24, its SSM part: xlstm-350m's smoke variant at 4 layers (two
-    mLSTM and two sLSTM blocks, their time loops under the node vmap)
-    trained on the card: each step held to the CPU's step from the same
+    """Phase 24, its SSM part: xlstm-350m's smoke variant at
+    XLSTM_TRAIN_LAYERS layers (an mLSTM and an sLSTM block, their time
+    loops under the node vmap) trained on the card: each step held to the
+    CPU's step from the same
     state, two runs bit for bit equal, a resume from step 6 bitwise the
     uninterrupted run.  Whole runs are not held to the CPU's: xlstm's
     training is chaotic at this size (tests/test_torch_train.py), and a
     step's parameters are held where float32 determines them (the CPU's
     step within MOE_PARAM_ATOL / 4 of the same step in float64)."""
     cfg = configs.smoke_variant(configs.get_config("xlstm-350m")).scaled(
-        num_layers=4)
+        num_layers=XLSTM_TRAIN_LAYERS)
     work = os.path.join(ROOT, "build", "phase24_xlstm")
     shutil.rmtree(work, ignore_errors=True)
     t0 = time.perf_counter()
@@ -3702,11 +3846,13 @@ def xlstm_train_phase(device="cuda") -> dict:
 SSM_SEED = 0
 # xlstm-350m at full width and depth (24 blocks, 391.7 M parameters, 1.57
 # GB float32): short prompts, since the eager time loop runs about 25
-# operations a token a block; no KV cache, so max_len only bounds prompts
-XLSTM_PROMPTS = [128, 256, 384, 512, 128, 256, 384, 512]
+# operations a token a block (12 ms a token on the card; prompts of
+# 128-512 tokens took 106 s of the script, so they are cut to 32-128); no
+# KV cache, so max_len only bounds prompts
+XLSTM_PROMPTS = [32, 64, 96, 128, 32, 64, 96, 128]
 XLSTM_NEW = 16
-XLSTM_MAX_LEN = 544
-XLSTM_STREAM = dict(num_requests=4, prompt_lens=(128, 512), new_low=16,
+XLSTM_MAX_LEN = 160
+XLSTM_STREAM = dict(num_requests=4, prompt_lens=(32, 128), new_low=16,
                     new_high=32)
 # xlstm's float32 logits at random init are mostly not determined to 1e-3:
 # on a 128-token prompt the card's plain and kernel paths and the CPU each
@@ -4196,6 +4342,304 @@ def llava_phase(device=SERVE_DEVICE, cfg=None) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the launch tools (analytic, roofline, trace inspection) on
+# h2o-danube-1.8b's steps, the last two examples and the serving bench
+# ---------------------------------------------------------------------------
+
+ROOFLINE_CONTEXT = 6144      # the prefill's tokens and the decode's context
+ROOFLINE_SLOTS = 4
+ROOFLINE_TIMED = 5           # timed calls a step after one warm-up; median
+# a step cannot beat the card's own peak: a share over this means a wrong
+# count (5% for the host clock's error on a short step)
+ROOFLINE_MAX_SHARE = 1.05
+TRACE_DIR = os.path.join(ROOT, "build", "phase29")
+
+
+def _timed_step(fn) -> list:
+    """Host-clock ms of ``ROOFLINE_TIMED`` calls of ``fn`` after one
+    warm-up, the card synchronized around each."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(ROOFLINE_TIMED):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _roofline_line(cfg, hw, shape, times, card) -> dict:
+    afl = launch_analytic.step_flops(cfg, shape)
+    aby = launch_analytic.step_bytes(cfg, shape, 1, dtype_bytes=4)
+    mfl = launch_roofline.model_flops(
+        cfg, shape, launch_analytic.active_param_count(cfg))
+    r = launch_roofline.roofline_terms(
+        "h2o-danube-1.8b", shape.name, "h100x1", 0.0, 0.0, None, hw, mfl,
+        afl, aby, dtype="float32")
+    measured = statistics.median(times)
+    row = {"step": shape.kind, "shape": shape.name,
+           "tokens": shape.seq_len, "batch": shape.global_batch,
+           "analytic_gflop": r.analytic_gflops,
+           "analytic_gb": r.analytic_gbytes,
+           "t_compute_ms": r.t_compute * 1e3, "t_memory_ms": r.t_memory * 1e3,
+           "bottleneck": r.bottleneck, "measured_ms": measured,
+           "measured_ms_each": times,
+           "share": max(r.t_compute, r.t_memory) * 1e3 / measured,
+           "card": card}
+    print("launch_roofline " + json.dumps(row), flush=True)
+    print(launch_roofline.format_report(r), flush=True)
+    return row
+
+
+def _traced_steps(cfg, params, toks, cache, nxt) -> dict:
+    """One prefill and one decode step of the roofline's, traced; the
+    trace exported under ``build/phase29/`` and read by ``inspect_trace``,
+    whose kernel counts must equal the wrappers' launch counts of the same
+    calls (a decode step launches no flash kernel: its attention is the
+    plain path's).  The profiler records a warm-up cycle of the same
+    steps first and keeps the second: a trace's first kernels can be
+    lost while the device tracing starts (one run lost 12 of 2937)."""
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                schedule)
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    path = os.path.join(TRACE_DIR, "danube_steps.json")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True,
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(path)
+                 ) as prof:
+        for _ in range(2):
+            fa_ops.launches = rn_ops.launches = 0
+            with record_function("launch_tools.prefill"):
+                transformer.prefill(cfg, params, toks, max_len=toks.shape[1])
+            with record_function("launch_tools.decode"):
+                transformer.decode_step(cfg, params, cache, nxt)
+            torch.cuda.synchronize()
+            prof.step()
+    launches = {"flash_attention": fa_ops.launches,
+                "rmsnorm": rn_ops.launches}
+    res = inspect_trace.analyze(path, top=15)
+    print(inspect_trace.format_analysis(res), flush=True)
+    if res["source"] != "kernels":
+        fail("launch_tools: the trace holds no device kernel")
+    counted = {}
+    for name, tag in (("flash_attention", "flash_fwd"),
+                      ("rmsnorm", "rmsnorm")):
+        rows = [r for r in res["all_kernels"] if tag in r["name"]]
+        counted[name] = sum(r["count"] for r in rows)
+        if not any(tag in r["name"] for r in res["kernels"]):
+            fail(f"launch_tools: the trace's top {len(res['kernels'])} "
+                 f"kernels do not name the port's {name} kernel")
+    if counted != launches:
+        fail(f"launch_tools: the trace counts {counted} kernel launches, "
+             f"the wrappers {launches}")
+    want = {"flash_attention": cfg.num_layers,
+            "rmsnorm": 2 * (2 * cfg.num_layers + 1)}
+    if launches != want:
+        fail(f"launch_tools: {launches} launches in one prefill and one "
+             f"decode step, want {want}")
+    return {"trace": os.path.relpath(path, ROOT),
+            "trace_bytes": os.path.getsize(path), "launches": launches,
+            "trace_counts": counted,
+            "top": [{k: r[k] for k in ("name", "scope", "count", "total_us",
+                                       "mean_us")}
+                    for r in res["kernels"][:6]]}
+
+
+def _load_example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _quiet(fn, *args, **kw):
+    """(stdout text, result) of ``fn``."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    return buf.getvalue(), out
+
+
+def _logreg_example() -> dict:
+    """examples/torch_decentralized_logreg.py on the card against the same
+    code on the CPU: every run's histories (objective and consensus at the
+    card-vs-CPU tolerances, steps and gossip rounds exact), the printed
+    lines' text; fused_step launches once a step (kernel="auto")."""
+    ex = _load_example("torch_decentralized_logreg")
+    ops.launches = 0
+    t0 = time.perf_counter()
+    text, card_runs = _quiet(ex.main, ["--device", "cuda"])
+    card_s = time.perf_counter() - t0
+    launches = ops.launches
+    t0 = time.perf_counter()
+    cpu_text, cpu_runs = _quiet(ex.main, ["--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    steps, worst = 0, 0.0
+    for key, hists in card_runs.items():
+        for got, want in zip(hists, cpu_runs[key]):
+            np.testing.assert_array_equal(got.steps, want.steps)
+            np.testing.assert_array_equal(got.comm_rounds, want.comm_rounds)
+            np.testing.assert_allclose(
+                got.objective, want.objective, rtol=HISTORY_RTOL,
+                atol=HISTORY_ATOL, err_msg=f"logreg example {key}")
+            np.testing.assert_allclose(
+                got.consensus, want.consensus, rtol=SWEEP_CONS_TOL["rtol"],
+                atol=SWEEP_CONS_TOL["atol"], err_msg=f"logreg example {key}")
+            worst = max(worst, float(np.max(np.abs(got.objective
+                                                   - want.objective))))
+            steps += int(got.steps[-1])
+    strip = lambda t: [ln.split(":")[0] for ln in t.splitlines()]
+    if strip(text) != strip(cpu_text) or len(text.splitlines()) != 11:
+        fail(f"logreg example: printed\n{text}\nagainst the CPU's\n"
+             f"{cpu_text}")
+    if launches != steps:
+        fail(f"logreg example: {launches} fused_step launches for {steps} "
+             f"steps")
+    print(text, end="", flush=True)
+    return {"runs": 2 * len(card_runs), "steps": steps,
+            "launches": {"fused_step": launches},
+            "max_abs_objective_vs_cpu": worst, "card_s": card_s,
+            "cpu_s": cpu_s}
+
+
+def _batching_example() -> dict:
+    """examples/torch_continuous_batching.py on the card against the CPU
+    on the same seed-0 weights (made on the CPU): every uid's tokens
+    equal, flash and RMSNorm launched on the card."""
+    ex = _load_example("torch_continuous_batching")
+    cfg = configs.smoke_variant(configs.get_config("h2o-danube-1.8b"))
+    cpu_params = transformer.init_params(cfg, 0, "cpu")
+    card_params = pytree.tree_map(lambda t: t.to(SERVE_DEVICE), cpu_params)
+    fa_ops.launches = rn_ops.launches = 0
+    t0 = time.perf_counter()
+    text, outs = _quiet(ex.main, ["--device", "cuda"], params=card_params)
+    card_s = time.perf_counter() - t0
+    launches = {"flash_attention": fa_ops.launches,
+                "rmsnorm": rn_ops.launches}
+    _, cpu_outs = _quiet(ex.main, ["--device", "cpu"], params=cpu_params)
+    if sorted(outs) != list(range(7)) or any(
+            not np.array_equal(outs[u], cpu_outs[u]) for u in outs):
+        fail(f"batching example: card tokens {outs} against the CPU's "
+             f"{cpu_outs}")
+    # one flash launch a layer a prefill (7 requests); RMSNorm 2L + 1 a
+    # forward (prefills and decode steps)
+    rms_each = 2 * cfg.num_layers + 1
+    if launches["flash_attention"] != 7 * cfg.num_layers or \
+            launches["rmsnorm"] % rms_each or \
+            launches["rmsnorm"] <= 7 * rms_each:
+        fail(f"batching example: launches {launches}")
+    print(text, end="", flush=True)
+    return {"requests": len(outs), "tokens": sum(len(v)
+                                                 for v in outs.values()),
+            "launches": launches, "card_s": card_s}
+
+
+def _serve_bench() -> dict:
+    """benchmarks/pt_serve_bench.py on the card (its own asserts: host and
+    engine tokens equal, the ledger O(1) a chunk), RMSNorm and flash
+    launched by its smoke rows."""
+    fa_ops.launches = rn_ops.launches = 0
+    t0 = time.perf_counter()
+    text, ss = _quiet(pt_serve_bench.main, ["--device", "cuda"])
+    launches = {"flash_attention": fa_ops.launches,
+                "rmsnorm": rn_ops.launches}
+    if not ss["outputs_equal"] or not all(launches.values()):
+        fail(f"pt_serve_bench: outputs_equal {ss['outputs_equal']}, "
+             f"launches {launches}")
+    print(text, end="", flush=True)
+    return {"host_ms_per_token": ss["host_ms_per_token"],
+            "resident_ms_per_token": ss["resident_ms_per_token"],
+            "speedup_resident_vs_host": ss["speedup_resident_vs_host"],
+            "ttft_ms": ss["ttft_ms"], "tpot_ms": ss["tpot_ms"],
+            "transfers": ss["transfers"],
+            "prefill_decode": ss["prefill_decode"], "launches": launches,
+            "s": time.perf_counter() - t0}
+
+
+@torch.no_grad()
+def launch_tools_phase(cfg, params, card: str) -> dict:
+    """Phase 29.  (a) h2o-danube-1.8b's steps at full width (phase 11's
+    weights, float32, the kernel path) read against the roofline at the
+    card's rates (``HW.from_device``); (b) one prefill and one decode step
+    traced and read by ``inspect_trace``; (c) both examples and the
+    serving bench on the card."""
+    t_phase = time.perf_counter()
+    hw = launch_roofline.HW.from_device(0)
+    rng = np.random.default_rng(DANUBE_SEED)
+    n = ROOFLINE_CONTEXT
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, n))
+                           .astype(np.int32), device=SERVE_DEVICE)
+    fa_ops.launches = rn_ops.launches = 0
+    prefill_times = _timed_step(
+        lambda: transformer.prefill(cfg, params, toks, max_len=n))
+    prefill_launches = {"flash_attention": fa_ops.launches,
+                        "rmsnorm": rn_ops.launches}
+    # a 4-slot cache at context 6144: one batched prefill of 4 prompts.
+    # Each timed decode step decodes position 6144 from the same cache
+    # (decode_step returns the advanced positions in a new dict and writes
+    # its K and V in place, at the same slot each time)
+    slots = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, size=(ROOFLINE_SLOTS, n)).astype(np.int32),
+        device=SERVE_DEVICE)
+    logits, cache = transformer.prefill(cfg, params, slots, max_len=n + 1)
+    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def decode():
+        return transformer.decode_step(cfg, params, cache, nxt)
+
+    fa_ops.launches = rn_ops.launches = 0
+    decode_times = _timed_step(decode)
+    decode_launches = {"flash_attention": fa_ops.launches,
+                       "rmsnorm": rn_ops.launches}
+    dl, _ = decode()
+    if not bool(torch.isfinite(dl).all()) or \
+            tuple(dl.shape) != (ROOFLINE_SLOTS, cfg.vocab_size):
+        fail(f"launch_tools: decode logits of shape {tuple(dl.shape)}, "
+             f"not all finite")
+    calls = ROOFLINE_TIMED + 1
+    if prefill_launches != {"flash_attention": calls * cfg.num_layers,
+                            "rmsnorm": calls * (2 * cfg.num_layers + 1)} or \
+            decode_launches != {"flash_attention": 0, "rmsnorm": calls * (
+                2 * cfg.num_layers + 1)}:
+        fail(f"launch_tools: launches {prefill_launches} (prefills), "
+             f"{decode_launches} (decode steps)")
+    rows = {}
+    for kind, times, batch, bound_by in (
+            ("prefill", prefill_times, 1, "compute"),
+            ("decode", decode_times, ROOFLINE_SLOTS, "memory")):
+        shape = configs.InputShape(f"{kind}_{n}", n, batch, kind)
+        rows[kind] = row = _roofline_line(cfg, hw, shape, times, card)
+        if row["bottleneck"] != bound_by:
+            fail(f"launch_tools: the {kind} is bound by {row['bottleneck']}"
+                 f", want {bound_by}")
+        if row["share"] > ROOFLINE_MAX_SHARE:
+            fail(f"launch_tools: the {kind} reads {row['share']:.3f} of the "
+                 f"card's bound: a wrong count")
+    t_a = time.perf_counter() - t_phase
+
+    trace = _traced_steps(cfg, params, toks, cache, nxt)
+    del cache, logits, dl
+    _free_card()
+    t_b = time.perf_counter() - t_phase - t_a
+
+    result = {"roofline": rows, "launches_prefill": prefill_launches,
+              "launches_decode": decode_launches, "trace": trace,
+              "logreg_example": _logreg_example(),
+              "batching_example": _batching_example(),
+              "serve_bench": _serve_bench(),
+              "card": card, "a_s": t_a, "b_s": t_b}
+    result["phase_s"] = time.perf_counter() - t_phase
+    print("launch_tools " + json.dumps(result), flush=True)
+    return result
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
@@ -4217,22 +4661,16 @@ def main() -> None:
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}",
           flush=True)
 
-    # phase 2: build every kernel, one nvcc each, all started together
-    t0 = time.perf_counter()
-    logs = _build.build(SOURCES)
-    build_s = time.perf_counter() - t0
-    for source, log in logs.items():
-        print(f"--- ptxas: {source.name} "
-              f"({log.count('Compiling entry function')} kernels)",
-              flush=True)
-        print(log.strip(), flush=True)
-    print(f"build: {', '.join(s.name for s in SOURCES)} in {build_s:.1f} s "
-          f"(fused_step max m {kernel.max_m()})", flush=True)
-    sass = flash_sass()
-    print("flash_sass " + json.dumps(sass), flush=True)
-    if sass["cuobjdump"] is not None and sass["hgmma"] == 0:
-        fail("the flash library holds no HGMMA instruction: the bf16 "
-             "kernel does not run on the tensor cores")
+    # phase 2: build every kernel, one nvcc each, all started together.  The
+    # flash library takes the longest by far: phases 3-8 launch none of its
+    # kernels, so they run while it builds, and phase 9 waits for it
+    t_build = time.perf_counter()
+    late = [s for s in SOURCES if s == fa_kernel.SOURCE]
+    late_build = _build.start(late)
+    _BACKGROUND.append(late_build)
+    print_build(_build.build([s for s in SOURCES if s not in late]),
+                [s for s in SOURCES if s not in late], t_build)
+    print(f"fused_step max m {kernel.max_m()}", flush=True)
 
     # phase 3: kernel vs plain version
     rows = check_kernel(device)
@@ -4332,7 +4770,17 @@ def main() -> None:
     print(f"phase 8 (kernel bench, dvr, auto): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    # phase 9: RMSNorm and flash attention against their plain versions
+    # phase 9: RMSNorm and flash attention against their plain versions,
+    # once the flash library started in phase 2 is built
+    t0 = time.perf_counter()
+    print_build(late_build.wait(), late, t_build)
+    print(f"build: waited {time.perf_counter() - t0:.1f} s for "
+          f"{', '.join(s.name for s in late)}", flush=True)
+    sass = flash_sass()
+    print("flash_sass " + json.dumps(sass), flush=True)
+    if sass["cuobjdump"] is not None and sass["hgmma"] == 0:
+        fail("the flash library holds no HGMMA instruction: the bf16 "
+             "kernel does not run on the tensor cores")
     rms_rows = check_rmsnorm(device)
     flash_rows = check_flash(device)
     rms_err = max(r["max_abs_err"] for r in rms_rows.values()
@@ -4354,9 +4802,19 @@ def main() -> None:
     elapsed("phase 10")
 
     # phases 11-12: serve h2o-danube-1.8b at full width, then a stream
-    serve = serve_danube()
+    danube_cfg, danube_params = danube_weights()
+    serve = serve_danube(danube_cfg, danube_params)
 
     elapsed("phase 12")
+
+    # phase 29: the launch tools on phase 11's weights (run here so that
+    # the 7 GB are not held through phases 13-28), the examples and the
+    # serving bench
+    launch = launch_tools_phase(danube_cfg, danube_params, card)
+    del danube_params
+    _free_card()
+
+    elapsed("phase 29")
 
     # phase 13: the launcher at its smoke size
     summary = launch_serve.main(["--arch", "h2o-danube-1.8b", "--stream"])
@@ -4510,6 +4968,15 @@ def main() -> None:
         for name, res in served.items():
             if row["name"] in res["launches"]:
                 row[f"launches_{name}_serve"] = res["launches"][row["name"]]
+        # phase 29: danube's timed prefills and decode steps (RMSNorm and
+        # flash float32), the logistic-regression example (fused_step)
+        if row["name"] in launch["launches_prefill"]:
+            row["launches_launch_tools"] = \
+                launch["launches_prefill"][row["name"]] + \
+                launch["launches_decode"][row["name"]]
+        if row["name"] == "fused_step":
+            row["launches_logreg_example"] = \
+                launch["logreg_example"]["launches"]["fused_step"]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {

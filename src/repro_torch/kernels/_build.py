@@ -19,8 +19,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "nvcc_path", "library_path", "build",
-           "load"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "nvcc_path", "library_path", "Build",
+           "start", "build", "load"]
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
@@ -48,11 +48,43 @@ def library_path(source: Path) -> Path:
     return BUILD_DIR / f"{source.stem}-{digest}.so"
 
 
-def build(sources) -> dict:
-    """Compile every source whose library is missing, one ``nvcc`` each, all
-    started together.  Returns ``{source: compiler output}`` for the
-    sources built (``-Xptxas -v`` reports registers and shared memory).
-    Raises with the compiler's output if any build fails."""
+class Build:
+    """The ``nvcc`` processes of one :func:`start`: :meth:`wait` finishes
+    them, :meth:`kill` stops any still running and drops their output."""
+
+    def __init__(self, jobs: dict):
+        self._jobs = jobs                # source -> (process, tmp, target)
+
+    def wait(self) -> dict:
+        """``{source: compiler output}`` for the sources built (``-Xptxas
+        -v`` reports registers and shared memory).  Raises with the
+        compiler's output if any build fails."""
+        logs, failed = {}, []
+        for source, (proc, tmp, target) in self._jobs.items():
+            logs[source] = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(source)
+                os.unlink(tmp)
+            else:
+                os.replace(tmp, target)
+        self._jobs = {}
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"--- {s}\n{logs[s]}" for s in failed))
+        return logs
+
+    def kill(self) -> None:
+        for proc, tmp, _ in self._jobs.values():
+            proc.kill()
+            proc.communicate()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        self._jobs = {}
+
+
+def start(sources) -> Build:
+    """Start one ``nvcc`` for every source whose library is missing, all
+    together, and return without waiting for them."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for source in map(Path, sources):
@@ -65,18 +97,14 @@ def build(sources) -> dict:
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs[source] = (proc, tmp, target)
-    logs, failed = {}, []
-    for source, (proc, tmp, target) in jobs.items():
-        logs[source] = proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append(source)
-            os.unlink(tmp)
-        else:
-            os.replace(tmp, target)
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(
-            f"--- {s}\n{logs[s]}" for s in failed))
-    return logs
+    return Build(jobs)
+
+
+def build(sources) -> dict:
+    """Compile every source whose library is missing, one ``nvcc`` each, all
+    started together (:func:`start`), and wait for them
+    (:meth:`Build.wait`)."""
+    return start(sources).wait()
 
 
 @functools.lru_cache(maxsize=None)

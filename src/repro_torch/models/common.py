@@ -5,7 +5,11 @@ nested-dict parameter trees with the same keys and nesting as the JAX
 package's, so ``repro_torch.convert.params_from_numpy`` carries JAX
 parameters across leaf by leaf.  Initializers draw from an explicit
 ``torch.Generator`` (the JAX package's ``KeyGen``): the distributions match
-the JAX ones, the values do not.
+the JAX ones, the values do not.  On the ``meta`` device, which has no
+generator, ``make_generator`` gives a ``MetaGenerator`` and the
+initializers make shape-only tensors without drawing: ``init_params(cfg,
+0, "meta")`` is the tree's shapes and dtypes (the counterpart of the
+reference's ``jax.eval_shape`` of its init).
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch.nn.functional as F
 
 __all__ = ["dense_init", "embed_init", "zeros_init", "ones_init", "rms_norm",
            "layer_norm", "apply_rope", "rope_angles", "softcap", "gelu",
-           "make_generator", "resolve_device"]
+           "make_generator", "resolve_device", "MetaGenerator"]
 
 
 def resolve_device(device) -> torch.device:
@@ -36,11 +40,20 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+class MetaGenerator:
+    """The stand-in generator of a shape-only init: it has a device and
+    draws nothing."""
+    device = torch.device("meta")
+
+
 def make_generator(seed_or_generator, device) -> torch.Generator:
     """A ``torch.Generator`` on ``device``: an int seeds a new one, a
-    generator passes through (it must live on ``device``)."""
+    generator passes through (it must live on ``device``).  On the meta
+    device, a ``MetaGenerator``."""
     if isinstance(seed_or_generator, torch.Generator):
         return seed_or_generator
+    if torch.device(device).type == "meta":
+        return MetaGenerator()
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed_or_generator))
     return gen
@@ -53,6 +66,8 @@ def dense_init(gen: torch.Generator, shape, dtype=torch.float32,
     shape = tuple(shape)
     fan_in = shape[0] if len(shape) >= 2 else max(shape[0], 1)
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    if isinstance(gen, MetaGenerator):
+        return torch.empty(shape, dtype=dtype, device="meta")
     out = torch.empty(shape, dtype=torch.float32, device=device or gen.device)
     torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (out * std).to(dtype)
@@ -60,6 +75,8 @@ def dense_init(gen: torch.Generator, shape, dtype=torch.float32,
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int,
                dtype=torch.float32, device=None):
+    if isinstance(gen, MetaGenerator):
+        return torch.empty((vocab, dim), dtype=dtype, device="meta")
     out = torch.randn((vocab, dim), generator=gen, dtype=torch.float32,
                       device=device or gen.device)
     return (out * (1.0 / math.sqrt(dim))).to(dtype)

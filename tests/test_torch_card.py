@@ -1563,3 +1563,137 @@ def test_device_sampled_training_on_card_matches_cpu_and_resumes(
     for a, b in zip(checkpoint.flatten_with_paths(res["final_state"]),
                     checkpoint.flatten_with_paths(full["final_state"])):
         assert torch.equal(a[1], b[1]), a[0]
+
+
+# ---------------------------------------------------------------------------
+# the launch tools, the last two examples and the serving bench
+# ---------------------------------------------------------------------------
+
+def _load_example(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_the_card_has_its_row_of_rates(cuda_device):
+    from repro_torch.launch import roofline
+    # the H100 SXM has its row; another card raises by its name
+    name = torch.cuda.get_device_properties(cuda_device).name
+    if name != "NVIDIA H100 80GB HBM3":
+        with pytest.raises(ValueError, match=name):
+            roofline.HW.from_device(cuda_device)
+        return
+    assert roofline.HW.from_device(cuda_device) == roofline.HW()
+
+
+@pytest.mark.parametrize("b,single", [(1, False), (3, True)])
+def test_logreg_example_setting_on_card_matches_cpu(cuda_device, b, single):
+    ex = _load_example("torch_decentralized_logreg")
+    ops.launches = 0
+    card = ex.run_setting("mnist_like", 8, b, 0.01, 0.2, 9, 0.02,
+                          single=single, device=cuda_device)
+    launches = ops.launches
+    cpu = ex.run_setting("mnist_like", 8, b, 0.01, 0.2, 9, 0.02,
+                         single=single, device="cpu")
+    steps = 0
+    for got, want in zip(card, cpu):
+        np.testing.assert_array_equal(got.comm_rounds, want.comm_rounds)
+        np.testing.assert_allclose(got.objective, want.objective,
+                                   rtol=HISTORY_RTOL, atol=HISTORY_ATOL)
+        np.testing.assert_allclose(got.consensus, want.consensus, rtol=1e-3,
+                                   atol=1e-6)
+        steps += int(got.steps[-1])
+    assert launches == steps          # kernel="auto": one fused step a step
+
+
+def test_batching_example_on_card_equals_cpu(cuda_device):
+    ex = _load_example("torch_continuous_batching")
+    cfg = configs.smoke_variant(configs.get_config("gemma2-9b"))
+    params = transformer.init_params(cfg, 0, "cpu")
+    argv = ["--arch", "gemma2-9b", "--requests", "5"]
+    fa_ops.launches = rn_ops.launches = 0
+    card = ex.main(argv + ["--device", "cuda"], params=pytree.tree_map(
+        lambda t: t.to(cuda_device), params))
+    assert fa_ops.launches == 5 * cfg.num_layers and rn_ops.launches > 0
+    cpu = ex.main(argv + ["--device", "cpu"], params=params)
+    assert sorted(card) == sorted(cpu) == list(range(5))
+    for uid in card:
+        np.testing.assert_array_equal(card[uid], cpu[uid])
+
+
+def test_serve_bench_on_card(cuda_device):
+    from benchmarks import pt_serve_bench
+    rn_ops.launches = fa_ops.launches = 0
+    ss = pt_serve_bench.serve_stats(cuda_device, iters=1)
+    assert ss["outputs_equal"] and ss["device"].startswith("cuda")
+    assert ss["transfers"]["resident"][0] == 24
+    assert rn_ops.launches > 0 and fa_ops.launches > 0
+
+
+def test_inspect_trace_counts_the_card_kernels(cuda_device, tmp_path):
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                schedule)
+    from repro_torch.launch import inspect_trace
+    cfg = configs.smoke_variant(configs.get_config("h2o-danube-1.8b")).scaled(
+        use_flash=True, use_fused_norm=True)
+    params = transformer.init_params(cfg, 0, cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda_device)
+    logits, cache = transformer.prefill(cfg, params, toks, max_len=48)
+    nxt = torch.argmax(logits, -1).to(torch.int32)
+    torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    # a warm-up cycle first, as chip_smoke.py's phase 29 records: the
+    # first kernels of a trace can be lost while the device tracing starts
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True,
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(str(path))
+                 ) as prof:
+        for _ in range(2):
+            rn_ops.launches = fa_ops.launches = 0
+            with record_function("card.prefill"):
+                transformer.prefill(cfg, params, toks, max_len=48)
+            with record_function("card.decode"):
+                transformer.decode_step(cfg, params, cache, nxt)
+            torch.cuda.synchronize()
+            prof.step()
+    res = inspect_trace.analyze(str(path), top=1000)
+    assert res["source"] == "kernels"
+    rows = res["all_kernels"]
+    flash = [r for r in rows if "flash_fwd" in r["name"]]
+    norm = [r for r in rows if "rmsnorm" in r["name"]]
+    assert sum(r["count"] for r in flash) == fa_ops.launches == \
+        cfg.num_layers
+    assert sum(r["count"] for r in norm) == rn_ops.launches == \
+        2 * (2 * cfg.num_layers + 1)
+    assert {r["scope"] for r in flash} == {"card.prefill"}
+    assert {r["scope"] for r in norm} == {"card.prefill", "card.decode"}
+
+
+def test_centralized_prox_gd_replayed_equals_eager_on_card(cuda_device,
+                                                           monkeypatch):
+    # F(x*)'s loop replayed from a CUDA graph: the eager loop's iterate and
+    # objectives bit for bit (the same kernels), and the CPU's within the
+    # card-vs-CPU tolerance of whole runs
+    from repro_torch.core import dpsvrg
+
+    def run(device):
+        _, flat, h, _, d = pt_common.setup_problem("mnist_like", 0.05,
+                                                   device=device)
+        x, hist = dpsvrg.centralized_prox_gd(
+            pt_common.logreg_loss, h, torch.zeros(d, device=device), flat,
+            0.4, 200)
+        return x.cpu(), hist
+
+    x, hist = run(cuda_device)
+    monkeypatch.setattr(runner, "CUDA_GRAPHS", False)
+    x_eager, hist_eager = run(cuda_device)
+    x_cpu, hist_cpu = run("cpu")
+    assert hist.shape == (200,) and np.all(np.isfinite(hist))
+    assert torch.equal(x, x_eager)
+    np.testing.assert_array_equal(hist, hist_eager)
+    np.testing.assert_allclose(hist, hist_cpu, rtol=1e-4, atol=1e-6)

@@ -1,4 +1,4 @@
-"""The port's runner bench: the one-device part of
+"""The port's runner bench: the counterpart of
 ``benchmarks/runner_bench.py``.
 
     python -m benchmarks.pt_runner_bench [--device cuda|cpu] [--scale S]
@@ -17,9 +17,12 @@ Times the same algorithms on the paper's logistic regression (adult_like at
   each other (objective rtol 1e-4 / atol 1e-6, consensus rtol 1e-3), and
   the device-sampled run to the host-sampled one's envelope (final
   objectives within a third of the descent);
-* ``backends``: DPSVRG (k_max = 2) on the 8-node b=1 ring through each
-  one-device transport, dense, banded and compressed, resident: ms a step
-  and wire bytes a step from the transport's own ``bytes_per_step``;
+* ``backends``: DPSVRG (k_max = 2) on the 8-node b=1 ring through the
+  dense, banded and compressed transports, resident: ms a step and wire
+  bytes a step from the transport's own ``bytes_per_step``; and through
+  ``ppermute`` on 4 ranks (one node a rank, so the 4-node b=1 ring, as
+  the reference times it on a 4-device mesh), its 8-ring bytes from the
+  banded accounting it shares;
 * ``graphs``: DPSVRG with one record a round (``record_every=0``), its
   growing rounds cut into power-of-two pieces: the pieces (CUDA graphs on
   the card) the scan path builds (``runner.scan_executable_count``) and a
@@ -29,11 +32,22 @@ Times the same algorithms on the paper's logistic regression (adult_like at
   and with device sampling; asserts the trainer's ledger and holds the
   host and resident losses to each other (rtol 1e-4 / atol 1e-5).
 
-Left out, and named so in the output: the ``ppermute`` transport and the
-sharded rows (``shard_stats``) of the reference's bench, multi-device work
-(ROADMAP Queue 1 item 14).  ``--json`` MERGES the stats as a ``"runner"``
-section into PATH (default ``BENCH_torch.json``).  Runs on the CUDA device
-unless given ``--device cpu``; without a card it raises.
+* ``shard_stats``: on 4 ranks, the 8-cell λ × seed DPSVRG sweep with its
+  cells split over the ranks (``shard="cells"``) against the same sweep
+  batched on one rank, a 32-node resident DSPG run with its node axis
+  split (``shard="nodes"``, 8 rows a rank) against the unsharded run, and
+  the ``compressed(ppermute)`` wire figures (per-link maps summing exactly
+  to ``bytes_per_step`` at 4 and 3 bits, and a sharded run's bytes equal
+  to the unsharded ``compressed(dense)`` run's).  Histories are held at
+  rtol 1e-4 / atol 1e-6.
+
+The ranks (``core.spmd.spawn``) run over gloo on the CPU and on one card
+(host-staged between ranks that share it), over NCCL with a card a rank
+(``spmd.backend_for``); ``wire`` names it.  With ranks sharing one card, their
+ms a step measure time-slicing and host staging, not a speed-up.
+``--json`` MERGES the stats as a ``"runner"`` section into PATH (default
+``BENCH_torch.json``).  Runs on the CUDA device unless given ``--device
+cpu``; without a card it raises.
 """
 
 from __future__ import annotations
@@ -41,23 +55,27 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import time
 
 import numpy as np
 import torch
 
 from . import pt_common as common
 from repro_torch.core import algorithm, dpsvrg, graphs, prox, runner, \
-    schedules
+    schedules, spmd, sweep, transport
 from repro_torch.core.exec_spec import ExecSpec
 
 DSPG_STEPS = 600
 DSPG_RECORD = 100
 TRAIN_STEPS = 300
 ITERS = 3          # timed runs a row, after one warm-up; the best counts
-LEFT_OUT = {
-    "ppermute": "multi-device transport (ROADMAP Queue 1 item 14)",
-    "shard_stats": "sharded cells and nodes (ROADMAP Queue 1 item 14)",
-}
+LEFT_OUT: dict = {}
+MESH_RANKS = 4
+MESH_TIMEOUT = 600.0
+SWEEP_GRID = {"lam": [0.001, 0.003, 0.01, 0.1], "seed": [0, 1]}
+NODES_PER_RANK = 8
+SHARD_DSPG_STEPS = 200
+HIST_TOL = dict(rtol=1e-4, atol=1e-6)
 PATHS = {
     "host": dict(),
     "scan": dict(scan=True),
@@ -163,10 +181,217 @@ def backend_stats(scale: float = 0.02, device="cuda"):
                        "objective_last": float(res.history.objective[-1])}
     np.testing.assert_allclose(stats["banded"]["objective_last"],
                                stats["dense"]["objective_last"], rtol=1e-4)
-    stats["ppermute"] = {"ms_per_step": None, "left_out":
-                         LEFT_OUT["ppermute"]}
     return {"schedule": "ring8_b1", "algorithm": "dpsvrg_kmax2",
             "param_dim": d, "scale": scale, "backends": stats}
+
+
+# ---------------------------------------------------------------------------
+# Rows across ranks: ppermute, shard="cells", shard="nodes"
+# ---------------------------------------------------------------------------
+
+def _sweep_build(scale, device):
+    data, _, _, x0, _ = common.setup_problem("adult_like", scale,
+                                             device=device)
+    hp = dpsvrg.DPSVRGHyperParams(alpha=0.2, beta=1.2, n0=4, num_outer=8,
+                                  k_max=2)
+
+    def build(lam=0.01):
+        problem = algorithm.Problem(common.logreg_loss, prox.l1(lam), x0,
+                                    data)
+        return algorithm.dpsvrg_algorithm(problem, hp), problem
+
+    return build
+
+
+def _shard_dspg(problem):
+    return algorithm.dspg_algorithm(
+        problem, dpsvrg.DSPGHyperParams(alpha0=0.2),
+        num_steps=SHARD_DSPG_STEPS)
+
+
+def _timed_sweep(build, sched, spec, device, iters: int) -> float:
+    sweep.run_sweep(build, SWEEP_GRID, sched, spec, record_every=0)
+    common.sync(device)
+    best = float("inf")
+    for _ in range(iters):
+        _, us = common.timed(lambda: sweep.run_sweep(
+            build, SWEEP_GRID, sched, spec, record_every=0), device)
+        best = min(best, us)
+    return best
+
+
+def _history(res) -> dict:
+    return {"objective": np.asarray(res.history.objective),
+            "steps": np.asarray(res.history.steps),
+            "wire_bytes": np.asarray(res.extras["wire_bytes"]),
+            "transfers": _ledger(res), "wire": res.extras.get("wire")}
+
+
+def mesh_rank_rows(scale: float, device: str, iters: int) -> dict:
+    """The rows across ranks, run on one rank of a group (every rank runs
+    the same; ``spmd.spawn`` starts them), each timed as the best of
+    ``iters`` runs after a warm-up."""
+    world = spmd.dist.get_world_size()
+    out = {}
+    # ppermute: one node a rank, DPSVRG (k_max = 2) on the world-node ring
+    data, _, h, x0, _ = common.setup_problem("adult_like", scale, m=world,
+                                             device=device)
+    p4 = spmd.local_problem(algorithm.Problem(common.logreg_loss, h, x0,
+                                              data))
+    ring = graphs.b_connected_ring_schedule(world, b=1, seed=0)
+    spec = dict(resident=True, gossip="ppermute", device=device)
+    us = common._time_run(_dpsvrg(p4, 8, 2), p4, ring, record_every=0,
+                          iters=iters, **spec)
+    res = runner.run(_dpsvrg(p4, 8, 2), p4, ring, ExecSpec(**spec), seed=0,
+                     record_every=0)
+    out["ppermute"] = dict(_history(res), us=us)
+    # shard="cells": the 8-cell sweep, 8 / world cells a rank
+    sched = graphs.b_connected_ring_schedule(8, b=1, seed=0)
+    cells = ExecSpec(resident=True, gossip="dense", shard="cells",
+                     device=device)
+    build = _sweep_build(scale, device)
+    us = _timed_sweep(build, sched, cells, device, iters)
+    res = sweep.run_sweep(build, SWEEP_GRID, sched, cells, record_every=0)
+    out["cells"] = dict(_history(res), us=us)
+    # shard="nodes": NODES_PER_RANK rows a rank
+    m = NODES_PER_RANK * world
+    data, _, h, x0, _ = common.setup_problem("adult_like", scale, m=m,
+                                             device=device)
+    pm = spmd.local_problem(algorithm.Problem(common.logreg_loss, h, x0,
+                                              data))
+    ring_m = graphs.b_connected_ring_schedule(m, b=1, seed=0)
+    spec = dict(resident=True, gossip="dense", shard="nodes", device=device)
+    us = common._time_run(_shard_dspg(pm), pm, ring_m, record_every=50,
+                          iters=iters, **spec)
+    res = runner.run(_shard_dspg(pm), pm, ring_m, ExecSpec(**spec), seed=0,
+                     record_every=50)
+    out["nodes"] = dict(_history(res), us=us, m=m)
+    # compressed(ppermute): per-link maps, and a sharded run's bytes
+    algo = algorithm.loopless_dpsvrg_algorithm(p4, 0.2, 100,
+                                               snapshot_prob=0.1)
+    pc = transport.node_param_count(p4.x0)
+    links = {}
+    for bits in (4, 3):
+        be = transport.CompressedBackend(inner="ppermute", bits=bits)
+        aux = be.prepare(ring, algo.meta)
+        phi = be.phi_for(aux, algo.meta.slot_start, 2)
+        links[f"bits{bits}"] = {
+            "bytes_per_step": int(be.bytes_per_step(aux, phi, pc)),
+            "link_sum": int(sum(be.bytes_per_link(aux, phi, pc).values())),
+            "links": len(be.bytes_per_link(aux, phi, pc))}
+    res = runner.run(algo, p4, ring, ExecSpec(
+        resident=True, shard="nodes", device=device,
+        gossip=transport.CompressedBackend(inner="ppermute", bits=4)),
+        seed=0, record_every=25)
+    out["compressed_ppermute"] = dict(_history(res), links=links)
+    return out
+
+
+def mesh_stats(scale: float = 0.02, device="cuda") -> dict:
+    """Run the rows across ``MESH_RANKS`` ranks and hold each to its
+    unsharded twin on this process's device."""
+    device = common.require_device(device)
+    kind = device.type
+    t0 = time.perf_counter()
+    ranks = spmd.spawn(mesh_rank_rows, MESH_RANKS,
+                       backend=spmd.backend_for(device, MESH_RANKS),
+                       device=kind,
+                       args=(scale, kind, ITERS), timeout=MESH_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    r = ranks[0]
+    for other in ranks[1:]:
+        for key in ("ppermute", "cells", "nodes", "compressed_ppermute"):
+            np.testing.assert_array_equal(other[key]["objective"],
+                                          r[key]["objective"])
+    world = MESH_RANKS
+    # the unsharded twins
+    data, _, h, x0, _ = common.setup_problem("adult_like", scale, m=world,
+                                             device=device)
+    p4 = algorithm.Problem(common.logreg_loss, h, x0, data)
+    ring = graphs.b_connected_ring_schedule(world, b=1, seed=0)
+    twin = runner.run(_dpsvrg(p4, 8, 2), p4, ring, ExecSpec(
+        resident=True, gossip="dense", device=str(device)), seed=0,
+        record_every=0)
+    np.testing.assert_allclose(r["ppermute"]["objective"],
+                               twin.history.objective, **HIST_TOL)
+    steps = int(r["ppermute"]["steps"][-1])
+    ppermute = {
+        "ms_per_step": r["ppermute"]["us"] / 1e3 / steps,
+        "timed_on": f"ring{world}", "ranks": world,
+        "wire": r["ppermute"]["wire"],
+        "ring4_wire_bytes_per_step": int(r["ppermute"]["wire_bytes"][-1])
+        / steps,
+        "dense_ring4_wire_bytes_per_step":
+            int(twin.extras["wire_bytes"][-1]) / steps,
+        "transfers": r["ppermute"]["transfers"],
+        "history_max_abs_diff": float(np.max(np.abs(
+            r["ppermute"]["objective"] - twin.history.objective)))}
+
+    sched = graphs.b_connected_ring_schedule(8, b=1, seed=0)
+    build = _sweep_build(scale, device)
+    base = ExecSpec(resident=True, gossip="dense", device=str(device))
+    us_plain = _timed_sweep(build, sched, base, device, ITERS)
+    plain = sweep.run_sweep(build, SWEEP_GRID, sched, base, record_every=0)
+    np.testing.assert_allclose(r["cells"]["objective"],
+                               plain.history.objective, **HIST_TOL)
+    np.testing.assert_array_equal(r["cells"]["wire_bytes"],
+                                  plain.extras["wire_bytes"])
+    cells_n = len(plain.grid)
+    cell_steps = int(plain.history.steps[-1, 0])
+
+    m = NODES_PER_RANK * world
+    data, _, h, x0, _ = common.setup_problem("adult_like", scale, m=m,
+                                             device=device)
+    pm = algorithm.Problem(common.logreg_loss, h, x0, data)
+    ring_m = graphs.b_connected_ring_schedule(m, b=1, seed=0)
+    spec = dict(resident=True, gossip="dense", device=str(device))
+    us_nodes_plain = common._time_run(_shard_dspg(pm), pm, ring_m,
+                                      record_every=50, iters=ITERS, **spec)
+    nodes_plain = runner.run(_shard_dspg(pm), pm, ring_m, ExecSpec(**spec),
+                             seed=0, record_every=50)
+    np.testing.assert_allclose(r["nodes"]["objective"],
+                               nodes_plain.history.objective, **HIST_TOL)
+    np.testing.assert_array_equal(r["nodes"]["wire_bytes"],
+                                  nodes_plain.extras["wire_bytes"])
+
+    cp = r["compressed_ppermute"]
+    loopless = algorithm.loopless_dpsvrg_algorithm(p4, 0.2, 100,
+                                                   snapshot_prob=0.1)
+    cdense = runner.run(loopless, p4, ring, ExecSpec(
+        resident=True, device=str(device),
+        gossip=transport.CompressedBackend(inner="dense", bits=4)),
+        seed=0, record_every=25)
+    for entry in cp["links"].values():
+        assert entry["link_sum"] == entry["bytes_per_step"], cp["links"]
+    for key in ("ppermute", "cells", "nodes", "compressed_ppermute"):
+        assert r[key]["transfers"] == [1, 1], (key, r[key]["transfers"])
+    shard = {
+        "ranks": world, "wire": r["cells"]["wire"], "spawn_s": spawn_s,
+        "cells_sweep8": {
+            "cells": cells_n, "steps_per_cell": cell_steps,
+            "batched_ms_per_step_per_cell":
+                us_plain / 1e3 / (cell_steps * cells_n),
+            "sharded_ms_per_step_per_cell":
+                r["cells"]["us"] / 1e3 / (cell_steps * cells_n),
+            "transfers": r["cells"]["transfers"],
+            "history_max_abs_diff": float(np.max(np.abs(
+                r["cells"]["objective"] - plain.history.objective)))},
+        "nodes_dspg": {
+            "m": m, "rows_per_rank": NODES_PER_RANK,
+            "steps": SHARD_DSPG_STEPS,
+            "unsharded_ms_per_step": us_nodes_plain / 1e3
+            / SHARD_DSPG_STEPS,
+            "sharded_ms_per_step": r["nodes"]["us"] / 1e3
+            / SHARD_DSPG_STEPS,
+            "transfers": r["nodes"]["transfers"],
+            "history_max_abs_diff": float(np.max(np.abs(
+                r["nodes"]["objective"] - nodes_plain.history.objective)))},
+        "compressed_ppermute": dict(cp["links"], wire_bytes_equal=bool(
+            np.array_equal(cp["wire_bytes"], cdense.extras["wire_bytes"])),
+            sharded_vs_dense_max_abs_diff=float(np.max(np.abs(
+                cp["objective"] - cdense.history.objective))))}
+    assert shard["compressed_ppermute"]["wire_bytes_equal"], cp
+    return {"ppermute": ppermute, "shard_stats": shard}
 
 
 def graph_stats(scale: float = 0.02, device="cuda") -> dict:
@@ -268,6 +493,13 @@ def runner_stats(scale: float = 0.02, device="cuda") -> dict:
     out = {"device": str(device)}
     out["resident"] = resident_stats(scale, device)
     out.update(backend_stats(scale, device))
+    mesh = mesh_stats(scale, device)
+    ppermute = mesh["ppermute"]
+    # the 8-ring's bytes: ppermute shares banded's accounting
+    ppermute["wire_bytes_per_step"] = \
+        out["backends"]["banded"]["wire_bytes_per_step"]
+    out["backends"]["ppermute"] = ppermute
+    out["shard_stats"] = mesh["shard_stats"]
     out["graphs"] = graph_stats(scale, device)
     out["train"] = train_stats(device)
     out["left_out"] = dict(LEFT_OUT)
@@ -289,11 +521,12 @@ def run(scale: float = 0.02, device="cuda"):
                 f"h2d/d2h={r['transfers'][path]}", r))
     for name, entry in st["backends"].items():
         ms = entry["ms_per_step"]
-        derived = (f"not run: {entry['left_out']}" if ms is None else
-                   f"ms/step={ms:.4f} wire_bytes/step="
+        derived = (f"ms/step={ms:.4f} wire_bytes/step="
                    f"{entry['wire_bytes_per_step']:.0f}")
-        rows.append(common.Row(f"runner/backend_{name}",
-                               0.0 if ms is None else ms * 1e3, derived,
+        if name == "ppermute":
+            derived += (f" (timed on {entry['timed_on']}, "
+                        f"{entry['ranks']} ranks, wire={entry['wire']})")
+        rows.append(common.Row(f"runner/backend_{name}", ms * 1e3, derived,
                                entry))
     g = st["graphs"]
     rows.append(common.Row(
@@ -307,8 +540,20 @@ def run(scale: float = 0.02, device="cuda"):
             f"trainer/lm_{path}_{t['steps']}steps",
             t[f"{path}_ms_per_step"] * t["steps"] * 1e3,
             f"ms/step={t[f'{path}_ms_per_step']:.4f}", t))
-    rows.append(common.Row("runner/shard_stats", 0.0,
-                           f"not run: {LEFT_OUT['shard_stats']}"))
+    sh = st["shard_stats"]
+    c, nd = sh["cells_sweep8"], sh["nodes_dspg"]
+    rows.append(common.Row(
+        "runner/shard_cells_sweep8",
+        c["sharded_ms_per_step_per_cell"] * 1e3,
+        f"ms/step/cell sharded={c['sharded_ms_per_step_per_cell']:.4f} "
+        f"batched={c['batched_ms_per_step_per_cell']:.4f} "
+        f"ranks={sh['ranks']} wire={sh['wire']}", c))
+    rows.append(common.Row(
+        f"runner/shard_nodes_dspg{nd['m']}",
+        nd["sharded_ms_per_step"] * nd["steps"] * 1e3,
+        f"ms/step sharded={nd['sharded_ms_per_step']:.4f} "
+        f"unsharded={nd['unsharded_ms_per_step']:.4f} "
+        f"ranks={sh['ranks']} wire={sh['wire']}", nd))
     return rows
 
 

@@ -222,8 +222,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     last-bit difference at a routing near-tie moves a token to another
     expert) (``maverick_serve``);
 24. trains scout's smoke variant at 4 layers on the card with the aux in
-    the loss (m = 4, resident): each step held to the CPU's step from the
-    same state, two runs bit for bit equal, a resume from step 6 bitwise
+    the loss (m = 4, resident): its first 6 steps held to the CPU's step
+    from the same state, two runs bit for bit equal, a resume from step 6
+    bitwise
     (``moe_train``); then the same for xlstm-350m's smoke variant at 2
     layers, an mLSTM and an sLSTM block (``xlstm_train``);
 25. serves xlstm-350m at full width and depth (24 mLSTM / sLSTM blocks,
@@ -290,7 +291,24 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     CPU's on the same weights, flash and RMSNorm launched) and
     ``benchmarks/pt_serve_bench.py`` (host and engine tokens equal, the
     ledger O(1) a chunk);
-30. prints the card, a ``{"kernels": [...]}`` line (all seven kernels,
+30. (run right after phase 19) the decentralized path across ranks
+    (``benchmarks/pt_mesh.py``, ``mesh`` line): 4 ranks started by
+    ``core.spmd.spawn`` (over gloo, staged through host buffers, as they
+    share the card; over NCCL with 4 cards) run ``cifar10_like`` at scale
+    1.0 with the paper's hyper-parameters, DPSVRG cut to 10 outer rounds:
+    m = 8 with ``shard="nodes"`` (DPSVRG over dense, DSPG over banded, two
+    rows a rank), m = 4 over ``ppermute`` (single-consensus DPSVRG, whose
+    offsets {0, +1, -1} put each row's mix and prox through mix_prox, and
+    DSPG) and ``compressed(ppermute)`` at int8 over 12 steps, and Fig. 1's
+    4-seed sweep with ``shard="cells"``; each history and iterate is held
+    to the same run unsharded on the card at rtol 1e-4 / atol 1e-6, the
+    wire bytes exactly, the ledger (1, 1) a rank, the svrg_step, mix_prox
+    and cell-batched fused_step launches counted against the steps, both
+    kernels held to their plain versions on a rank's rows, and, over
+    NCCL, two DSPG steps over ppermute traced and read by
+    ``launch.roofline.collective_bytes`` (``mesh_trace_events``: the
+    trace's ``record_param_comms`` events);
+31. prints the card, a ``{"kernels": [...]}`` line (all seven kernels,
     each with its ``share_of_bound``; RMSNorm and flash also with
     ``launches_consensus_serve``, phase 16's count,
     ``launches_{stablelm,scout,maverick,xlstm,jamba,whisper,llava}_serve``,
@@ -300,10 +318,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     fused_step_cells with ``launches_scenarios``, phase 17's cell-batched
     count, and fused_step with the single launches of phase 17's
     sequential runs; fused_step and fused_step_cells with
-    ``launches_exec_modes``, phase 19's counts),
+    ``launches_exec_modes``, phase 19's counts; svrg_step, mix_prox and
+    fused_step_cells with ``launches_mesh``, phase 30's on rank 0),
     and last ``{"ok": true, "device": {...}}``.  (Until phase 21 came,
     these final lines were phase 20; until phase 25, phase 25; until
-    phase 27, phase 27; until phase 29, phase 29.)
+    phase 27, phase 27; until phase 29, phase 29; until phase 30, phase
+    30.)
 
 Needs one card; exits non-zero without one, and without the repository
 around it.
@@ -358,7 +378,7 @@ from repro_torch.serve.scheduler import (ContinuousBatcher,  # noqa: E402
                                          Request, modality_inputs)
 from repro_torch.train import steps, trainer  # noqa: E402
 from benchmarks import pt_common, pt_kernel_bench  # noqa: E402
-from benchmarks import pt_serve_bench  # noqa: E402
+from benchmarks import pt_mesh, pt_serve_bench  # noqa: E402
 
 # the card's rates from the package's one table (launch/roofline.py's HW,
 # NVIDIA's H100 SXM data sheet, dense): device memory, and peak operation
@@ -3452,6 +3472,73 @@ def exec_modes_phase(parts, dim: int, device="cuda", scale=FIG_SCALE,
 
 
 # ---------------------------------------------------------------------------
+# phase 30: the decentralized path across ranks (benchmarks/pt_mesh)
+# ---------------------------------------------------------------------------
+
+MESH_OUTER = pt_mesh.OUTER
+# the sharded runs on offsets {0, +1, -1} with the l1 prox: each row's mix
+# and prox through mix_prox, once a step and row (the dense transport
+# mixes through its matrix, and the int8 run threads a mix state)
+MESH_MIX_PROX_RUNS = ("nodes_banded_dspg", "ppermute_dpsvrg",
+                      "ppermute_dspg")
+
+
+def mesh_phase(device="cuda", scale: float = FIG_SCALE,
+               outer: int = MESH_OUTER) -> dict:
+    """Phase 30: ``benchmarks/pt_mesh.run`` (4 ranks: shard="nodes" at m =
+    8, ppermute and compressed(ppermute) at m = 4, Fig. 1's sweep with
+    shard="cells"), each held to its unsharded run on this process's
+    device.  On the card, every rank's launch counts are set to 0 before
+    each run and read after it: svrg_step once a step of every sharded
+    DPSVRG run, mix_prox once a step and row of MESH_MIX_PROX_RUNS (DSPG
+    over banded and ppermute, single-consensus DPSVRG over ppermute) and
+    of no other, the cell-batched fused_step once a step of a rank's cell;
+    the wire
+    must be the backend's (``gloo-host-staged`` for ranks sharing a card,
+    ``nccl`` with a card a rank).  Returns the phase's summary with the
+    launches of rank 0.  Rehearse it on the CPU with ``device="cpu"`` and a
+    small ``scale`` (the counts are 0 off the card)."""
+    t0 = time.perf_counter()
+    summary = pt_mesh.run(device, scale, outer)
+    runs = summary["runs"]
+    if torch.device(device).type == "cuda":
+        wire = ("nccl" if summary["backend"] == "nccl"
+                else "gloo-host-staged")
+        for name, row in runs.items():
+            if row["wire"] != wire:
+                fail(f"mesh {name}: wire {row['wire']}, want {wire}")
+        for name, row in runs.items():
+            got = row["launches"]
+            svrg = got["launches_svrg_step"]
+            mix = got["launches_mix_prox"]
+            want_svrg = row["steps"] if name in ("nodes_dense_dpsvrg",
+                                                 "ppermute_dpsvrg") else 0
+            want_mix = (row["steps"] * row["rows_per_rank"]
+                        if name in MESH_MIX_PROX_RUNS else 0)
+            want_cells = row["steps"] if name == "cells_fig1" else 0
+            if (svrg, mix, got["launches_cells"]) != \
+                    (want_svrg, want_mix, want_cells):
+                fail(f"mesh {name}: launches svrg_step {svrg}, mix_prox "
+                     f"{mix}, fused_step_cells {got['launches_cells']}; "
+                     f"want {want_svrg}, {want_mix}, {want_cells}")
+        errs = summary["kernels_vs_plain"]
+        if max(errs.values()) != 0.0:
+            fail(f"mesh: svrg_step / mix_prox differ from their plain "
+                 f"versions on a rank's rows: {errs}")
+    summary["phase_s"] = time.perf_counter() - t0
+    sample = summary.pop("trace_sample")
+    print("mesh " + json.dumps(summary), flush=True)
+    if sample:
+        print("mesh_trace_events " + json.dumps(sample)[:4000], flush=True)
+    return {"summary": summary, "launches": {
+        "svrg_step": sum(r["launches"]["launches_svrg_step"]
+                         for r in runs.values()),
+        "mix_prox": sum(r["launches"]["launches_mix_prox"]
+                        for r in runs.values()),
+        "fused_step_cells": runs["cells_fig1"]["launches"]["launches_cells"]}}
+
+
+# ---------------------------------------------------------------------------
 # phases 21-24: stablelm-12b and the llama4 MoE configs at full width, and
 # MoE training at smoke size
 # ---------------------------------------------------------------------------
@@ -4855,6 +4942,14 @@ def main() -> None:
     print(f"phase 19 (exec modes): {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    # phase 30: the decentralized path across ranks, the kernels built
+    # above (no rank builds)
+    _free_card()
+    t0 = time.perf_counter()
+    mesh = mesh_phase(device)
+    print(f"phase 30 (mesh): {time.perf_counter() - t0:.1f} s ({card})",
+          flush=True)
+
     # phases 21-23: stablelm-12b, llama4-scout and llama4-maverick served at
     # full width; phase 24: MoE training at smoke size
     served = {}
@@ -4959,6 +5054,9 @@ def main() -> None:
                 scen["launches"]["fused_step_cells"]
         if row["name"] in modes["launches"]:
             row["launches_exec_modes"] = modes["launches"][row["name"]]
+        # phase 30: rank 0's launches across its sharded runs
+        if row["name"] in mesh["launches"]:
+            row["launches_mesh"] = mesh["launches"][row["name"]]
         # phases 21-23 serve stablelm-12b (flash float32), llama4-scout
         # (flash float32 on its global layer, RMSNorm) and llama4-maverick
         # (RMSNorm bf16); phases 25-26 xlstm-350m (RMSNorm) and

@@ -32,8 +32,8 @@ from typing import Any, Callable, NamedTuple
 import torch
 from torch.utils import _pytree as pytree
 
-from . import compression, gossip, prox as prox_lib, schedules, svrg, \
-    transport
+from . import compression, gossip, prox as prox_lib, schedules, spmd, \
+    svrg, transport
 from ..kernels.fused_update import ops as fused_ops
 
 __all__ = [
@@ -275,6 +275,12 @@ def build_dvr_inner_step(loss_fn: Callable, prox: prox_lib.Prox, rho: float):
 # * the prox has no ``fused_spec`` (only l1 / sql2 / none lower),
 # * kernel="auto" at per-node sizes where the unfused step wins
 #   (``fused_ops.fused_wins``).
+#
+# On node-sharded state the wire lies between q and the prox, so no single
+# launch covers the step: q on the rank's rows (``svrg_step`` for the svrg
+# rule), the wire, then each row's mix and l1 prox through ``mix_prox``
+# where the offsets are {0, +1, -1} (``_sharded_kernel_step``,
+# ``_sharded_sgd_step``).
 
 def _fused_fallback(mode: str, prox: prox_lib.Prox, phi, cstate, params):
     """-> (dense W or None, fused spec or None); (None, None) = use the
@@ -291,6 +297,129 @@ def _fused_fallback(mode: str, prox: prox_lib.Prox, phi, cstate, params):
     return gossip.as_mix_tensor(w, pytree.tree_leaves(params)[0]), spec
 
 
+def _kernel_route(mode: str, cstate, params) -> bool:
+    """Whether a node-sharded step takes the elementwise kernels:
+    stateless gossip, and for "auto" the per-node sizes where they win.
+    ``kernel="fused"`` where they cannot run raises."""
+    if cstate is not None:
+        if mode == "fused":
+            raise ValueError(
+                "kernel='fused' on a node-sharded run: the svrg_step / "
+                "mix_prox route needs stateless gossip, and this transport "
+                "threads a mix state; use kernel='auto' or 'plain'")
+        return False
+    return mode == "fused" or fused_ops.fused_wins(
+        fused_ops.tree_node_dim(params))
+
+
+def _three_band_weights(phi, rows: slice, like: torch.Tensor):
+    """(w_self, w_up, w_down), each a float32 (rows,) tensor on ``like``'s
+    device, of this rank's ``rows`` when ``phi`` (a ``PermutePhi`` or a
+    ``GatheredPhi`` over a ``BandedPhi``) has only the offsets {0, +1,
+    -1}, else None.  Read from the step's coefficients where they lie (the
+    staged tensors of a resident run): nothing is copied to the host."""
+    banded = phi.inner if isinstance(phi, gossip.GatheredPhi) else phi
+    if not isinstance(banded, (gossip.BandedPhi, gossip.PermutePhi)):
+        return None
+    m = banded.coeffs.shape[-1]
+    if m < 3 or not set(d % m for d in banded.offsets) <= {0, 1, m - 1}:
+        return None
+    coeffs = gossip.as_mix_tensor(banded.coeffs, like)[:, rows]
+    w = {0: None, 1: None, m - 1: None}
+    for b, d in enumerate(banded.offsets):
+        w[d % m] = coeffs[b] if w[d % m] is None else w[d % m] + coeffs[b]
+    return tuple(torch.zeros_like(coeffs[0]) if w[k] is None else w[k]
+                 for k in (0, 1, m - 1))
+
+
+def _mix_prox_plan(prox: prox_lib.Prox, phi, params, alpha,
+                   rho: float | None):
+    """((w_self, w_up, w_down) over this rank's rows, threshold) of the
+    ``mix_prox`` route of a node-sharded step (DVR's damping folded into
+    the weights), or None where it has none: a prox other than l1, or
+    offsets beyond {0, +1, -1}."""
+    spec = prox.fused_spec
+    if spec is None or spec[0] != "l1":
+        return None
+    ax = gossip.phi_node_axis(phi)
+    w = _three_band_weights(phi, ax.rows, pytree.tree_leaves(params)[0])
+    if w is None:
+        return None
+    if rho is not None:
+        ws, wu, wd = w
+        w = ((1.0 - rho) + rho * ws, rho * wu, rho * wd)
+    return w, prox_lib.f32_product(alpha, spec[1])
+
+
+def _mix_prox_rows(phi, q: torch.Tensor, aux, weights, thresh):
+    """The wire, then each row's mix and l1 prox through ``ops.mix_prox``:
+    ``q`` is this rank's (rows, d) buffer; its neighbours' rows come by
+    one point-to-point exchange a band (``PermutePhi``) or an all-gather
+    (``GatheredPhi``)."""
+    ax = gossip.phi_node_axis(phi)
+    if isinstance(phi, gossip.PermutePhi):
+        received = gossip.permute_exchange(phi, [q])[0]
+        by_offset = dict(zip((d % ax.m for d in phi.offsets), received))
+        up, down = by_offset.get(1, q), by_offset.get(ax.m - 1, q)
+    else:
+        full = spmd.all_gather_rows(q, ax)
+        idx = torch.arange(ax.rows.start, ax.rows.stop, device=q.device)
+        up, down = full[(idx + 1) % ax.m], full[(idx - 1) % ax.m]
+    ws, wu, wd = weights
+    out = [fused_ops.mix_prox(q[r].contiguous(), up[r].contiguous(),
+                              down[r].contiguous(), ws[r], wu[r], wd[r],
+                              thresh)
+           for r in range(q.shape[0])]
+    return fused_ops.unflatten_stacked(torch.stack(out), aux)
+
+
+def _sharded_kernel_step(prox: prox_lib.Prox, phi, params, v_parts, alpha,
+                         rho: float | None):
+    """One node-sharded svrg step through the elementwise kernels: ``q = x
+    - alpha (g_now - g_snap + mu)`` over the rank's rows through
+    ``ops.svrg_step``, then the wire; on offsets {0, +1, -1} with an l1
+    prox the mix and the prox of each row through ``ops.mix_prox``, else
+    the plain mix and prox."""
+    rows = pytree.tree_leaves(params)[0].shape[0]
+    x_buf, aux = fused_ops.flatten_stacked(params, rows)
+    g_now, g_snap, mu = (fused_ops.flatten_stacked(t, rows)[0]
+                         for t in v_parts)
+    q = fused_ops.svrg_step(x_buf, g_now, g_snap, mu, alpha)
+    plan = _mix_prox_plan(prox, phi, params, alpha, rho)
+    if plan is not None:
+        return _mix_prox_rows(phi, q, aux, *plan)
+    q_tree = fused_ops.unflatten_stacked(q, aux)
+    mixed = gossip.mix_stacked(phi, q_tree)
+    if rho is not None:
+        mixed = pytree.tree_map(lambda a, b: (1.0 - rho) * a + rho * b,
+                                q_tree, mixed)
+    return prox.apply(mixed, alpha)
+
+
+def _sharded_sgd_step(mode: str, prox: prox_lib.Prox, phi, params, grad,
+                      alpha):
+    """A node-sharded step of the sgd rule (DSPG, DPG) through the kernels,
+    or None for the plain step: ``q = x - alpha g`` on the rank's rows (the
+    plain step's arithmetic), the wire, then each row's mix and l1 prox
+    through ``ops.mix_prox``.  Where that route does not exist (another
+    prox, wider offsets) ``kernel="fused"`` raises; ``grad()`` gives the
+    rank's gradient."""
+    plan = (_mix_prox_plan(prox, phi, params, alpha, None)
+            if _kernel_route(mode, None, params) else None)
+    if plan is None:
+        if mode == "fused":
+            raise ValueError(
+                "kernel='fused' on a node-sharded run of the sgd rule: its "
+                "kernel route is mix_prox after the wire, which needs an "
+                "l1 prox and the offsets {0, +1, -1}; use kernel='auto' or "
+                "'plain' here")
+        return None
+    rows = pytree.tree_leaves(params)[0].shape[0]
+    x_buf, aux = fused_ops.flatten_stacked(params, rows)
+    g_buf = fused_ops.flatten_stacked(grad(), rows)[0]
+    return _mix_prox_rows(phi, x_buf - alpha * g_buf, aux, *plan)
+
+
 def build_fused_svrg_inner(loss_fn: Callable, prox: prox_lib.Prox,
                            mode: str, rho: float | None = None):
     """Fused twin of ``build_dpsvrg_inner_step`` (rho=None) /
@@ -302,6 +431,13 @@ def build_fused_svrg_inner(loss_fn: Callable, prox: prox_lib.Prox,
     node_grad = build_node_grad_fn(loss_fn)
 
     def inner(params, est, batch, phi, alpha, cstate):
+        if gossip.phi_node_axis(phi) is not None:
+            if not _kernel_route(mode, cstate, params):
+                return base(params, est, batch, phi, alpha, cstate)
+            parts = (node_grad(params, batch), node_grad(est.snapshot, batch),
+                     est.full_grad)
+            return _sharded_kernel_step(prox, phi, params, parts, alpha,
+                                        rho), cstate
         w, spec = _fused_fallback(mode, prox, phi, cstate, params)
         if w is None:
             return base(params, est, batch, phi, alpha, cstate)
@@ -321,11 +457,16 @@ def build_fused_svrg_inner(loss_fn: Callable, prox: prox_lib.Prox,
 
 def build_fused_sgd_step(loss_fn: Callable, prox: prox_lib.Prox, mode: str):
     """Fused twin of ``build_dspg_step``: one kernel launch for
-    prox(W @ (x - alpha*g))."""
+    prox(W @ (x - alpha*g)); on node-sharded state ``mix_prox`` after the
+    wire (``_sharded_sgd_step``)."""
     base = build_dspg_step(loss_fn, prox)
     node_grad = build_node_grad_fn(loss_fn)
 
     def step_fn(params, batch, phi, alpha):
+        if gossip.phi_node_axis(phi) is not None:
+            out = _sharded_sgd_step(mode, prox, phi, params,
+                                    lambda: node_grad(params, batch), alpha)
+            return base(params, batch, phi, alpha) if out is None else out
         w, spec = _fused_fallback(mode, prox, phi, None, params)
         if w is None:
             return base(params, batch, phi, alpha)
@@ -605,6 +746,12 @@ def dpg_algorithm(problem: Problem, alpha: float, num_steps: int) -> Algorithm:
 
     def fused_step(mode):
         def fstep(state, batch, phi, alpha):
+            if gossip.phi_node_axis(phi) is not None:
+                out = _sharded_sgd_step(
+                    mode, prox, phi, state.params,
+                    lambda: full_grad_fn(state.params), alpha)
+                return ParamState(_step(state.params, phi, alpha)
+                                  if out is None else out)
             w, spec = _fused_fallback(mode, prox, phi, None, state.params)
             if w is None:
                 return ParamState(_step(state.params, phi, alpha))

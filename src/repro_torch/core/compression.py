@@ -1,5 +1,5 @@
 """Compressed gossip with error feedback: the port of
-``repro.core.compression`` on one device.
+``repro.core.compression``.
 
 Node i transmits an int-quantized view of its iterate and keeps the
 quantization residual in an error-feedback accumulator (CHOCO-SGD style),
@@ -9,14 +9,18 @@ so the compression error is compensated over time instead of accumulating:
     e_next   = (q + e) - q_send  # residual carried forward
     mix over q_send as usual.
 
-The mix over ``q_send`` goes through ``gossip.mix_stacked``, so the
-quantized payload rides either wire format, dense or
-:class:`~repro_torch.core.gossip.BandedPhi`.  :class:`CompressedPhi` marks a
-phi whose transport is compressed (the ``compressed`` backend in
+On one process the mix over ``q_send`` goes through
+``gossip.mix_stacked``, so the quantized payload rides either wire format,
+dense or :class:`~repro_torch.core.gossip.BandedPhi`.  Over node-sharded
+state (:class:`~repro_torch.core.gossip.PermutePhi`,
+:class:`~repro_torch.core.gossip.GatheredPhi`) each rank quantizes its own
+rows BEFORE the wire, ships the integer codes and the per-row scales, and
+dequantizes what it receives (:func:`compressed_mix_permute`,
+:func:`compressed_mix_gathered`): the payload crosses the wire as
+integers, and the residual never leaves its rank.  :class:`CompressedPhi`
+marks a phi whose transport is compressed (the ``compressed`` backend in
 :mod:`repro_torch.core.transport`); :func:`mix_with_state` is the
 dispatching mix for algorithm steps that thread an error-feedback state.
-The reference's quantize-before-the-collective path on a device mesh
-(``compressed_mix_permute``) is multi-device work (ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -26,11 +30,12 @@ from typing import Any, NamedTuple
 import torch
 from torch.utils import _pytree as pytree
 
-from . import gossip
+from . import gossip, spmd
 
 __all__ = ["CompressionState", "init_state", "quantize_leaf",
-           "quantize_int_leaf", "compressed_mix", "CompressedPhi",
-           "mix_with_state", "register_mix_handler"]
+           "quantize_int_leaf", "compressed_mix", "compressed_mix_permute",
+           "compressed_mix_gathered", "CompressedPhi", "mix_with_state",
+           "register_mix_handler"]
 
 # Phi types beyond CompressedPhi with their own stateful mix:
 # {phi_type: handler(phi, tree, state) -> (mixed, new_state)}.  A registered
@@ -87,11 +92,73 @@ def compressed_mix(phi, tree, state: CompressionState,
     """Gossip over quantized iterates with error feedback.  Returns (mixed
     tree, new compression state).  The consensus mean is not preserved per
     step; the error accumulator restores it asymptotically."""
+    if isinstance(phi, gossip.PermutePhi):
+        return compressed_mix_permute(phi, tree, state, bits=bits)
+    if isinstance(phi, gossip.GatheredPhi):
+        return compressed_mix_gathered(phi, tree, state, bits=bits)
     compensated = pytree.tree_map(torch.add, tree, state.error)
     sent = pytree.tree_map(lambda leaf: quantize_leaf(leaf, bits),
                            compensated)
     new_error = pytree.tree_map(torch.sub, compensated, sent)
     return gossip.mix_stacked(phi, sent), CompressionState(error=new_error)
+
+
+def _quantized_mix(tree, state: CompressionState, bits: int, mix_rows):
+    """Quantize each leaf's local rows to (code, scale), mix through
+    ``mix_rows(code, scale, leaf) -> mixed rows`` (which ships the integer
+    payload), and keep the residual local."""
+    compensated = pytree.tree_map(torch.add, tree, state.error)
+    leaves, spec = pytree.tree_flatten(compensated)
+    mixed, sent = [], []
+    for x in leaves:
+        code, scale = quantize_int_leaf(x, bits)
+        sent.append(code.to(scale.dtype) * scale)
+        mixed.append(mix_rows(code, scale, x))
+    new_error = pytree.tree_map(torch.sub, compensated,
+                                pytree.tree_unflatten(sent, spec))
+    return pytree.tree_unflatten(mixed, spec), \
+        CompressionState(error=new_error)
+
+
+def compressed_mix_permute(phi: "gossip.PermutePhi", tree,
+                           state: CompressionState,
+                           bits: int = 8) -> tuple[Any, CompressionState]:
+    """CHOCO over a node axis of ranks, quantizing BEFORE the wire: each
+    rank quantizes its row to the integer code and per-row scale, the
+    band exchanges move the code (plus the scale, one float a row,
+    uncharged) and receivers dequantize.  Numerically the composed path
+    (quantize, then :func:`gossip.mix_stacked_permute` of the
+    reconstruction): dequantization is per row and the exchange moves
+    whole rows."""
+    j = gossip._permute_axis(phi).index
+
+    def mix_rows(code, scale, like):
+        codes, scales = gossip.permute_exchange(phi, [code, scale])
+        coeffs = gossip.as_mix_tensor(phi.coeffs, like)
+        out = None
+        for b, (c_r, s_r) in enumerate(zip(codes, scales)):
+            recv = c_r.to(s_r.dtype) * s_r
+            term = gossip._coeff(coeffs, b, j, recv) * recv
+            out = term if out is None else out + term
+        return out
+
+    return _quantized_mix(tree, state, bits, mix_rows)
+
+
+def compressed_mix_gathered(phi: "gossip.GatheredPhi", tree,
+                            state: CompressionState,
+                            bits: int = 8) -> tuple[Any, CompressionState]:
+    """CHOCO over node-sharded state with a dense or banded mix: each rank
+    quantizes its rows, the codes and scales are all-gathered, and every
+    rank dequantizes the whole stack and applies its rows of the mix."""
+    ax = spmd.node_axis(phi.mesh, phi.axis, phi.m)
+
+    def mix_rows(code, scale, like):
+        full = (spmd.all_gather_rows(code, ax).to(scale.dtype)
+                * spmd.all_gather_rows(scale, ax))
+        return gossip.gathered_rows_mix(phi.inner, full, ax.rows, like)
+
+    return _quantized_mix(tree, state, bits, mix_rows)
 
 
 class CompressedPhi:

@@ -56,14 +56,16 @@ class IndexStream:
     ``steps`` an int64 tensor of step numbers on ``device``, shape
     ``(T,)``.  The result is ``(T, m, bsz)``, or ``(T, cells, m, bsz)`` for
     a sequence of keys.  ``stream`` tells apart two draws of one step (the
-    LM trainer's minibatch and snapshot windows)."""
+    LM trainer's minibatch and snapshot windows).  ``rows`` (a slice of
+    the m nodes) draws only those nodes' indices, equal to those rows of
+    the whole draw: a node-sharded rank's share."""
 
     def __init__(self, keys, *, m: int, bsz: int, n: int, device,
-                 stream: int = 0):
+                 stream: int = 0, rows: slice = slice(None)):
         keys = torch.as_tensor(keys, dtype=torch.int64, device=device)
         self._key = mix32(mix32(keys & M32) ^ stream)
         self._lane = torch.arange(m * bsz, dtype=torch.int64,
-                                  device=device).reshape(m, bsz)
+                                  device=device).reshape(m, bsz)[rows]
         self.n = int(n)
 
     def __call__(self, steps: torch.Tensor) -> torch.Tensor:

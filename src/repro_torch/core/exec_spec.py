@@ -29,8 +29,15 @@ Fields:
 * ``device`` — where the run executes, ``"cuda"`` by default.  A run asks
   for the CPU explicitly (``device="cpu"``); without a CUDA device and
   without that request, ``runner.run`` raises.
-* ``mesh`` / ``shard`` — multi-device execution, not ported yet: any value
-  other than ``None`` raises ``NotImplementedError``.
+* ``mesh`` — a ``torch.distributed.device_mesh.DeviceMesh`` with named
+  dims: enables the ``ppermute`` transport (a dim of size m, one node a
+  rank) and carries the mesh for ``shard``.  Runs over a mesh are SPMD
+  (``core.spmd``): every rank makes the same call.
+* ``shard`` — ``None`` | ``"cells"`` (split a batched sweep's cells over
+  the mesh's ``"cells"`` dim; ``run_sweep`` only) | ``"nodes"`` (split the
+  stacked ``(m, ...)`` node axis of a resident run over the mesh, each rank
+  holding its rows; ``runner.run`` only).  Both need ``resident=True``.
+  The LM trainer refuses both (ROADMAP Queue 1 item 14 (b)).
 
 Cross-field constraints are validated at construction.
 """
@@ -47,6 +54,7 @@ __all__ = ["ExecSpec"]
 _SAMPLING = ("host", "device")
 _KERNELS = ("plain", "fused", "auto")
 _TRANSITIONS = ("auto", True, False)
+_SHARDS = (None, "cells", "nodes")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,16 +72,15 @@ class ExecSpec:
     device: Any = "cuda"
 
     def __post_init__(self):
-        if self.mesh is not None or self.shard is not None:
-            raise NotImplementedError(
-                "mesh= and shard= (multi-device execution) are not ported "
-                "to PyTorch yet (ROADMAP Queue 1 item 14)")
         if self.sampling not in _SAMPLING:
             raise ValueError(f"sampling must be 'host' or 'device', got "
                              f"{self.sampling!r}")
         if self.kernel not in _KERNELS:
             raise ValueError(f"kernel must be 'plain', 'fused', or 'auto', "
                              f"got {self.kernel!r}")
+        if self.shard not in _SHARDS:
+            raise ValueError(f"shard must be None, 'cells', or 'nodes', "
+                             f"got {self.shard!r}")
         if not any(self.device_transitions is t for t in _TRANSITIONS):
             raise ValueError(f"device_transitions must be 'auto', True, or "
                              f"False, got {self.device_transitions!r}")
@@ -90,6 +97,10 @@ class ExecSpec:
             raise ValueError("kernel='fused'/'auto' swaps the fused step "
                              "into the resident chunks — it requires "
                              "resident=True")
+        if self.shard is not None and not self.resident:
+            raise ValueError(f"shard={self.shard!r} partitions the "
+                             f"device-resident program over a mesh — it "
+                             f"requires resident=True")
 
     @property
     def torch_device(self) -> torch.device:

@@ -1,7 +1,7 @@
 """Consensus (gossip) primitives over stacked node parameters: the port of
-``repro.core.gossip`` on one device.
+``repro.core.gossip``.
 
-Two wire formats, usable anywhere a ``phi`` is accepted (``mix_stacked``
+Wire formats, usable anywhere a ``phi`` is accepted (``mix_stacked``
 dispatches on type):
 
 * a dense ``(m, m)`` matrix, applied as one matrix product over the leading
@@ -10,21 +10,30 @@ dispatches on type):
   product on the device;
 * :class:`BandedPhi`, the matrix in cyclic-band form: each nonzero band is
   one ``torch.roll`` of the stacked buffer, so ring schedules (degree <= 2)
-  mix in O(degree) passes.
+  mix in O(degree) passes;
+* :class:`PermutePhi`, the banded form over a node axis of ranks, one node
+  a rank: each band is one point-to-point exchange of the rank's row
+  (``spmd.shift``, the reference's ``lax.ppermute``), so the stacked buffer
+  is never gathered;
+* :class:`GatheredPhi`, a dense or banded phi over node-sharded state
+  (``shard="nodes"``): the rows are all-gathered and the rank's rows of the
+  mix applied, what GSPMD inserts for the reference's einsum.
 
-The reference's third format, ``PermutePhi`` (one collective-permute per
-band on a device mesh), is multi-device work (ROADMAP Queue 1 item 14).
+The two sharded formats take the leaves' rows of this rank and keep the
+whole phi (its coefficients are a few floats a step, replicated as the
+reference replicates them).
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-from . import graphs
+from . import graphs, spmd
 
 __all__ = [
     "mark_stateful",
@@ -36,6 +45,12 @@ __all__ = [
     "bands_for_phi",
     "BandedPhi",
     "mix_stacked_banded",
+    "PermutePhi",
+    "mix_stacked_permute",
+    "GatheredPhi",
+    "mix_stacked_gathered",
+    "shard_phi",
+    "phi_node_axis",
     "stack_tree",
     "unstack_tree",
     "node_mean",
@@ -99,6 +114,10 @@ def mix_stacked(phi, tree):
             f"transports only")
     if isinstance(phi, BandedPhi):
         return mix_stacked_banded(phi.offsets, phi.coeffs, tree)
+    if isinstance(phi, PermutePhi):
+        return mix_stacked_permute(phi, tree)
+    if isinstance(phi, GatheredPhi):
+        return mix_stacked_gathered(phi, tree)
 
     def _mix(leaf):
         w = as_mix_tensor(phi, leaf).to(leaf.dtype)
@@ -228,3 +247,185 @@ def mix_stacked_banded(offsets: tuple, coeffs, tree):
         return out
 
     return pytree.tree_map(_mix, tree)
+
+
+# ---------------------------------------------------------------------------
+# Node-sharded wire formats: each rank holds its rows of the node axis
+# ---------------------------------------------------------------------------
+
+def _coeff(coeffs: torch.Tensor, b: int, i, leaf: torch.Tensor):
+    """Band ``b``'s coefficient(s) at node(s) ``i`` (an int or a slice) of
+    the float32 ``coeffs`` (``as_mix_tensor``), shaped to multiply
+    ``leaf``'s rows."""
+    c = coeffs[b][i].to(leaf.dtype)
+    return c.reshape(c.shape + (1,) * (leaf.ndim - c.ndim))
+
+
+class PermutePhi:
+    """A banded mixing matrix lowered to point-to-point exchanges over a
+    node axis of ranks, one node a rank.
+
+    Same band parameterization as :class:`BandedPhi` (static ``offsets``,
+    per-band ``coeffs`` of shape ``(n_bands, m)`` for one step or ``(T,
+    n_bands, m)`` stacked), with the ``DeviceMesh`` and the name of its
+    node dim as the pytree context, so ``mix_stacked`` dispatches to
+    :func:`mix_stacked_permute` on each rank's row.  Needs the node dim to
+    have ``m`` ranks.
+    """
+
+    __slots__ = ("offsets", "mesh", "axis", "coeffs")
+
+    def __init__(self, offsets: tuple, mesh, axis: str, coeffs):
+        self.offsets = tuple(offsets)
+        self.mesh = mesh
+        self.axis = axis
+        self.coeffs = coeffs
+
+    @classmethod
+    def from_dense(cls, phi: np.ndarray, offsets: tuple, mesh,
+                   axis: str) -> "PermutePhi":
+        """Project a dense phi onto a fixed offset set (raises on leakage)."""
+        return cls(offsets, mesh, axis, bands_for_phi(np.asarray(phi),
+                                                      offsets))
+
+    def __repr__(self):
+        shape = getattr(self.coeffs, "shape", None)
+        return (f"PermutePhi(offsets={self.offsets}, axis={self.axis!r}, "
+                f"coeffs.shape={shape})")
+
+
+pytree.register_pytree_node(
+    PermutePhi,
+    lambda phi: ([phi.coeffs], (phi.offsets, phi.mesh, phi.axis)),
+    lambda children, ctx: PermutePhi(ctx[0], ctx[1], ctx[2],
+                                     list(children)[0]))
+
+
+def _permute_axis(phi: PermutePhi) -> spmd.NodeAxis:
+    m = phi.coeffs.shape[-1]
+    ax = spmd.node_axis(phi.mesh, phi.axis, m)
+    if ax.size != m:
+        raise ValueError(f"ppermute gossip runs one node a rank: mesh dim "
+                         f"{phi.axis!r} has {ax.size} ranks for m={m}")
+    return ax
+
+
+def permute_exchange(phi: PermutePhi, payloads: list) -> list:
+    """For every band of ``phi``: each payload tensor of the node
+    ``(j + d) % m`` this rank (node ``j``) receives, its own for ``d % m ==
+    0``.  One batch of point-to-point exchanges a payload."""
+    ax = _permute_axis(phi)
+    shifts = [d for d in phi.offsets if d % ax.m]
+    out = []
+    for x in payloads:
+        got = dict(zip(shifts, spmd.shift(x, shifts, ax))) if shifts else {}
+        out.append([x if d % ax.m == 0 else got[d] for d in phi.offsets])
+    return out
+
+
+def mix_stacked_permute(phi: PermutePhi, tree):
+    """Gossip via one point-to-point exchange a band of each rank's row.
+
+    Numerically identical to :func:`mix_stacked_banded` on the whole stack
+    (the same band sum, one term per offset, in the offsets' order); band
+    ``d`` becomes one exchange where rank ``j`` sends its row to ``(j - d)
+    mod m``: O(degree) point-to-point traffic instead of the dense mix's
+    O(m) all-gather."""
+    j = _permute_axis(phi).index
+
+    def _mix(leaf):
+        (received,) = permute_exchange(phi, [leaf])
+        coeffs = as_mix_tensor(phi.coeffs, leaf)
+        out = None
+        for b, x in enumerate(received):
+            term = _coeff(coeffs, b, j, leaf) * x
+            out = term if out is None else out + term
+        return out
+
+    return pytree.tree_map(_mix, tree)
+
+
+class GatheredPhi:
+    """A dense ``(m, m)`` or :class:`BandedPhi` ``inner`` phi applied to
+    node-sharded state (``shard="nodes"``): each rank all-gathers the rows
+    over the mesh dim ``axis`` and applies its own rows of the mix.  The
+    mesh and axis are the pytree context; ``inner``'s leaves stage and
+    slice as usual."""
+
+    __slots__ = ("inner", "mesh", "axis")
+
+    def __init__(self, inner, mesh, axis: str):
+        self.inner = inner
+        self.mesh = mesh
+        self.axis = axis
+
+    @property
+    def m(self) -> int:
+        inner = self.inner.coeffs if isinstance(self.inner, BandedPhi) \
+            else self.inner
+        return inner.shape[-1]
+
+    def __repr__(self):
+        return f"GatheredPhi(axis={self.axis!r}, inner={self.inner!r})"
+
+
+pytree.register_pytree_node(
+    GatheredPhi,
+    lambda phi: ([phi.inner], (phi.mesh, phi.axis)),
+    lambda children, ctx: GatheredPhi(list(children)[0], ctx[0], ctx[1]))
+
+
+def gathered_rows_mix(inner, full: torch.Tensor, rows: slice,
+                      like: torch.Tensor) -> torch.Tensor:
+    """Rows ``rows`` of ``inner`` (dense or banded) applied to the whole
+    stacked leaf ``full`` (m, ...)."""
+    m = full.shape[0]
+    if isinstance(inner, BandedPhi):
+        coeffs = as_mix_tensor(inner.coeffs, like)
+        out = None
+        for b, d in enumerate(inner.offsets):
+            shifted = torch.roll(full, -d, dims=0) if d else full
+            term = _coeff(coeffs, b, rows, like) * shifted[rows]
+            out = term if out is None else out + term
+        return out
+    w = as_mix_tensor(inner, like).to(like.dtype)[rows]
+    return (w @ full.reshape(m, -1)).reshape((w.shape[0],) + full.shape[1:])
+
+
+def mix_stacked_gathered(phi: GatheredPhi, tree):
+    """All-gather each leaf's rows, then apply this rank's rows of the
+    mix."""
+    ax = spmd.node_axis(phi.mesh, phi.axis, phi.m)
+
+    def _mix(leaf):
+        full = spmd.all_gather_rows(leaf, ax)
+        return gathered_rows_mix(phi.inner, full, ax.rows, leaf)
+
+    return pytree.tree_map(_mix, tree)
+
+
+def phi_node_axis(phi) -> "spmd.NodeAxis | None":
+    """The node axis a sharded phi mixes over (found through wrappers'
+    ``inner``), or None for a phi over the whole stack."""
+    while phi is not None:
+        if isinstance(phi, PermutePhi):
+            return _permute_axis(phi)
+        if isinstance(phi, GatheredPhi):
+            return spmd.node_axis(phi.mesh, phi.axis, phi.m)
+        phi = getattr(phi, "inner", None)
+    return None
+
+
+def shard_phi(phi, mesh, axis: str):
+    """``phi`` for node-sharded state over ``mesh``'s dim ``axis``: its
+    innermost wire format (under the ``inner`` of wrappers such as
+    ``CompressedPhi``) becomes a :class:`GatheredPhi`, unless it is a
+    :class:`PermutePhi`, which already mixes each rank's row."""
+    if isinstance(phi, (GatheredPhi, PermutePhi)):
+        return phi
+    inner = getattr(phi, "inner", None)
+    if inner is None:
+        return GatheredPhi(phi, mesh, axis)
+    out = copy.copy(phi)
+    out.inner = shard_phi(inner, mesh, axis)
+    return out

@@ -54,6 +54,22 @@ device, so they do not pull the dataset to the host (the reference does).
 A resident or scan run's ``extras`` also report ``graphs_built``,
 ``replays`` and ``capture_s`` (0 on the CPU).
 
+Node-sharded runs (``ExecSpec(shard="nodes")``, and every run over the
+``ppermute`` transport) are SPMD over ``torch.distributed`` (``core.spmd``):
+every rank makes the same ``run`` call with its own rows of the problem
+(``spmd.local_problem``) and an algorithm built on them, holds only its
+rows of every ``(m, ...)`` leaf (state, dataset, staged indices,
+error-feedback residual) on every path, draws the same host stream and
+stages its rows of it (``sampling="device"`` draws its rows of the same
+device stream), mixes through the sharded wire formats
+(``gossip.PermutePhi``, ``gossip.GatheredPhi``), and records the objective
+and the consensus through all-reduces.  Every rank returns the same
+``RunResult``, its ``params`` gathered once to the whole ``(m, ...)``
+stack, and ``extras["wire"]`` names the wire (``spmd.wire_name``).  A
+sharded run executes its pieces eagerly (``graphs_built == 0``; the
+collectives are not captured in CUDA graphs) and stages its plan as an
+unsharded run does, so its transfer ledger stays ``(1, 1)``.
+
 Batched sweeps (``run_sweep``, re-exported from ``core.sweep``) plan
 every cell of a grid with the same planner (a single run is its one-cell
 case) and run them as one resident program.  The reference's executable
@@ -73,7 +89,7 @@ from torch.profiler import record_function
 from torch.utils import _pytree as pytree
 
 from . import algorithm as algorithm_lib, cuda_graphs, gossip, graphs, \
-    transport
+    spmd, transport
 from . import device_sampling as device_sampling_lib
 from ..convert import params_to_numpy
 from .exec_spec import ExecSpec
@@ -113,9 +129,14 @@ def sample_batch(rng: np.random.Generator, data, batch_size: int):
     leaves: numpy (m, n, ...)."""
     first = pytree.tree_leaves(data)[0]
     m, n = first.shape[0], first.shape[1]
-    idx = rng.integers(0, n, size=(m, batch_size))
+    return _take_batch(data, rng.integers(0, n, size=(m, batch_size)))
+
+
+def _take_batch(data, idx: np.ndarray):
+    """The host minibatch of (m, bsz) indices ``idx`` from numpy data
+    leaves (m, n, ...)."""
     return pytree.tree_map(lambda a: np.take_along_axis(
-        a, idx.reshape(m, batch_size, *([1] * (a.ndim - 2))), axis=1), data)
+        a, idx.reshape(idx.shape + (1,) * (a.ndim - 2)), axis=1), data)
 
 
 def objective_value(loss_fn, prox, params, full_data) -> float:
@@ -136,8 +157,10 @@ class Recorder:
     driver-supplied ``wire_bytes`` column."""
 
     def __init__(self, objective_fn: Callable, meta, m: int, n: int,
-                 extra_metrics: dict | None = None):
+                 extra_metrics: dict | None = None,
+                 consensus_fn: Callable | None = None):
         self._obj = objective_fn
+        self._cons = consensus_fn
         self._meta = meta
         self._m, self._n = m, n
         self._extra = extra_metrics or {}
@@ -150,7 +173,9 @@ class Recorder:
         meta = self._meta
         self._wire.append(wire_bytes)
         self._cols["objective"].append(self._obj(params))
-        if meta.track_consensus:
+        if meta.track_consensus and self._cons is not None:
+            cons = self._cons(params)
+        elif meta.track_consensus:
             leaves = pytree.tree_leaves(params_to_numpy(params))
             cons = graphs.consensus_distance(np.stack(
                 [np.concatenate([np.ravel(l[i]) for l in leaves])
@@ -187,6 +212,36 @@ def traceable_consensus(params) -> torch.Tensor:
                       for leaf in pytree.tree_leaves(params)], dim=1)
     xbar = flat.mean(dim=0, keepdim=True)
     return torch.linalg.vector_norm(flat - xbar, dim=1).mean()
+
+
+def _sharded_objective(loss_fn, prox, params, data, ax: spmd.NodeAxis):
+    """F(x̄) of node-sharded ``params`` (this rank's rows) on this rank's
+    ``data``: x̄ and the mean of the losses through all-reduces."""
+    xbar = pytree.tree_map(
+        lambda x: spmd.all_reduce_sum(x.sum(dim=0), ax.group) / ax.m,
+        params)
+    rows = pytree.tree_leaves(params)[0].shape[0]
+    losses = torch.func.vmap(loss_fn)(gossip.stack_tree(xbar, rows), data)
+    return spmd.all_reduce_sum(losses.sum(), ax.group) / ax.m \
+        + prox.value(xbar)
+
+
+def _sharded_consensus(params, ax: spmd.NodeAxis) -> torch.Tensor:
+    """mean_i ||x_i - x̄|| of node-sharded ``params``, through
+    all-reduces."""
+    flat = torch.cat([leaf.reshape(leaf.shape[0], -1)
+                      for leaf in pytree.tree_leaves(params)], dim=1)
+    xbar = spmd.all_reduce_sum(flat.sum(dim=0, keepdim=True), ax.group) \
+        / ax.m
+    norms = torch.linalg.vector_norm(flat - xbar, dim=1).sum()
+    return spmd.all_reduce_sum(norms, ax.group) / ax.m
+
+
+def _gather_params(params, ax: "spmd.NodeAxis | None"):
+    """The whole ``(m, ...)`` stack of node-sharded ``params``."""
+    if ax is None:
+        return params
+    return pytree.tree_map(lambda x: spmd.all_gather_rows(x, ax), params)
 
 
 def _resolved_objective(meta, problem):
@@ -272,7 +327,8 @@ class _PlanCell(NamedTuple):
 def _plan_resident(cells: "list[_PlanCell]", *, m: int, n: int,
                    param_count: int, record_every: int, transitions: bool,
                    batched: bool = False,
-                   device_sampling: bool = False) -> _Plan:
+                   device_sampling: bool = False,
+                   shard: "spmd.NodeAxis | None" = None) -> _Plan:
     """Walk the run's data-independent control flow without touching the
     device: chunk boundaries, gossip products, step sizes, minibatch
     indices (same ``np.random`` draw order as the host loop) and
@@ -292,7 +348,12 @@ def _plan_resident(cells: "list[_PlanCell]", *, m: int, n: int,
 
     With ``device_sampling=True`` the plan draws no indices: each chunk
     holds its steps' numbers (1-based, one column shared by the cells),
-    from which the pieces draw the indices on the device."""
+    from which the pieces draw the indices on the device.
+
+    With ``shard`` (a node-sharded single run) the plan keeps this rank's
+    rows of each step's indices, drawn whole as the unsharded plan draws
+    them, and its phis take the sharded wire formats
+    (``gossip.shard_phi``)."""
     meta0 = cells[0].meta
     B = len(cells)
     if batched and not transitions:
@@ -331,7 +392,11 @@ def _plan_resident(cells: "list[_PlanCell]", *, m: int, n: int,
                         * c.meta.gossip_payloads)
         slot += rounds
         comm += rounds
-        return transport.batch_phis(per_cell) if phi_batched else per_cell[0]
+        if phi_batched:
+            return transport.batch_phis(per_cell)
+        if shard is not None:
+            return gossip.shard_phi(per_cell[0], shard.mesh, shard.axis)
+        return per_cell[0]
 
     def plan_record():
         ops.append(("record",))
@@ -365,6 +430,8 @@ def _plan_resident(cells: "list[_PlanCell]", *, m: int, n: int,
         if device_sampling:
             return step_t
         per_cell = [c.rng.integers(0, n, size=(m, bsz)) for c in cells]
+        if shard is not None:
+            return per_cell[0][shard.rows]
         return np.stack(per_cell) if batched else per_cell[0]
 
     def draw_alpha(step_t: int):
@@ -621,7 +688,8 @@ def _piece_runner(device: torch.device, body):
 def _run_resident(algo, problem, backend, aux, rng, *, m: int, n: int,
                   param_count: int, record_every: int, device, kernel: str,
                   device_transitions, sampling: str, extra_metrics,
-                  transfers) -> RunResult:
+                  transfers, shard: "spmd.NodeAxis | None" = None
+                  ) -> RunResult:
     meta = algo.meta
     if extra_metrics:
         raise ValueError(
@@ -637,7 +705,8 @@ def _run_resident(algo, problem, backend, aux, rng, *, m: int, n: int,
     if device_sampling:
         sampler = device_sampling_lib.IndexStream(
             int(rng.integers(0, 2**31 - 1)), m=m, bsz=meta.batch_size, n=n,
-            device=device)
+            device=device,
+            rows=slice(None) if shard is None else shard.rows)
 
     # spans for torch.profiler (nothing is recorded when it is off): the
     # host's plan and its staging copy, issuing the chunks, the pull
@@ -645,19 +714,27 @@ def _run_resident(algo, problem, backend, aux, rng, *, m: int, n: int,
         plan = _plan_resident(
             [_PlanCell(meta, rng, backend, aux)], m=m, n=n,
             param_count=param_count, record_every=record_every,
-            transitions=transitions, device_sampling=device_sampling)
+            transitions=transitions, device_sampling=device_sampling,
+            shard=shard)
     step_fn = _resolve_kernel_step(algo, kernel)
-    objective = _resolved_objective(meta, problem)
+    if shard is None:
+        objective = _resolved_objective(meta, problem)
+    else:
+        objective = lambda params, data: _sharded_objective(  # noqa: E731
+            problem.loss_fn, problem.prox, params, data, shard)
 
     # the dataset already lies on the device (runner.run checks it): only
     # the plan is staged, and the chunks gather their minibatches from it
     data_dev = problem.full_data
     with record_function("resident.stage"):
-        staged = _stage(plan.chunks, device)   # ONE staging transfer
+        # ONE staging transfer
+        staged = _stage(plan.chunks, device)
     transfers["h2d"] += 1
 
-    run_piece, piece_graphs = _piece_runner(
-        device, _piece_body(step_fn, data_dev, has_batch, sampler))
+    body = _piece_body(step_fn, data_dev, has_batch, sampler)
+    # a node-sharded run's pieces cross ranks: eager, never captured
+    run_piece, piece_graphs = ((body, None) if shard is not None
+                               else _piece_runner(device, body))
     with record_function("resident.execute"):
         state = inject_mix_state(algo, backend, aux, algo.init())
         if transitions and algo.device_state is not None:
@@ -674,7 +751,9 @@ def _run_resident(algo, problem, backend, aux, rng, *, m: int, n: int,
                 params = algo.get_params(state)
                 bufs[0, slot] = objective(params, data_dev)
                 if meta.track_consensus:
-                    bufs[1, slot] = traceable_consensus(params)
+                    bufs[1, slot] = (traceable_consensus(params)
+                                     if shard is None
+                                     else _sharded_consensus(params, shard))
                 slot += 1
             elif kind == "outer":
                 state = algo.outer(state)
@@ -699,8 +778,10 @@ def _run_resident(algo, problem, backend, aux, rng, *, m: int, n: int,
         extras.update(graphs_built=piece_graphs.graphs_built,
                       replays=piece_graphs.replays,
                       capture_s=piece_graphs.capture_s)
-    return RunResult(params=algo.get_params(state), history=history,
-                     extras=extras)
+    if shard is not None:
+        extras["wire"] = spmd.wire_name(shard.group, device)
+    return RunResult(params=_gather_params(algo.get_params(state), shard),
+                     history=history, extras=extras)
 
 
 # ---------------------------------------------------------------------------
@@ -733,14 +814,16 @@ class _ScanChunks:
     one record window (the host's indices, mixing matrices and step sizes)
     in one transfer and runs it as the resident pieces of ``algo.step``."""
 
-    def __init__(self, algo, data_dev, device, transfers):
+    def __init__(self, algo, data_dev, device, transfers,
+                 eager: bool = False):
         self._algo = algo
         self._data = data_dev
         self._device = device
         self._transfers = transfers
         self._has_batch = algo.meta.batch_size > 0
-        self._run_piece, self.graphs = _piece_runner(
-            device, _piece_body(algo.step, data_dev, self._has_batch))
+        body = _piece_body(algo.step, data_dev, self._has_batch)
+        self._run_piece, self.graphs = ((body, None) if eager
+                                        else _piece_runner(device, body))
         self._lengths: set = set()
 
     def run(self, state, idxs, phis, alphas):
@@ -814,13 +897,13 @@ def inject_mix_state(algo, backend, aux, state):
         state, make=lambda x0: backend.init_mix_state(aux, x0))
 
 
-def _resolved_backend(gossip, schedule, meta):
+def _resolved_backend(gossip, schedule, meta, mesh=None):
     """Resolve the transport and honour hp-level quantization: a method that
     quantizes its own gossip payload (``AlgoMeta.compress_bits``) gets its
     transport wrapped in a ``CompressedBackend`` at those bits, so the wire
     accounting matches what moves (a conflicting compressed transport
     raises)."""
-    backend = transport.resolve_backend(gossip, schedule, meta)
+    backend = transport.resolve_backend(gossip, schedule, meta, mesh)
     if meta.compress_bits is not None:
         if getattr(backend, "scenario_transport", False):
             raise ValueError(
@@ -843,6 +926,34 @@ def _resolved_backend(gossip, schedule, meta):
     return backend
 
 
+def _node_shard(spec: ExecSpec, aux, m: int) -> "spmd.NodeAxis | None":
+    """The node axis a run's state is split over, or None for a run over
+    the whole stack.  ``shard="nodes"`` and the ``ppermute`` transport
+    shard it: over the transport's node dim when it has one, else over the
+    first dim of the caller's mesh whose size divides m, else over a 1-D
+    ``("nodes",)`` mesh of every rank (the counterpart of the reference's
+    ``_node_shard_mesh``)."""
+    permute = transport.mesh_aux(aux)
+    if permute is not None:
+        return spmd.node_axis(permute.mesh, permute.axis, m)
+    if spec.shard != "nodes":
+        return None
+    if spec.mesh is None:
+        spmd.require_group("shard='nodes'")
+        world = spmd.dist.get_world_size()
+        if m % world:
+            raise ValueError(
+                f"shard='nodes' partitions the stacked (m, d) state across "
+                f"the {world} rank(s), but m={m} is not divisible by the "
+                f"rank count; pass mesh= with a dim whose size divides m")
+        return spmd.node_axis(spmd.world_mesh("nodes"), "nodes", m)
+    for axis, size in spmd.mesh_shape(spec.mesh).items():
+        if m % size == 0:
+            return spmd.node_axis(spec.mesh, axis, m)
+    raise ValueError(f"shard='nodes': mesh {spmd.mesh_shape(spec.mesh)} has "
+                     f"no dim whose size divides m={m}")
+
+
 def run(algo: algorithm_lib.Algorithm,
         problem: algorithm_lib.Problem,
         schedule: graphs.MixingSchedule,
@@ -863,18 +974,41 @@ def run(algo: algorithm_lib.Algorithm,
     extra_metrics: ``{name: fn(stacked_params) -> float}`` recorded by the
                    host loop next to the standard columns (in ``extras``,
                    beside the always-present ``wire_bytes``).
+
+    A node-sharded run (``shard="nodes"`` or the ``ppermute`` transport)
+    takes this rank's rows of the problem (``spmd.local_problem``) and an
+    algorithm built on them, on every rank (see the module docstring).
     """
     spec = ExecSpec() if exec is None else exec
     if not isinstance(spec, ExecSpec):
         raise TypeError(f"runner.run: exec must be an ExecSpec, got "
                         f"{type(spec).__name__}")
+    if spec.shard == "cells":
+        raise ValueError("shard='cells' partitions a batched sweep's CELL "
+                         "axis — use runner.run_sweep; a single run shards "
+                         "its node axis with shard='nodes'")
     meta = algo.meta
     device = _resolve_device(spec)
     _check_on_device(problem, device)
-    backend = _resolved_backend(spec.gossip, schedule, meta)
-    aux = backend.prepare(schedule, meta)
+    backend = _resolved_backend(spec.gossip, schedule, meta, spec.mesh)
+    aux = backend.prepare(schedule, meta, mesh=spec.mesh)
     rng = np.random.default_rng(seed)
     m = pytree.tree_leaves(problem.x0)[0].shape[0]
+    shard = _node_shard(spec, aux, schedule.m)
+    if shard is not None:
+        rows = shard.rows.stop - shard.rows.start
+        if m != rows:
+            raise ValueError(
+                f"a node-sharded run takes this rank's {rows} of the "
+                f"{shard.m} nodes, but problem.x0 holds {m}: build the "
+                f"problem and the algorithm from spmd.local_problem(problem, "
+                f"mesh, {shard.axis!r})")
+        if problem.objective_fn is not None or \
+                meta.resident_objective is not None:
+            raise ValueError(
+                "a node-sharded run records F(x̄) through all-reduces; an "
+                "objective override needs the whole stack on one rank")
+        m = shard.m
     n = pytree.tree_leaves(problem.full_data)[0].shape[1]
     param_count = transport.node_param_count(problem.x0)
     # driver-initiated host<->device transfer EVENTS (one per staged tree /
@@ -889,14 +1023,23 @@ def run(algo: algorithm_lib.Algorithm,
                              device_transitions=spec.device_transitions,
                              sampling=spec.sampling,
                              extra_metrics=extra_metrics,
-                             transfers=transfers)
+                             transfers=transfers, shard=shard)
 
     obj = problem.objective_fn or (
         lambda p: objective_value(problem.loss_fn, problem.prox, p,
                                   problem.full_data))
-    rec = Recorder(obj, meta, m, n, extra_metrics)
+    cons = None
+    if shard is not None:
+        obj = lambda p: float(_sharded_objective(  # noqa: E731
+            problem.loss_fn, problem.prox, p, problem.full_data, shard))
+        cons = lambda p: float(_sharded_consensus(p, shard))  # noqa: E731
+        extra_metrics = {name: (lambda p, fn=fn: fn(_gather_params(p,
+                                                                   shard)))
+                         for name, fn in (extra_metrics or {}).items()}
+    rec = Recorder(obj, meta, m, n, extra_metrics, consensus_fn=cons)
     scan = spec.scan
-    chunks = (_ScanChunks(algo, problem.full_data, device, transfers)
+    chunks = (_ScanChunks(algo, problem.full_data, device, transfers,
+                          eager=shard is not None)
               if scan else None)
     # the host loop samples minibatches from a host-side copy; the scan
     # path draws the same indices and gathers on the device
@@ -921,6 +1064,8 @@ def run(algo: algorithm_lib.Algorithm,
         comm += rounds
         wire += (backend.bytes_per_step(aux, phi, param_count)
                  * meta.gossip_payloads)
+        if shard is not None:
+            phi = gossip.shard_phi(phi, shard.mesh, shard.axis)
         return phi
 
     def phi_for(rounds: int):
@@ -935,15 +1080,17 @@ def run(algo: algorithm_lib.Algorithm,
             return None
         transfers["h2d"] += 1
         return pytree.tree_map(lambda a: torch.from_numpy(a).to(device),
-                               sample_batch(rng, host_data, meta.batch_size))
+                               _take_batch(host_data, draw_idx()))
 
     def stepsize(step_t: int) -> float:
         # the reference passes jnp.float32(stepsize): round to float32
         return float(np.float32(meta.stepsize(step_t)))
 
     def draw_idx():
-        # the indices sample_batch draws, in the same order
-        return rng.integers(0, n, size=(m, meta.batch_size))
+        # the indices sample_batch draws, in the same order; a sharded
+        # run's rows of them
+        idx = rng.integers(0, n, size=(m, meta.batch_size))
+        return idx if shard is None else idx[shard.rows]
 
     def do_record():
         transfers["d2h"] += 1 + (1 if meta.track_consensus else 0)
@@ -1041,8 +1188,10 @@ def run(algo: algorithm_lib.Algorithm,
     extras["transfers_d2h"] = transfers["d2h"]
     if scan:
         extras.update(chunks.finish())
-    return RunResult(params=algo.get_params(state), history=rec.history(),
-                     extras=extras)
+    if shard is not None:
+        extras["wire"] = spmd.wire_name(shard.group, device)
+    return RunResult(params=_gather_params(algo.get_params(state), shard),
+                     history=rec.history(), extras=extras)
 
 
 # the batched sweep driver lives in core/sweep.py, which builds on this

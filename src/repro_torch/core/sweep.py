@@ -62,8 +62,16 @@ host loop, or the scan path with ``scan=True``.  With
 its own stream (``core.device_sampling``), its key drawn from the cell's
 ``np.random`` stream before the plan, so each cell equals its sequential
 device-sampled run.  PyTorch compiles nothing, so the reference's executor
-cache has no counterpart, and ``ExecSpec`` refuses ``shard`` (ROADMAP
-Queue 1 item 14).  All modes return the same :class:`SweepResult`.
+cache has no counterpart.  All modes return the same :class:`SweepResult`.
+
+``ExecSpec(shard="cells")`` splits the grid over the mesh's ``"cells"`` dim
+(by default a 1-D ``("cells",)`` mesh over every rank of the default group;
+``core.spmd``): each rank runs its contiguous slice of the cells as the
+batched program above, and the histories, wire columns and parameters are
+gathered to every rank in grid order.  The grid must split evenly over the
+dim.  Transports that exchange over a node axis of ranks (``ppermute``, and
+wrappers around it) cannot ride a batched sweep: the cells' steps run under
+one vmap.
 """
 
 from __future__ import annotations
@@ -77,7 +85,7 @@ from torch.profiler import record_function
 from torch.utils import _pytree as pytree
 
 from . import device_sampling as device_sampling_lib, runner as runner_lib, \
-    transport
+    spmd, transport
 from .exec_spec import ExecSpec
 
 __all__ = ["SweepResult", "expand_grid", "run_sweep"]
@@ -428,6 +436,14 @@ def run_sweep(build: Callable,
         raise ValueError("batched sweeps are device-resident by "
                          "construction; resident=False implies "
                          "batched=False")
+    if spec.shard == "nodes":
+        raise ValueError("shard='nodes' partitions a single resident run's "
+                         "node axis — use runner.run; batched sweeps "
+                         "partition the CELL axis (shard='cells')")
+    if spec.shard == "cells" and not batched:
+        raise ValueError("shard='cells' partitions the batched cell axis "
+                         "over the mesh; it requires batched=True (the "
+                         "default)")
 
     def build_cell(cell):
         out = build(**{k: v for k, v in cell.items()
@@ -442,8 +458,79 @@ def run_sweep(build: Callable,
     if not batched:
         return _run_sequential(built, cells, schedules, seeds,
                                record_every=record_every, spec=spec)
+    if spec.shard == "cells":
+        return _run_cells_sharded(build, built, cells, schedules, seeds,
+                                  axis_names, record_every=record_every,
+                                  spec=spec)
     return _run_batched(build, built, cells, schedules, seeds, axis_names,
                         record_every=record_every, spec=spec)
+
+
+def _cells_axis(mesh, B: int) -> spmd.NodeAxis:
+    """This rank's block of the B cells over the mesh's ``"cells"`` dim
+    (a fresh 1-D ``("cells",)`` mesh over every rank without one)."""
+    if mesh is None:
+        spmd.require_group("shard='cells'")
+        mesh = spmd.world_mesh("cells")
+    size = spmd.mesh_shape(mesh).get("cells")
+    if size is None:
+        raise ValueError(f"shard='cells' needs a mesh dim named 'cells'; "
+                         f"got {spmd.mesh_shape(mesh)}")
+    if B % size:
+        raise ValueError(
+            f"shard='cells': the {B}-cell grid must split evenly over the "
+            f"'cells' mesh axis of size {size}; pad the grid (e.g. repeat "
+            f"a seed) or pass a mesh whose cells axis divides it")
+    return spmd.node_axis(mesh, "cells", B)
+
+
+def _mesh_collective(backend) -> bool:
+    """Whether a transport exchanges over a node axis of ranks (the
+    ``ppermute`` family, possibly wrapped)."""
+    if getattr(backend, "name", "") == "ppermute":
+        return True
+    inner = getattr(backend, "inner", None)
+    if inner is None:
+        return False
+    if isinstance(inner, str):
+        return inner == "ppermute"
+    return _mesh_collective(inner)
+
+
+def _run_cells_sharded(build, built, cells, schedules, seeds, axis_names, *,
+                       record_every: int, spec: ExecSpec) -> SweepResult:
+    """This rank's contiguous slice of the grid as the batched program,
+    then every rank's histories, wire columns and parameters gathered in
+    grid order."""
+    backend = runner_lib._resolved_backend(spec.gossip, schedules[0],
+                                           built[0][0].meta)
+    if _mesh_collective(backend):
+        raise ValueError(
+            f"shard='cells' partitions the CELL axis over the mesh, but the "
+            f"{backend.name!r} transport mixes through node-axis exchanges "
+            f"between ranks; the two claim the same ranks.  Use "
+            f"gossip='dense' or 'banded' (the mix stays within each rank's "
+            f"grid slice), or shard='nodes' on a single run")
+    ax = _cells_axis(spec.mesh, len(cells))
+    mine = ax.rows
+    part = _run_batched(build, built[mine], cells[mine], schedules[mine],
+                        seeds[mine], axis_names, record_every=record_every,
+                        spec=spec.replace(shard=None, mesh=None))
+    columns = spmd.all_gather_object(
+        ({f: np.asarray(getattr(part.history, f))
+          for f in runner_lib.RunHistory._fields},
+         np.asarray(part.extras["wire_bytes"])), ax.group)
+    history = runner_lib.RunHistory(
+        **{f: np.concatenate([c[0][f] for c in columns], axis=1)
+           for f in runner_lib.RunHistory._fields})
+    params = pytree.tree_map(lambda x: spmd.all_gather_rows(x, ax),
+                             part.params)
+    extras = dict(part.extras)
+    extras["wire_bytes"] = np.concatenate([c[1] for c in columns], axis=1)
+    extras["wire"] = spmd.wire_name(ax.group,
+                                    pytree.tree_leaves(params)[0].device)
+    return SweepResult(grid=cells, params=params, history=history,
+                       extras=extras)
 
 
 def _run_batched(build, built, cells, schedules, seeds, axis_names, *,
@@ -454,14 +541,22 @@ def _run_batched(build, built, cells, schedules, seeds, axis_names, *,
     device = runner_lib._resolve_device(spec)
     for _, problem in built:
         runner_lib._check_on_device(problem, device)
-    backend = runner_lib._resolved_backend(spec.gossip, schedules[0], meta0)
+    backend = runner_lib._resolved_backend(spec.gossip, schedules[0], meta0,
+                                           spec.mesh)
     aux_by_sched: dict = {}
     auxes = []
     for s in schedules:
         aux = aux_by_sched.get(id(s))
         if aux is None:
-            aux = aux_by_sched[id(s)] = backend.prepare(s, meta0)
+            aux = aux_by_sched[id(s)] = backend.prepare(s, meta0,
+                                                        mesh=spec.mesh)
         auxes.append(aux)
+    if transport.mesh_aux(auxes[0]) is not None:
+        raise ValueError(
+            f"the {backend.name!r} transport exchanges each node's row "
+            f"between ranks, which a batched sweep cannot carry (its cells "
+            f"step under one vmap); run the cells one by one "
+            f"(batched=False) or through runner.run")
 
     m = pytree.tree_leaves(template_problem.x0)[0].shape[0]
     n = pytree.tree_leaves(template_problem.full_data)[0].shape[1]

@@ -1,9 +1,10 @@
 """Gossip transports: HOW the doubly-stochastic mixing moves parameters
-between nodes.  The port of ``repro.core.transport`` on one device.
+between nodes.  The port of ``repro.core.transport``.
 
 A :class:`GossipBackend` owns
 
-* ``prepare(schedule, meta) -> aux`` — static precompute, once per run,
+* ``prepare(schedule, meta, *, mesh=None) -> aux`` — static precompute,
+  once per run,
 * ``phi_for(aux, slot, rounds) -> phi`` — the host-side per-step wire
   representation, memoized in ``aux`` on ``(slot % period, rounds)``,
 * ``bytes_per_step`` / ``bytes_per_link`` — wire-cost accounting.
@@ -18,15 +19,19 @@ Registered backends (:data:`GOSSIP_BACKENDS`):
     static offset union: each band is one ``torch.roll``, and each nonzero
     off-diagonal coefficient is charged as one parameter vector over one
     link.
+``ppermute``
+    The banded decomposition over a node axis of ranks, one node a rank
+    (``gossip.PermutePhi``): each band is one point-to-point exchange of
+    the rank's row (``core.spmd``); charged as ``banded``.
 ``compressed``
-    Wraps either of them: payloads ride the inner wire format
-    int-quantized with an error-feedback residual (``core.compression``),
-    cutting bytes by ``32 / bits``.  Stateful: the driven algorithm threads
-    a mix state (``Algorithm.init_mix_state``).
+    Wraps any of them: payloads ride the inner wire format int-quantized
+    with an error-feedback residual (``core.compression``), cutting bytes
+    by ``32 / bits``.  Stateful: the driven algorithm threads a mix state
+    (``Algorithm.init_mix_state``).
 
-``"auto"`` is the reference's rule: a band union strictly smaller than m
--> ``banded``, else ``dense``.  Its mesh branch (``ppermute``) is
-multi-device work (ROADMAP Queue 1 item 14) and raises.
+``"auto"`` is the reference's rule: a mesh with a node axis of size m ->
+``ppermute``; else a band union strictly smaller than m -> ``banded``,
+else ``dense``.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from typing import Any, Callable, Iterator, NamedTuple
 import numpy as np
 from torch.utils import _pytree as pytree
 
-from . import compression, gossip, graphs
+from . import compression, gossip, graphs, spmd
 
 __all__ = [
     "TransportMeta",
@@ -46,9 +51,9 @@ __all__ = [
     "GossipBackend",
     "DenseBackend",
     "BandedBackend",
+    "PPermuteBackend",
     "CompressedBackend",
     "GOSSIP_BACKENDS",
-    "UNPORTED_BACKENDS",
     "select_backend_name",
     "resolve_backend",
     "node_param_count",
@@ -57,9 +62,6 @@ __all__ = [
 ]
 
 F32_BYTES = 4
-
-# transports of the reference that the port has not built yet
-UNPORTED_BACKENDS = ("ppermute",)
 
 
 class TransportMeta(NamedTuple):
@@ -122,6 +124,8 @@ def mix_matrix(phi):
     none."""
     if isinstance(phi, gossip.BandedPhi):
         return gossip.banded_to_dense(phi.offsets, phi.coeffs)
+    if isinstance(phi, (gossip.PermutePhi, gossip.GatheredPhi)):
+        return None             # a rank holds its rows, not the stack
     if gossip._STATEFUL_ONLY and isinstance(phi, gossip._STATEFUL_ONLY):
         return None
     return phi if getattr(phi, "ndim", None) == 2 else None
@@ -193,7 +197,8 @@ class GossipBackend:
     name: str = "?"
     needs_mix_state: bool = False
 
-    def prepare(self, schedule: graphs.MixingSchedule, meta) -> Any:
+    def prepare(self, schedule: graphs.MixingSchedule, meta, *,
+                mesh=None) -> Any:
         raise NotImplementedError
 
     def phi_for(self, aux, slot: int, rounds: int):
@@ -223,7 +228,7 @@ class DenseBackend(GossipBackend):
 
     name = "dense"
 
-    def prepare(self, schedule, meta):
+    def prepare(self, schedule, meta, *, mesh=None):
         return _DenseAux(schedule, schedule.m, {})
 
     def phi_for(self, aux, slot, rounds):
@@ -255,7 +260,7 @@ class BandedBackend(GossipBackend):
 
     name = "banded"
 
-    def prepare(self, schedule, meta):
+    def prepare(self, schedule, meta, *, mesh=None):
         offsets = band_offset_union(schedule, meta)
         if len(offsets) >= schedule.m:
             # only reachable when banded is requested by name ("auto" picks
@@ -275,6 +280,71 @@ class BandedBackend(GossipBackend):
         if phi is None:
             phi = aux.cache[key] = gossip.BandedPhi.from_dense(
                 aux.schedule.consensus_rounds(slot, rounds), aux.offsets)
+        return phi
+
+    def bytes_per_step(self, aux, phi, param_count):
+        return _banded_wire_bytes(phi.offsets, phi.coeffs, aux.m, param_count)
+
+    def bytes_per_link(self, aux, phi, param_count):
+        return _banded_link_bytes(phi.offsets, phi.coeffs, aux.m, param_count)
+
+
+class _PermuteAux(NamedTuple):
+    schedule: graphs.MixingSchedule
+    m: int
+    offsets: tuple
+    mesh: Any
+    axis: str
+    cache: dict
+
+
+def _node_axis(mesh, m: int) -> str | None:
+    """The mesh dim carrying one node a rank, if any."""
+    for axis, size in spmd.mesh_shape(mesh).items():
+        if size == m:
+            return axis
+    return None
+
+
+class PPermuteBackend(GossipBackend):
+    """Banded gossip lowered to one point-to-point exchange a band over a
+    node axis of ranks (``gossip.PermutePhi``).
+
+    Needs a mesh with a dim of size m (one node a rank).  When ``mesh`` is
+    None it builds a 1-D ``("nodes",)`` mesh over the default group, which
+    must have m ranks; without an initialized group it raises, naming
+    ``spmd.spawn``.
+    """
+
+    name = "ppermute"
+
+    def prepare(self, schedule, meta, *, mesh=None):
+        m = schedule.m
+        if mesh is None:
+            spmd.require_group(f"ppermute gossip over m={m} nodes (one node "
+                               f"a rank, {m} ranks)")
+            if spmd.dist.get_world_size() != m:
+                raise ValueError(
+                    f"ppermute gossip needs a node axis of m={m} ranks, but "
+                    f"the default group has {spmd.dist.get_world_size()}; "
+                    f"spawn {m} ranks or pass mesh=")
+            mesh, axis = spmd.world_mesh("nodes"), "nodes"
+        else:
+            axis = _node_axis(mesh, m)
+            if axis is None:
+                raise ValueError(
+                    f"mesh {spmd.mesh_shape(mesh)} has no dim of size m={m} "
+                    f"to carry the node axis")
+        return _PermuteAux(schedule, m, band_offset_union(schedule, meta),
+                           mesh, axis, {})
+
+    def phi_for(self, aux, slot, rounds):
+        key = _phi_key(aux.schedule, slot, rounds)
+        phi = aux.cache.get(key)
+        if phi is None:
+            phi = aux.cache[key] = gossip.PermutePhi.from_dense(
+                aux.schedule.consensus_rounds(slot, rounds), aux.offsets,
+                aux.mesh, aux.axis)
         return phi
 
     def bytes_per_step(self, aux, phi, param_count):
@@ -313,9 +383,10 @@ class CompressedBackend(GossipBackend):
             return resolve_backend(self.inner, None, None)
         return self.inner
 
-    def prepare(self, schedule, meta):
+    def prepare(self, schedule, meta, *, mesh=None):
         ib = self._inner_backend()
-        return _CompressedAux(ib, ib.prepare(schedule, meta), self.bits)
+        return _CompressedAux(ib, ib.prepare(schedule, meta, mesh=mesh),
+                              self.bits)
 
     def phi_for(self, aux, slot, rounds):
         return compression.CompressedPhi(
@@ -349,15 +420,28 @@ class CompressedBackend(GossipBackend):
 GOSSIP_BACKENDS: dict[str, GossipBackend] = {
     "dense": DenseBackend(),
     "banded": BandedBackend(),
+    "ppermute": PPermuteBackend(),
     "compressed": CompressedBackend(),
 }
 
 
+def mesh_aux(aux) -> "_PermuteAux | None":
+    """The ppermute transport's aux within ``aux`` (through the ``inner_aux``
+    of wrapping transports), or None: a run whose transport exchanges over
+    a node axis of ranks holds node-sharded state."""
+    while aux is not None:
+        if isinstance(aux, _PermuteAux):
+            return aux
+        aux = getattr(aux, "inner_aux", None)
+    return None
+
+
 def select_backend_name(schedule: graphs.MixingSchedule, meta,
                         mesh=None) -> str:
-    """The reference's ``"auto"`` rule: a mesh -> ``"ppermute"``; else a
-    band union strictly smaller than m -> ``"banded"``; else ``"dense"``."""
-    if mesh is not None:
+    """The reference's ``"auto"`` rule: a mesh with a dim of size m ->
+    ``"ppermute"``; else a band union strictly smaller than m ->
+    ``"banded"``; else ``"dense"``."""
+    if mesh is not None and _node_axis(mesh, schedule.m) is not None:
         return "ppermute"
     if len(band_offset_union(schedule, meta)) >= schedule.m:
         return "dense"
@@ -371,13 +455,6 @@ def resolve_backend(gossip, schedule: graphs.MixingSchedule, meta,
         return gossip
     name = (select_backend_name(schedule, meta, mesh)
             if gossip == "auto" else gossip)
-    if name in UNPORTED_BACKENDS:
-        how = (f"gossip='auto' picked {name!r} for this schedule"
-               if gossip == "auto" else f"gossip={name!r}")
-        raise NotImplementedError(
-            f"{how}, but the {name} transport (multi-device) is not ported "
-            f"to PyTorch yet (ROADMAP Queue 1 item 14); pass gossip='dense' "
-            f"or 'banded'")
     try:
         return GOSSIP_BACKENDS[name]
     except KeyError:

@@ -32,7 +32,10 @@
 // and every element equals the plain PyTorch version bit for bit.
 //
 // alpha comes either by value or, when alpha_ptr is not null, from device
-// memory (a one-element float32 tensor), as in fused_step.cu.
+// memory (a one-element float32 tensor), as in fused_step.cu.  mix_prox's
+// weights and threshold likewise: by value, or, when scal_ptr is not null,
+// as the four floats {w_self, w_up, w_down, thresh} in device memory, so a
+// step whose weights come from staged tensors launches without a sync.
 
 #include <cuda_runtime.h>
 
@@ -95,7 +98,14 @@ template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
 mix_prox_kernel(const float* __restrict__ qs, const float* __restrict__ qu,
                 const float* __restrict__ qd, float* __restrict__ out,
-                long long n, float ws, float wu, float wd, float t) {
+                long long n, const float* __restrict__ scal, float ws,
+                float wu, float wd, float t) {
+  if (scal != nullptr) {
+    ws = scal[0];
+    wu = scal[1];
+    wd = scal[2];
+    t = scal[3];
+  }
   const long long stride = (long long)gridDim.x * THREADS;
   const long long tid = (long long)blockIdx.x * THREADS + threadIdx.x;
   long long tail = 0;
@@ -165,18 +175,19 @@ int svrg_step_launch(const float* x, const float* g_now, const float* g_snap,
 
 int mix_prox_launch(const float* q_self, const float* q_up,
                     const float* q_down, float* out, long long n,
-                    float w_self, float w_up, float w_down, float thresh,
-                    void* stream) {
+                    const float* scal_ptr, float w_self, float w_up,
+                    float w_down, float thresh, void* stream) {
   if (n < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (aligned16(q_self) && aligned16(q_up) && aligned16(q_down) &&
       aligned16(out)) {
     mix_prox_kernel<true><<<grid_for(n / 4 > 0 ? n / 4 : n), THREADS, 0,
-                            s>>>(q_self, q_up, q_down, out, n, w_self, w_up,
-                                 w_down, thresh);
+                            s>>>(q_self, q_up, q_down, out, n, scal_ptr,
+                                 w_self, w_up, w_down, thresh);
   } else {
     mix_prox_kernel<false><<<grid_for(n), THREADS, 0, s>>>(
-        q_self, q_up, q_down, out, n, w_self, w_up, w_down, thresh);
+        q_self, q_up, q_down, out, n, scal_ptr, w_self, w_up, w_down,
+        thresh);
   }
   return (int)cudaGetLastError();
 }

@@ -143,6 +143,7 @@ def svrg_mix_library() -> ctypes.CDLL:
     lib.mix_prox_launch.argtypes = [
         ptr, ptr, ptr, ptr,                    # q_self, q_up, q_down, out
         ctypes.c_longlong,                     # n
+        ptr,                                   # scal_ptr (or null)
         f32, f32, f32, f32,                    # w_self, w_up, w_down, thresh
         ptr]                                   # stream
     lib.mix_prox_launch.restype = ctypes.c_int
@@ -167,17 +168,21 @@ def svrg_step_launch(x, g_now, g_snap, mu, out, alpha) -> int:
         torch.cuda.current_stream().cuda_stream)
 
 
-def mix_prox_launch(q_self, q_up, q_down, out, w_self, w_up, w_down,
-                    thresh) -> int:
+def mix_prox_launch(q_self, q_up, q_down, out, weights) -> int:
     """Launch mix_prox over ``out.numel()`` elements on the current stream
-    of ``out``'s device; returns the C entry point's status.  Enters
-    ``out``'s device only when it is not the current one."""
+    of ``out``'s device; returns the C entry point's status.  ``weights``:
+    the four Python floats (w_self, w_up, w_down, thresh), or a (4,)
+    float32 tensor of them on the same device, read by the kernel from
+    device memory.  Enters ``out``'s device only when it is not the
+    current one."""
     if out.device.index != torch.cuda.current_device():
         with torch.cuda.device(out.device):
-            return mix_prox_launch(q_self, q_up, q_down, out, w_self, w_up,
-                                   w_down, thresh)
+            return mix_prox_launch(q_self, q_up, q_down, out, weights)
+    if isinstance(weights, torch.Tensor):
+        scal_ptr, vals = weights.data_ptr(), (0.0, 0.0, 0.0, 0.0)
+    else:
+        scal_ptr, vals = None, tuple(float(v) for v in weights)
     return svrg_mix_library().mix_prox_launch(
         q_self.data_ptr(), q_up.data_ptr(), q_down.data_ptr(),
-        out.data_ptr(), out.numel(), float(w_self), float(w_up),
-        float(w_down), float(thresh),
+        out.data_ptr(), out.numel(), scal_ptr, *vals,
         torch.cuda.current_stream().cuda_stream)

@@ -364,21 +364,43 @@ def svrg_step(x, g_now, g_snap, mu, alpha):
     return out
 
 
+def _mix_prox_weights(weights, device: torch.device):
+    """The four scalars of a mix_prox launch: Python floats as they are;
+    if any is a tensor (a one-element float32 tensor on ``device``), all
+    four as one (4,) float32 tensor on ``device``, which the kernel reads
+    from device memory (no copy to the host)."""
+    if not any(isinstance(v, torch.Tensor) for v in weights):
+        return weights
+    for v in weights:
+        if isinstance(v, torch.Tensor) and (
+                v.numel() != 1 or v.device != device
+                or v.dtype != torch.float32):
+            raise ValueError(f"mix_prox: a tensor weight must be a float32 "
+                             f"scalar on {device}")
+    return torch.stack([
+        v.reshape(()) if isinstance(v, torch.Tensor)
+        else torch.full((), v, dtype=torch.float32, device=device)
+        for v in weights])
+
+
 def mix_prox(q_self, q_up, q_down, w_self, w_up, w_down, thresh):
     """soft_threshold(w_self*q_self + w_up*q_up + w_down*q_down, thresh)
     over float32 buffers of one shape; the weights and the threshold are
-    Python floats.  CPU tensors run the plain version; CUDA tensors launch
-    the kernel; any other device raises."""
+    each a Python float or a one-element float32 tensor on the buffers'
+    device (then read from device memory: a step whose weights come from
+    staged tensors launches without a sync).  CPU tensors run the plain
+    version; CUDA tensors launch the kernel; any other device raises."""
     global launches_mix_prox
     if not _route("mix_prox", q_self.device):
         return ref.mix_prox_ref(q_self, q_up, q_down, w_self, w_up, w_down,
                                 thresh)
     _check_elementwise("mix_prox", (q_self, q_up, q_down))
+    weights = _mix_prox_weights((w_self, w_up, w_down, thresh),
+                                q_self.device)
     out = torch.empty_like(q_self)
     if out.numel() == 0:
         return out
-    rc = kernel.mix_prox_launch(q_self, q_up, q_down, out, w_self, w_up,
-                                w_down, thresh)
+    rc = kernel.mix_prox_launch(q_self, q_up, q_down, out, weights)
     if rc != 0:
         raise RuntimeError(f"mix_prox kernel launch failed with status {rc}")
     launches_mix_prox += 1

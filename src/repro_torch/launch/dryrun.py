@@ -61,7 +61,7 @@ PARAM_DTYPE = "bfloat16"     # the reference's dry-run precision
 MESH = "h100x1"              # one card
 NODES = 1                    # one node of the trainer a card
 CARD_BYTES = 80e9            # the H100's device memory
-_MESH_ITEM = "ROADMAP Queue 1 item 14"
+_MESH_ITEM = "ROADMAP Queue 1 item 14 (b)"
 
 __all__ = ["run_one", "run_config", "count_step", "main", "PARAM_DTYPE",
            "MESH"]

@@ -17,7 +17,7 @@ Config-driven front end for ``trainer.train_loop`` at the smoke variant of
   * ``--device``: ``cuda`` (the default) or ``cpu``.
 
 The reference's ``--mesh`` (sharded state) is multi-device work (ROADMAP
-Queue 1 item 14).
+Queue 1 item 14 (b)).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \
         --steps 50 --ckpt-dir /tmp/run0 --ckpt-every 25 \

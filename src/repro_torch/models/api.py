@@ -119,7 +119,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.attn_shard_constraint is not None:
         raise NotImplementedError(
             f"{cfg.name}: attention sharding constraints are multi-device "
-            "work, not ported yet (ROADMAP Queue 1 item 14)")
+            "work, not ported yet (ROADMAP Queue 1 item 14 (b))")
 
 
 def scan_group_size(cfg: ModelConfig) -> int | None:

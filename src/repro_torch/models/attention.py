@@ -138,7 +138,7 @@ def _check_spec(spec: AttnSpec):
     if spec.shard_constraint is not None:
         raise NotImplementedError(
             "attention sharding constraints are multi-device work, not "
-            "ported yet (ROADMAP Queue 1 item 14)")
+            "ported yet (ROADMAP Queue 1 item 14 (b))")
 
 
 def attention_forward(params, spec: AttnSpec, x, kv_src=None, positions=None):

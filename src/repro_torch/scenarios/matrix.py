@@ -108,13 +108,15 @@ def run_matrix(problem,
     batched:      False falls back to sequential resident runs per cell
                   (same rows, no shared program — the equivalence
                   baseline).
-    mesh, shard:  multi-device execution, not ported yet (ROADMAP Queue 1
-                  item 14): any value but None raises
-                  ``NotImplementedError``.
+    mesh, shard:  ``shard="cells"`` splits each batched program's cells
+                  over ``mesh``'s ``"cells"`` dim (by default every rank of
+                  the default group; see ``ExecSpec.shard``), every rank
+                  making the same call; each program's cell count must
+                  split evenly over it.
     device:       where every program runs (``problem``'s tensors lie
                   there); ``"cuda"`` unless the caller asks for ``"cpu"``.
     """
-    # one spec for every program: it refuses mesh / shard before any run
+    # one spec for every program, validated before any run
     spec = exec_spec_lib.ExecSpec(resident=True, sampling=sampling,
                                   gossip="dense", mesh=mesh, shard=shard,
                                   device=device)

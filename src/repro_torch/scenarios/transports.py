@@ -1,9 +1,9 @@
 """Scenario transport: stale/async gossip, stragglers, and failure-aware
 wire accounting as a ``GossipBackend`` wrapper.  The port of
-``repro.scenarios.transports`` on one device.
+``repro.scenarios.transports``.
 
 :class:`ScenarioBackend` wraps an inner stateless transport (dense /
-banded) in the style of ``transport.CompressedBackend``:
+banded / ppermute) in the style of ``transport.CompressedBackend``:
 
 * **Staleness pipeline** (when ``delay > 0`` or ``straggler_p > 0``): the
   per-step phi is wrapped in a :class:`ScenarioPhi` and the mix routes
@@ -23,7 +23,10 @@ banded) in the style of ``transport.CompressedBackend``:
   in the step, with no in-place write, so the resident path (CUDA graphs
   of its pieces, whose state buffers take the new FIFO at the end of each
   step) and batched sweeps (the step under ``torch.func.vmap`` over the
-  cells) keep their one staging step and one history pull.
+  cells) keep their one staging step and one history pull.  Over
+  node-sharded state (the ``ppermute`` inner, or ``shard="nodes"``) each
+  rank keeps its rows of the pipeline: its rows of the straggler mask and
+  of the self-weight column.
 
 * **Quantization** (``compress_bits``): the inner transport is wrapped in
   a ``CompressedBackend`` INSIDE the scenario (compression is the
@@ -121,9 +124,9 @@ def _per_node(vec: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
 def _phi_diag(phi, like: torch.Tensor) -> torch.Tensor:
     """Self-weight column W_ii of a wire representation: a float32 (m,)
     tensor on ``like``'s device."""
-    if isinstance(phi, compression.CompressedPhi):
+    if isinstance(phi, (compression.CompressedPhi, gossip.GatheredPhi)):
         return _phi_diag(phi.inner, like)
-    if isinstance(phi, gossip.BandedPhi):
+    if isinstance(phi, (gossip.BandedPhi, gossip.PermutePhi)):
         coeffs = gossip.as_mix_tensor(phi.coeffs, like)
         for b, d in enumerate(phi.offsets):
             if d == 0:
@@ -142,9 +145,12 @@ def scenario_mix(phi: ScenarioPhi, tree, state: ScenarioMixState | None):
             "through the algorithm state; the driven algorithm must "
             "support Algorithm.init_mix_state (dspg/dpg do not)")
     x = tree
+    # node-sharded state: this rank's rows of the per-node columns
+    ax = gossip.phi_node_axis(phi.inner)
+    rows = slice(None) if ax is None else ax.rows
 
     if phi.mask is not None:
-        mask = phi.mask
+        mask = gossip.as_mix_tensor(phi.mask, pytree.tree_leaves(x)[0])[rows]
         sent = pytree.tree_map(
             lambda l, c: torch.where(_per_node(mask, l) >= 0.5, l, c),
             x, state.sent)
@@ -168,7 +174,7 @@ def scenario_mix(phi: ScenarioPhi, tree, state: ScenarioMixState | None):
     # W_ii * x_i (exactly zero when nothing is stale, so the zero-intensity
     # pipeline reproduces the inner mix bit for bit; under quantization the
     # self term rides uncompressed — a node needn't quantize to itself)
-    diag = _phi_diag(phi.inner, pytree.tree_leaves(x)[0])
+    diag = _phi_diag(phi.inner, pytree.tree_leaves(x)[0])[rows]
     out = pytree.tree_map(
         lambda mx, xc, tc: mx + (_per_node(diag, mx) * (xc - tc)).to(
             mx.dtype),
@@ -202,9 +208,8 @@ def _host(phi) -> np.ndarray:
 class ScenarioBackend(transport.GossipBackend):
     """Scenario wrapper over an inner transport (see module docstring).
 
-    inner:          inner backend name or instance ("dense"/"banded"; not
-                    "compressed" — pass ``compress_bits``; "ppermute" is
-                    multi-device work, ROADMAP Queue 1 item 14)
+    inner:          inner backend name or instance ("dense"/"banded"/
+                    "ppermute"; not "compressed" — pass ``compress_bits``)
     delay:          bounded gossip delay in slots (:class:`StaleGossip`)
     straggler_p:    per-slot probability a node misses the gossip deadline
                     (:class:`Stragglers`; ``1 - 1/slowdown``)
@@ -267,10 +272,10 @@ class ScenarioBackend(transport.GossipBackend):
                                              bits=self.compress_bits)
         return ib
 
-    def prepare(self, schedule, meta):
+    def prepare(self, schedule, meta, *, mesh=None):
         ib = self._inner_backend()
-        return _ScenarioAux(ib, ib.prepare(schedule, meta), schedule,
-                            schedule.m, {})
+        return _ScenarioAux(ib, ib.prepare(schedule, meta, mesh=mesh),
+                            schedule, schedule.m, {})
 
     def phi_for(self, aux, slot, rounds):
         inner_phi = aux.inner_backend.phi_for(aux.inner_aux, slot, rounds)
@@ -325,7 +330,7 @@ class ScenarioBackend(transport.GossipBackend):
             phi = phi.inner
         if isinstance(phi, compression.CompressedPhi):
             phi = phi.inner
-        if isinstance(phi, gossip.BandedPhi):
+        if isinstance(phi, (gossip.BandedPhi, gossip.PermutePhi)):
             return [((i + d) % m, i) for d, i in transport._active_entries(
                 phi.offsets, _host(phi.coeffs), m)]
         w = _host(phi)

@@ -12,7 +12,7 @@ model zoo.
 * :mod:`.evaluate` — held-out perplexity of the consensus and of each node.
 
 The reference's ``sharding`` is multi-device work (ROADMAP Queue 1 item
-14).
+14 (b)).
 """
 
 from . import evaluate, steps, tracker, trainer

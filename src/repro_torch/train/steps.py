@@ -20,7 +20,7 @@ The step runs the plain model path: the RMSNorm and flash attention
 kernels have no backward (the reference cannot differentiate its Pallas
 kernels either), so ``train_loop`` refuses configs that turn them on.
 Sharded state (``plan``/``mesh``) is multi-device work (ROADMAP Queue 1
-item 14) and raises.
+item 14 (b)) and raises.
 """
 
 from __future__ import annotations
@@ -69,7 +69,7 @@ def _no_mesh(plan, mesh) -> None:
     if plan is not None or mesh is not None:
         raise NotImplementedError(
             "sharded state (plan=/mesh=) is multi-device work, not ported "
-            "to PyTorch yet (ROADMAP Queue 1 item 14)")
+            "to PyTorch yet (ROADMAP Queue 1 item 14 (b))")
 
 
 # ---------------------------------------------------------------------------

@@ -40,7 +40,8 @@ other's.
 loader stream, staged once, every cell's node-vmapped step under one
 ``torch.func.vmap`` over the cells, one metrics pull.
 
-Refused, by name: sharded state (ROADMAP Queue 1 item 14), ``kernel``
+Refused, by name: sharded state (``mesh``/``plan``, ``ExecSpec(mesh=,
+shard=)``: ROADMAP Queue 1 item 14 (b)), ``kernel``
 other than ``"plain"`` (as the reference refuses other than ``"xla"``),
 and configs that route the forward through the RMSNorm or flash kernels,
 which have no backward.
@@ -131,6 +132,11 @@ def _check_lm_spec(spec: ExecSpec, caller: str) -> None:
     implements the host-loop / resident halves of it; fields that select
     logistic-regression-only machinery fail loudly instead of being
     ignored."""
+    if spec.mesh is not None or spec.shard is not None:
+        raise NotImplementedError(
+            f"{caller}: ExecSpec(mesh=, shard=) shards the LM trainer's "
+            f"state, multi-device work not ported to PyTorch yet (ROADMAP "
+            f"Queue 1 item 14 (b))")
     if spec.scan:
         raise ValueError(f"{caller}: the LM trainer has no scan path — "
                          f"ExecSpec(scan=True) selects runner.run's "

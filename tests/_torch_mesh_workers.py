@@ -1,0 +1,368 @@
+"""The runs of the mesh tests (``tests/test_torch_mesh*.py``), shared by the
+ranks that ``spmd.spawn`` starts and by the test process, which runs each
+case unsharded.  This module imports the port only: the spawned ranks load
+it by name, and no JAX comes with it.
+
+Every case is a small logistic regression (``make_problem``: d = 10, 96
+samples over the m nodes) on the reference's hyper-parameters
+(``tests/test_runner_shard.py``, ``tests/test_transport.py``).
+"""
+
+import numpy as np
+import torch
+
+from repro_torch.convert import params_from_numpy
+from repro_torch.core import algorithm, gossip, graphs, inexact, prox, \
+    runner, spmd, sweep, transport
+from repro_torch.core.exec_spec import ExecSpec
+from repro_torch.data import synthetic
+from repro_torch.scenarios import matrix, transports as sc_transports
+
+D, N = 10, 96
+WORLD = 4
+
+
+def loss(w, batch):
+    logits = batch["features"] @ w
+    return torch.mean(-batch["labels"] * logits
+                      + torch.log1p(torch.exp(logits)))
+
+
+def parts(m: int) -> dict:
+    ds = synthetic.make_classification(n=N, d=D, seed=0)
+    return synthetic.partition_per_node(ds, m)
+
+
+def make_problem(m: int, lam: float = 0.01) -> algorithm.Problem:
+    return algorithm.Problem(loss, prox.l1(lam), torch.zeros(m, D),
+                             params_from_numpy(parts(m), "cpu"))
+
+
+def schedule(pkg, name: str, m: int):
+    """A schedule of ``pkg`` (the port's or the reference's graphs)."""
+    if name == "matching":
+        mats = pkg.edge_matching_matrices(m)
+        return pkg.MixingSchedule(tuple(mats), b=len(mats), eta=0.5,
+                                  name=f"matching{m}")
+    if name == "centralized":
+        return pkg.static_schedule(np.eye(1), name="centralized")
+    b = int(name[len("ring"):] or 1)
+    return pkg.b_connected_ring_schedule(m, b=b, seed=0)
+
+
+def factory(alg, name: str, problem, inexact_mod=None):
+    """The algorithm ``name`` of package module ``alg`` (the port's or the
+    reference's ``algorithm``) on ``problem``."""
+    if name == "dpsvrg":
+        return alg.dpsvrg_algorithm(problem, alg.DPSVRGHyperParams(
+            alpha=0.3, beta=1.2, n0=3, num_outer=3, k_max=2))
+    if name == "dpsvrg4":
+        return alg.dpsvrg_algorithm(problem, alg.DPSVRGHyperParams(
+            alpha=0.3, beta=1.2, n0=3, num_outer=4, k_max=2))
+    if name == "dspg":
+        return alg.dspg_algorithm(problem, alg.DSPGHyperParams(alpha0=0.3),
+                                  24)
+    if name == "dspg18":
+        return alg.dspg_algorithm(problem, alg.DSPGHyperParams(alpha0=0.3),
+                                  18)
+    if name == "dpg":
+        return alg.dpg_algorithm(problem, 0.3, 18)
+    if name == "gt_svrg":
+        return alg.gt_svrg_algorithm(problem, 0.1, 3, 6)
+    if name == "loopless_dpsvrg":
+        return alg.loopless_dpsvrg_algorithm(problem, 0.3, 18,
+                                             snapshot_prob=0.1)
+    if name == "loopless12":
+        return alg.loopless_dpsvrg_algorithm(problem, 0.3, 12,
+                                             snapshot_prob=0.1)
+    if name == "dvr":
+        return alg.dvr_algorithm(problem, 0.3, 18, rho=0.7,
+                                 snapshot_prob=0.1)
+    if name == "inexact_prox_svrg":
+        hp = inexact_mod.InexactHyperParams(alpha=0.3, beta=1.2, n0=3,
+                                            num_outer=3)
+        return alg.ALGORITHMS[name](problem, hp)
+    raise KeyError(name)
+
+
+# ---------------------------------------------------------------------------
+# node-sharded runs: one node a rank (ppermute) or m / 4 rows a rank
+# ---------------------------------------------------------------------------
+
+# name -> (m, schedule, algorithm, seed, record_every, the sharded spec,
+#          the spec of the unsharded run it is held to)
+NODE_CASES = {
+    "ppermute_dpsvrg_host": (4, "matching", "dpsvrg4", 1, 3,
+                             dict(gossip="ppermute"), dict(gossip="dense")),
+    "ppermute_dpsvrg_scan": (4, "matching", "dpsvrg4", 1, 3,
+                             dict(gossip="ppermute", scan=True),
+                             dict(gossip="dense")),
+    "ppermute_dspg_matching": (4, "matching", "dspg", 2, 6,
+                               dict(gossip="ppermute"),
+                               dict(gossip="dense")),
+    "ppermute_dspg_ring": (4, "ring", "dspg", 3, 6, dict(gossip="ppermute"),
+                           dict(gossip="dense")),
+    "ppermute_resident_host_sampling": (
+        4, "matching", "dspg", 4, 6, dict(gossip="ppermute", resident=True),
+        dict(gossip="dense", resident=True)),
+    "ppermute_resident_device_sampling": (
+        4, "matching", "dspg", 4, 6,
+        dict(gossip="ppermute", resident=True, sampling="device"),
+        dict(gossip="dense", resident=True, sampling="device")),
+    "nodes_dense": (4, "ring", "loopless_dpsvrg", 0, 4,
+                    dict(gossip="dense", resident=True, shard="nodes"),
+                    dict(gossip="dense", resident=True)),
+    "nodes_ppermute": (4, "ring", "dspg", 1, 6,
+                       dict(gossip="ppermute", resident=True,
+                            shard="nodes"),
+                       dict(gossip="dense", resident=True)),
+    "nodes_dense_m8": (8, "ring", "dpsvrg4", 5, 3,
+                       dict(gossip="dense", resident=True, shard="nodes"),
+                       dict(gossip="dense", resident=True)),
+    "nodes_banded_m8": (8, "ring", "dpsvrg4", 5, 3,
+                        dict(gossip="banded", resident=True, shard="nodes"),
+                        dict(gossip="banded", resident=True)),
+    "nodes_compressed_ppermute": (
+        4, "ring", "loopless12", 2, 4,
+        dict(gossip=("compressed", "ppermute", 4), resident=True,
+             shard="nodes"),
+        dict(gossip=("compressed", "dense", 4), resident=True)),
+    "nodes_compressed_ppermute_int8": (
+        4, "ring", "loopless12", 2, 4,
+        dict(gossip=("compressed", "ppermute", 8), resident=True,
+             shard="nodes"),
+        dict(gossip=("compressed", "banded", 8), resident=True)),
+    "nodes_compressed_dense_m8": (
+        8, "ring", "loopless12", 2, 4,
+        dict(gossip=("compressed", "dense", 8), resident=True,
+             shard="nodes"),
+        dict(gossip=("compressed", "dense", 8), resident=True)),
+    "kernel_fused_ppermute": (
+        4, "ring", "dpsvrg4", 6, 3,
+        dict(gossip="ppermute", resident=True, kernel="fused"),
+        dict(gossip="dense", resident=True)),
+    "kernel_fused_banded_m8": (
+        8, "ring", "dvr", 6, 6,
+        dict(gossip="banded", resident=True, shard="nodes", kernel="fused"),
+        dict(gossip="banded", resident=True)),
+    "kernel_fused_dspg_ppermute": (
+        4, "ring", "dspg", 5, 6,
+        dict(gossip="ppermute", resident=True, kernel="fused"),
+        dict(gossip="dense", resident=True)),
+    "kernel_fused_dpg_banded_m8": (
+        8, "ring", "dpg", 5, 6,
+        dict(gossip="banded", resident=True, shard="nodes", kernel="fused"),
+        dict(gossip="banded", resident=True)),
+    "scenario_ppermute": (
+        4, "ring", "loopless12", 7, 4,
+        dict(gossip=("scenario", "ppermute", 1), resident=True),
+        dict(gossip=("scenario", "banded", 1), resident=True)),
+}
+
+
+def gossip_spec(g):
+    """A case's ``gossip`` field: a name, or a tuple naming a wrapping
+    transport (``("compressed", inner, bits)``, ``("scenario", inner,
+    delay)``)."""
+    if not isinstance(g, tuple):
+        return g
+    kind, inner, arg = g
+    if kind == "compressed":
+        return transport.CompressedBackend(inner=inner, bits=arg)
+    return sc_transports.ScenarioBackend(inner=inner, delay=arg)
+
+
+def run_node_case(name: str, sharded: bool):
+    """Case ``name``'s run on this rank (``sharded``: the rank's rows of
+    the problem) or on the whole stack."""
+    m, sched, algo, seed, every, kw, plain_kw = NODE_CASES[name]
+    kw = dict(kw if sharded else plain_kw)
+    kw["gossip"] = gossip_spec(kw["gossip"])
+    problem = make_problem(m)
+    if sharded:
+        problem = spmd.local_problem(problem)
+    return runner.run(factory(algorithm, algo, problem), problem,
+                      schedule(graphs, sched, m),
+                      ExecSpec(device="cpu", **kw), seed=seed,
+                      record_every=every)
+
+
+def _summary(res) -> dict:
+    return {"history": res.history._asdict(), "params": res.params,
+            "extras": {k: v for k, v in res.extras.items()}}
+
+
+def node_cases() -> dict:
+    """Every node-sharded case on this rank, the wire accounting of the
+    compressed ppermute transport, and what ``"auto"`` picks."""
+    out = {name: _summary(run_node_case(name, True)) for name in NODE_CASES}
+    problem = make_problem(4)
+    ring = schedule(graphs, "ring", 4)
+    matching = schedule(graphs, "matching", 4)
+    mesh = spmd.world_mesh("nodes")
+    meta = factory(algorithm, "dspg", spmd.local_problem(problem)).meta
+    out["auto"] = {"with_mesh": transport.select_backend_name(matching, meta,
+                                                              mesh),
+                   "without_mesh": transport.select_backend_name(matching,
+                                                                 meta)}
+    # the per-link map sums exactly to bytes_per_step, also at bits that
+    # do not divide 32
+    pc = transport.node_param_count(problem.x0)
+    lmeta = factory(algorithm, "loopless12", problem).meta
+    exact = {}
+    for bits in (4, 3):
+        be = transport.CompressedBackend(inner="ppermute", bits=bits)
+        aux = be.prepare(ring, lmeta, mesh=None)
+        ok = True
+        for slot in range(lmeta.slot_start, lmeta.slot_start + 3):
+            phi = be.phi_for(aux, slot, 2)
+            ok = ok and (sum(be.bytes_per_link(aux, phi, pc).values())
+                         == be.bytes_per_step(aux, phi, pc))
+        exact[bits] = ok
+    out["link_sums_exact"] = exact
+    out["errors"] = refusals()
+    return out
+
+
+def _message(fn) -> "str | None":
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def refusals() -> dict:
+    """The messages of what a group of ranks refuses (None: no refusal)."""
+    ring4 = schedule(graphs, "ring", 4)
+    whole = make_problem(4)
+    local = spmd.local_problem(whole)
+
+    def run(problem, algo, sched, **kw):
+        return runner.run(factory(algorithm, algo, problem), problem, sched,
+                          ExecSpec(device="cpu", **kw), record_every=6)
+
+    three = make_problem(3)
+    return {
+        "nodes_divisibility": _message(lambda: run(
+            three, "dspg", schedule(graphs, "ring", 3), resident=True,
+            gossip="dense", shard="nodes")),
+        "ppermute_world": _message(lambda: run(
+            make_problem(8), "dspg", schedule(graphs, "ring", 8),
+            gossip="ppermute")),
+        "whole_problem": _message(lambda: run(whole, "dspg", ring4,
+                                              gossip="ppermute")),
+        "cells_divisibility": _message(lambda: sweep.run_sweep(
+            lambda: (factory(algorithm, "loopless_dpsvrg", whole), whole),
+            {"seed": [0, 1, 2]}, ring4,
+            ExecSpec(resident=True, gossip="dense", shard="cells",
+                     device="cpu"))),
+        "batched_ppermute": _message(lambda: sweep.run_sweep(
+            lambda: (factory(algorithm, "dspg", local), local),
+            {"seed": [0, 1]}, ring4,
+            ExecSpec(resident=True, gossip="ppermute", device="cpu"))),
+        "fused_sgd": _message(lambda: run(
+            spmd.local_problem(algorithm.Problem(
+                loss, prox.squared_l2(0.01), whole.x0, whole.full_data)),
+            "dspg", ring4, resident=True, gossip="ppermute",
+            kernel="fused")),
+        "fused_compressed": _message(lambda: run(
+            local, "loopless12", ring4, resident=True, kernel="fused",
+            gossip=transport.CompressedBackend(inner="ppermute", bits=8))),
+    }
+
+
+# ---------------------------------------------------------------------------
+# cell-sharded sweeps: one cell a rank
+# ---------------------------------------------------------------------------
+
+CELL_ALGORITHMS = ["dpsvrg", "dspg18", "dpg", "gt_svrg", "loopless_dpsvrg",
+                   "dvr", "inexact_prox_svrg"]
+CELL_GRID = {"seed": [0, 1, 2, 3]}
+
+
+def cell_build(name: str):
+    """The sweep's ``(cell factory, schedule)`` for ``name`` (m = 4 on the
+    b = 1 ring; Algorithm 2 on one node)."""
+    m = 1 if name == "inexact_prox_svrg" else 4
+    problem = make_problem(m)
+    sched = schedule(graphs, "centralized" if m == 1 else "ring", m)
+
+    def build():
+        return factory(algorithm, name, problem, inexact), problem
+
+    return build, sched
+
+
+def topology_scheds(pkg) -> list:
+    return [pkg.b_connected_ring_schedule(4, b=b, seed=b)
+            for b in (1, 2, 1, 3)]
+
+
+def run_topology_grid(mesh=None):
+    problem = make_problem(4)
+
+    def build():
+        return factory(algorithm, "loopless_dpsvrg", problem), problem
+
+    spec = ExecSpec(resident=True, gossip="dense", device="cpu")
+    if mesh is not None:
+        spec = spec.replace(mesh=mesh, shard="cells")
+    return sweep.run_sweep(build, {"schedule": topology_scheds(graphs),
+                                   "seed": [0, 1, 2, 3]},
+                           exec=spec, record_every=4, mode="zip")
+
+
+def matrix_inputs():
+    """run_matrix's inputs: two topologies, a failure-free and a stale
+    scenario, DSPG and loopless DPSVRG, f32 and int8, two seeds."""
+    from repro_torch import scenarios
+    problem = make_problem(4)
+    topologies = {"ring": schedule(graphs, "ring", 4),
+                  "ring2": schedule(graphs, "ring2", 4)}
+    failures = {"none": [], "links": [scenarios.LinkFailures(0.2)]}
+    algorithms = {"loopless": lambda p: factory(algorithm,
+                                                "loopless_dpsvrg", p)}
+    return problem, topologies, failures, algorithms
+
+
+def run_matrix(shard=None):
+    problem, topologies, failures, algorithms = matrix_inputs()
+    res = matrix.run_matrix(problem, topologies, failures, algorithms,
+                            compressions=(None, 8), seeds=(0, 1),
+                            record_every=6, shard=shard, device="cpu")
+    return [tuple(r) for r in res.rows], \
+        [(g["transfers_h2d"], g["transfers_d2h"]) for g in res.groups]
+
+
+def cell_cases() -> dict:
+    out = {}
+    for name in CELL_ALGORITHMS:
+        build, sched = cell_build(name)
+        res = sweep.run_sweep(build, CELL_GRID, sched,
+                              ExecSpec(resident=True, gossip="dense",
+                                       shard="cells", device="cpu"),
+                              record_every=4)
+        out[name] = _summary(res)
+    from torch.distributed.device_mesh import init_device_mesh
+    mesh = init_device_mesh("cpu", (WORLD,), mesh_dim_names=("cells",))
+    out["topology"] = _summary(run_topology_grid(mesh))
+    out["matrix"] = run_matrix("cells")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# spawn's failure handling
+# ---------------------------------------------------------------------------
+
+def fail_on_rank(bad: int) -> int:
+    """Rank ``bad`` raises; the others wait for it in a barrier."""
+    if spmd.dist.get_rank() == bad:
+        raise RuntimeError(f"rank {bad} gives up")
+    spmd.dist.barrier()
+    return spmd.dist.get_rank()
+
+
+def sleep_for(seconds: float) -> None:
+    import time
+    time.sleep(seconds)

@@ -440,6 +440,27 @@ def test_mix_prox_kernel_equals_plain_version_on_card(cuda_device, n,
     assert torch.equal(got, ref.mix_prox_ref(qs, qu, qd, *case))
 
 
+@pytest.mark.parametrize("case", [(1 / 3, 1 / 3, 1 / 3, 0.01),
+                                  (0.5, 0.25, 0.25, 0.3)])
+@pytest.mark.parametrize("n,offset", [(7, 0), (1000, 1), (300_001, 0)])
+def test_mix_prox_kernel_reads_device_weights(cuda_device, n, offset, case):
+    """The weights and threshold read from device memory (one-element
+    tensors, as a node-sharded step passes its staged coefficients): one
+    launch, the plain version's bits, also with only some of them
+    tensors."""
+    qs, qu, qd = _flat(n, 3, n + 2, cuda_device, offset)
+    want = ref.mix_prox_ref(qs, qu, qd, *case)
+    dev = torch.tensor(case, dtype=torch.float32, device=cuda_device)
+    for args in ([dev[0], dev[1], dev[2], dev[3]],
+                 [dev[0], case[1], dev[2], case[3]]):
+        before = ops.launches_mix_prox
+        got = ops.mix_prox(qs, qu, qd, *args)
+        assert ops.launches_mix_prox == before + 1
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="tensor weight"):
+        ops.mix_prox(qs, qu, qd, dev[:2], *case[1:])
+
+
 def test_svrg_mix_kernels_reject_what_they_do_not_take(cuda_device):
     x = torch.zeros(4, 8, device=cuda_device)
     before = (ops.launches_svrg_step, ops.launches_mix_prox)

@@ -137,8 +137,8 @@ def test_exec_spec_defaults_and_kernel_names():
     (dict(sampling="nowhere", resident=True), ValueError),
     (dict(device_transitions="sometimes", resident=True), ValueError),
     (dict(device="not-a-device"), RuntimeError),
-    (dict(resident=True, shard="nodes"), NotImplementedError),
-    (dict(resident=True, mesh=object()), NotImplementedError),
+    (dict(shard="nodes"), ValueError),
+    (dict(resident=True, shard="rows"), ValueError),
 ])
 def test_exec_spec_rejects(kw, err):
     with pytest.raises(err):
@@ -183,19 +183,17 @@ def test_auto_backend_rule_matches_reference(b):
 
 @pytest.mark.parametrize("name", ["banded", "ppermute", "compressed"])
 def test_unported_backends_raise(name):
-    """Only the multi-device ppermute transport is still unported; banded
-    and compressed resolve to the reference's backends."""
+    """Every transport of the reference is ported (ppermute runs over a
+    process group, tests/test_torch_mesh.py): each name resolves to the
+    reference's backend, and an unknown name raises."""
     ts = tgraphs.b_connected_ring_schedule(8, 2)
     meta = _metas(jalgorithm, talgorithm)[1][1]
-    if name in ttransport.UNPORTED_BACKENDS:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-            ttransport.resolve_backend(name, ts, meta)
-    else:
-        backend = ttransport.resolve_backend(name, ts, meta)
-        assert backend.name == jtransport.GOSSIP_BACKENDS[name].name
-        assert type(backend).__name__ == \
-            type(jtransport.GOSSIP_BACKENDS[name]).__name__
-    assert ttransport.UNPORTED_BACKENDS == ("ppermute",)
+    backend = ttransport.resolve_backend(name, ts, meta)
+    assert backend.name == jtransport.GOSSIP_BACKENDS[name].name
+    assert type(backend).__name__ == \
+        type(jtransport.GOSSIP_BACKENDS[name]).__name__
+    assert sorted(ttransport.GOSSIP_BACKENDS) == \
+        sorted(jtransport.GOSSIP_BACKENDS)
     with pytest.raises(ValueError, match="unknown gossip backend"):
         ttransport.resolve_backend("carrier-pigeon", ts, meta)
 

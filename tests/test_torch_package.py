@@ -37,6 +37,25 @@ def test_import_leaves_out_jax_and_the_reference():
     assert out[1].strip() == "[]"
 
 
+@pytest.mark.parametrize("module", ["_torch_mesh_workers",
+                                    "benchmarks.pt_mesh",
+                                    "benchmarks.pt_runner_bench"])
+def test_spawned_workers_leave_out_jax_and_the_reference(module):
+    """The modules whose functions spmd.spawn runs in each rank import the
+    port only."""
+    code = (f"import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            f"print(sorted(k for k in sys.modules\n"
+            f"             if k.split('.')[0] in ('jax', 'jaxlib', "
+            f"'repro')))\n")
+    path = os.pathsep.join([os.path.join(ROOT, "src"), ROOT,
+                            os.path.join(ROOT, "tests")])
+    env = dict(os.environ, PYTHONPATH=path)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, check=True).stdout
+    assert out.strip() == "[]"
+
+
 def test_run_without_cpu_request_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
@@ -101,13 +120,16 @@ def test_params_round_trip_through_numpy():
 
 
 @pytest.mark.parametrize("spec_kw,match", [
-    (dict(gossip="ppermute"), "Queue 1 item 14"),
-    (dict(resident=True, gossip="ppermute"), "Queue 1 item 14"),
+    (dict(gossip="ppermute"), "spmd.spawn"),
+    (dict(resident=True, gossip="ppermute"), "spmd.spawn"),
 ])
 def test_unported_paths_raise_by_name(spec_kw, match):
+    """The ppermute transport runs one node a rank over a process group
+    (tests/test_torch_mesh.py); in a process without one it raises, naming
+    how to start the ranks."""
     _, tp = problems()
     kw = dict(dict(gossip="dense", device="cpu"), **spec_kw)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         trunner.run(build(talgorithm, "dspg", tp), tp,
                     tgraphs.b_connected_ring_schedule(8, 1), TExecSpec(**kw),
                     record_every=10)

@@ -250,10 +250,14 @@ def test_matrix_charges_quantized_rows_less():
         assert int8.wire_bytes * 4 == f32.wire_bytes
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(shard="cells")])
-def test_matrix_refuses_mesh_and_shard_by_name(kw):
+@pytest.mark.parametrize("kw,match", [(dict(shard="cells"), "spmd.spawn"),
+                                      (dict(shard="nodes"), "runner.run")])
+def test_matrix_refuses_mesh_and_shard_by_name(kw, match):
+    """shard="cells" splits each program's cells over a process group
+    (tests/test_torch_mesh_cells.py) and raises without one;
+    shard="nodes" belongs to runner.run."""
     problem, topologies, failures, algorithms = _inputs(TPKG)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+    with pytest.raises(ValueError, match=match):
         tsc.run_matrix(problem, topologies, failures, algorithms,
                        device="cpu", **kw)
 

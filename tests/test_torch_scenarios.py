@@ -242,8 +242,10 @@ def test_wrapper_composition_errors():
                   gossip=tsc_transports.ScenarioBackend())
     with pytest.raises(ValueError, match="compress_bits"):
         tsc_transports.ScenarioBackend(inner="compressed")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        tsc_transports.ScenarioBackend(inner="ppermute")
+    # over ppermute the pipeline needs a process group of m ranks
+    # (tests/test_torch_mesh.py); without one, preparing it says how
+    with pytest.raises(ValueError, match="spmd.spawn"):
+        tsc_transports.ScenarioBackend(inner="ppermute").prepare(ring, None)
 
 
 def test_structure_schedule_exposes_base_for_band_unions():

@@ -78,6 +78,21 @@ def test_plain_versions_round_like_the_kernels():
                      th).numpy(), want)
 
 
+@pytest.mark.parametrize("held", ["all", "weights", "thresh"])
+@pytest.mark.parametrize("case", MIX_CASES)
+def test_mix_prox_weights_as_tensors_equal_floats(case, held):
+    """Weights and threshold given as one-element float32 tensors (what a
+    node-sharded step reads from its staged coefficients) give the bits of
+    the same Python floats, also when only some are tensors."""
+    bufs = [torch.from_numpy(b) for b in _buffers(8, 3, 5)]
+    as_tensor = {"all": (1, 1, 1, 1), "weights": (1, 1, 1, 0),
+                 "thresh": (0, 0, 0, 1)}[held]
+    args = [torch.tensor(v, dtype=torch.float32) if t else v
+            for v, t in zip(case, as_tensor)]
+    np.testing.assert_array_equal(ops.mix_prox(*bufs, *args).numpy(),
+                                  ops.mix_prox(*bufs, *case).numpy())
+
+
 @pytest.mark.parametrize("shape", [(1,), (7,), (1000,), (3, 5, 7)])
 def test_any_shape_on_the_cpu_runs_the_plain_version(shape):
     rng = np.random.default_rng(len(shape))

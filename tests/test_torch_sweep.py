@@ -401,12 +401,12 @@ def test_batched_sweep_needs_the_traced_transitions():
 
 
 @pytest.mark.parametrize("spec_kw", [dict(shard="cells"),
-                                     dict(mesh=object())])
+                                     dict(gossip="ppermute")])
 def test_unported_sweep_paths_raise_by_name(spec_kw):
-    """scan=True and sampling="device" sweeps run now
-    (tests/test_torch_exec_modes.py); what stays unported is multi-device
-    execution, refused by name when the spec is built."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+    """Cell-sharded sweeps and the ppermute transport run over a process
+    group (tests/test_torch_mesh*.py); in a process without one they
+    raise, naming how to start the ranks."""
+    with pytest.raises(ValueError, match="spmd.spawn"):
         tsweep.run_sweep(_builds("dspg")[1], {"seed": [0]}, _sched(tgraphs),
                          _tspec(**spec_kw))
 

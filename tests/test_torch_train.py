@@ -358,11 +358,14 @@ def test_unported_paths_raise_by_roadmap_item():
             ttrainer.train_loop(TCFG, TPROX, _tsched(), _tloader(),
                                 ttrainer.TrainerConfig(**_tc()),
                                 exec=TExecSpec(device="cpu"), **kw)
-    # the reference refuses shard= in train_loop (ValueError); the port's
-    # ExecSpec refuses it on construction, as multi-device work
+    # the reference refuses shard= in train_loop (ValueError); the port
+    # refuses it, as multi-device work of the LM half (item 14 (b))
     for shard in ("cells", "nodes"):
         with pytest.raises(NotImplementedError, match="item 14"):
-            TExecSpec(resident=True, shard=shard, device="cpu")
+            ttrainer.train_loop(TCFG, TPROX, _tsched(), _tloader(),
+                                ttrainer.TrainerConfig(**_tc()),
+                                exec=TExecSpec(resident=True, shard=shard,
+                                               device="cpu"))
 
 
 def test_train_loop_needs_a_card_unless_asked_for_the_cpu():

@@ -186,8 +186,9 @@ def test_sweep_rejects_device_sampling():
 
 
 def test_sweep_rejects_node_sharding():
-    """The reference refuses shard='nodes' in train_sweep; the port's
-    ExecSpec refuses every shard on construction, as multi-device work."""
+    """The reference refuses shard='nodes' in train_sweep; the port
+    refuses every shard there, as multi-device work of the LM half
+    (ROADMAP Queue 1 item 14 (b))."""
     with pytest.raises(ValueError, match="shard='cells'"):
         _refused("jax", spec=dict(resident=True, shard="nodes"))
     with pytest.raises(NotImplementedError, match="item 14"):

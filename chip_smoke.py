@@ -308,7 +308,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     NCCL, two DSPG steps over ppermute traced and read by
     ``launch.roofline.collective_bytes`` (``mesh_trace_events``: the
     trace's ``record_param_comms`` events);
-31. prints the card, a ``{"kernels": [...]}`` line (all seven kernels,
+31. (run right after phase 30) the LM path across ranks
+    (``benchmarks/pt_mesh_lm.py``, ``mesh_lm`` line): 4 ranks on a
+    (data=2, model=2) mesh (``launch.mesh.make_mesh``; over gloo, the
+    placed tensors' collectives host-staged, as the ranks share the card;
+    over NCCL with 4 cards) run h2o-danube-1.8b at full width cut to 2 of
+    its 24 layers: ``train_loop(mesh=, plan=)`` with m = 2 (a refresh and
+    4 DPSVRG steps), held to the unsharded card run (params within 5e-5,
+    losses within 1e-5, wire bytes exactly), and sharded serving (a
+    512-token prefill and 8 decode steps of 2 requests through flash and
+    RMSNorm on each rank's heads and rows), its tokens equal to the
+    unsharded run's and its logits within 1e-3, each rank's launches
+    counted against the layers, both kernels held to their plain versions
+    on a rank's shard shapes, and, over NCCL, a refresh and a step traced
+    and read by ``launch.roofline.collective_bytes``;
+32. prints the card, a ``{"kernels": [...]}`` line (all seven kernels,
     each with its ``share_of_bound``; RMSNorm and flash also with
     ``launches_consensus_serve``, phase 16's count,
     ``launches_{stablelm,scout,maverick,xlstm,jamba,whisper,llava}_serve``,
@@ -319,11 +333,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     count, and fused_step with the single launches of phase 17's
     sequential runs; fused_step and fused_step_cells with
     ``launches_exec_modes``, phase 19's counts; svrg_step, mix_prox and
-    fused_step_cells with ``launches_mesh``, phase 30's on rank 0),
+    fused_step_cells with ``launches_mesh``, phase 30's on rank 0;
+    RMSNorm and flash with ``launches_mesh_lm_per_rank``, phase 31's),
     and last ``{"ok": true, "device": {...}}``.  (Until phase 21 came,
     these final lines were phase 20; until phase 25, phase 25; until
     phase 27, phase 27; until phase 29, phase 29; until phase 30, phase
-    30.)
+    30; until phase 31, phase 31.)
 
 Needs one card; exits non-zero without one, and without the repository
 around it.
@@ -378,7 +393,7 @@ from repro_torch.serve.scheduler import (ContinuousBatcher,  # noqa: E402
                                          Request, modality_inputs)
 from repro_torch.train import steps, trainer  # noqa: E402
 from benchmarks import pt_common, pt_kernel_bench  # noqa: E402
-from benchmarks import pt_mesh, pt_serve_bench  # noqa: E402
+from benchmarks import pt_mesh, pt_mesh_lm, pt_serve_bench  # noqa: E402
 
 # the card's rates from the package's one table (launch/roofline.py's HW,
 # NVIDIA's H100 SXM data sheet, dense): device memory, and peak operation
@@ -3538,6 +3553,37 @@ def mesh_phase(device="cuda", scale: float = FIG_SCALE,
         "fused_step_cells": runs["cells_fig1"]["launches"]["launches_cells"]}}
 
 
+def mesh_lm_phase(device="cuda") -> dict:
+    """Phase 31: ``benchmarks/pt_mesh_lm.run`` (4 ranks on a (data=2,
+    model=2) mesh: danube at full width cut to 2 layers, trained on the
+    host loop with m = 2 and served, each held to its unsharded run on this
+    process's device).  On the card every rank's flash and RMSNorm counts
+    are set to 0 before its sharded serving and read after it: flash once
+    a layer (one prefill, on the rank's 16 / 4 heads), RMSNorm twice a
+    layer and once more a forward (the prefill and each decode step, on
+    the rank's rows); the wire must be the backend's.  Returns the phase's
+    summary with the launches of rank 0.  Rehearse it on the CPU with
+    ``device="cpu"`` and ``pt_mesh_lm.config`` at a smoke size (the
+    counts are 0 off the card)."""
+    t0 = time.perf_counter()
+    summary = pt_mesh_lm.run(device)
+    if torch.device(device).type == "cuda":
+        want = {"flash_attention": pt_mesh_lm.LAYERS,
+                "rmsnorm": (pt_mesh_lm.NEW + 1)
+                * (2 * pt_mesh_lm.LAYERS + 1)}
+        for rank, got in enumerate(summary["launches_per_rank"]):
+            if got != want:
+                fail(f"mesh_lm rank {rank}: launches {got}, want {want}")
+        errs = summary["kernels_vs_plain"]
+        if max(errs["flash"], errs["rmsnorm"]) > 2e-5:
+            fail(f"mesh_lm: flash / RMSNorm differ from their plain "
+                 f"versions on a rank's shard: {errs}")
+    summary["phase_s"] = time.perf_counter() - t0
+    print("mesh_lm " + json.dumps(summary), flush=True)
+    return {"summary": summary,
+            "launches": dict(summary["launches_per_rank"][0])}
+
+
 # ---------------------------------------------------------------------------
 # phases 21-24: stablelm-12b and the llama4 MoE configs at full width, and
 # MoE training at smoke size
@@ -4950,6 +4996,14 @@ def main() -> None:
     print(f"phase 30 (mesh): {time.perf_counter() - t0:.1f} s ({card})",
           flush=True)
 
+    # phase 31: the LM path across ranks (danube at full width, 2 layers,
+    # on a (data=2, model=2) mesh), trained and served
+    _free_card()
+    t0 = time.perf_counter()
+    mesh_lm = mesh_lm_phase(device)
+    print(f"phase 31 (mesh_lm): {time.perf_counter() - t0:.1f} s ({card})",
+          flush=True)
+
     # phases 21-23: stablelm-12b, llama4-scout and llama4-maverick served at
     # full width; phase 24: MoE training at smoke size
     served = {}
@@ -5057,6 +5111,11 @@ def main() -> None:
         # phase 30: rank 0's launches across its sharded runs
         if row["name"] in mesh["launches"]:
             row["launches_mesh"] = mesh["launches"][row["name"]]
+        # phase 31: rank 0's launches in its sharded serving (each rank's
+        # are the same)
+        if row["name"] in mesh_lm["launches"]:
+            row["launches_mesh_lm_per_rank"] = \
+                mesh_lm["launches"][row["name"]]
         # phases 21-23 serve stablelm-12b (flash float32), llama4-scout
         # (flash float32 on its global layer, RMSNorm) and llama4-maverick
         # (RMSNorm bf16); phases 25-26 xlstm-350m (RMSNorm) and

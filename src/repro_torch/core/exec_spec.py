@@ -37,7 +37,9 @@ Fields:
   the mesh's ``"cells"`` dim; ``run_sweep`` only) | ``"nodes"`` (split the
   stacked ``(m, ...)`` node axis of a resident run over the mesh, each rank
   holding its rows; ``runner.run`` only).  Both need ``resident=True``.
-  The LM trainer refuses both (ROADMAP Queue 1 item 14 (b)).
+  The LM trainer takes ``"cells"`` in ``train_sweep`` and refuses
+  ``"nodes"``, as the reference does; its sharded state is
+  ``train_loop(mesh=, plan=)`` on the host loop.
 
 Cross-field constraints are validated at construction.
 """

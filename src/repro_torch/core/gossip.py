@@ -423,7 +423,9 @@ def shard_phi(phi, mesh, axis: str):
     :class:`PermutePhi`, which already mixes each rank's row."""
     if isinstance(phi, (GatheredPhi, PermutePhi)):
         return phi
-    inner = getattr(phi, "inner", None)
+    # a dense tensor's ``inner`` is torch.inner, not a wrapped phi
+    inner = None if isinstance(phi, (torch.Tensor, np.ndarray)) \
+        else getattr(phi, "inner", None)
     if inner is None:
         return GatheredPhi(phi, mesh, axis)
     out = copy.copy(phi)

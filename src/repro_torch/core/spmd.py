@@ -27,6 +27,13 @@ ranks goes through this module, and nowhere else:
   No wire falls back to another: NCCL over fewer cards than ranks raises
   (:func:`check_backend`); :func:`backend_for` picks NCCL where each
   rank has a card, gloo otherwise.
+* **Placed tensors** (``torch.distributed.tensor``, the LM path's sharded
+  weights) exchange through PyTorch's functional collectives.  Over gloo
+  their CUDA implementations crash the rank, so on ranks that share a
+  card :func:`stage_placed_collectives` reroutes them through host
+  buffers on the same gloo group (the ``gloo-host-staged`` wire, by name):
+  each collective copies its operand to the host, runs the plain gloo
+  collective there and copies the result back, before it returns.
 * **Launching**: :func:`spawn` starts ``world`` fresh processes, joins them
   through a ``file://`` store in a temporary directory (no port to clash
   on), runs a module-level function in each and returns each rank's result,
@@ -55,7 +62,8 @@ __all__ = ["WIRES", "require_group", "backend_for", "check_backend",
            "world_mesh",
            "mesh_shape", "NodeAxis", "node_axis", "wire_name", "shift",
            "all_gather_rows", "all_reduce_sum", "all_gather_object",
-           "local_problem", "spawn"]
+           "local_problem", "stage_placed_collectives", "placed_wire",
+           "spawn"]
 
 WIRES = ("nccl", "gloo", "gloo-host-staged")
 
@@ -213,6 +221,102 @@ def all_gather_object(obj, group=None) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The functional collectives of placed tensors, host-staged over gloo
+# ---------------------------------------------------------------------------
+
+_STAGED: dict = {}     # dispatch key -> the torch.library holding the impls
+
+
+def _group(name):
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return _resolve_process_group(name)
+
+
+def _on_host(x: torch.Tensor) -> torch.Tensor:
+    return x.detach().contiguous().cpu()
+
+
+def _reduced(x: torch.Tensor, op: str, name) -> torch.Tensor:
+    """The reduction of ``x`` over the group (a new host tensor); gloo has
+    no average, so ``"avg"`` is the sum over the group's size."""
+    group = _group(name)
+    buf = _on_host(x).clone()
+    ops = {"sum": dist.ReduceOp.SUM, "avg": dist.ReduceOp.SUM,
+           "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN,
+           "product": dist.ReduceOp.PRODUCT}
+    dist.all_reduce(buf, op=ops[op.lower()], group=group)
+    return buf / dist.get_world_size(group) if op.lower() == "avg" else buf
+
+
+def _staged_all_gather(x, group_size, name):
+    out = torch.empty((group_size * x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype)
+    dist.all_gather_into_tensor(out, _on_host(x), group=_group(name))
+    return out.to(x.device)
+
+
+def _staged_all_reduce(x, op, name):
+    return _reduced(x, op, name).to(x.device)
+
+
+def _staged_all_reduce_(x, op, name):
+    return x.copy_(_reduced(x, op, name))
+
+
+def _staged_reduce_scatter(x, op, group_size, name):
+    index = dist.get_rank(_group(name))
+    return _reduced(x, op, name).chunk(group_size)[index].to(x.device)
+
+
+def _staged_all_to_all(x, out_splits, in_splits, name):
+    rows = sum(out_splits) if out_splits else x.shape[0]
+    out = torch.empty((rows,) + tuple(x.shape[1:]), dtype=x.dtype)
+    dist.all_to_all_single(out, _on_host(x), list(out_splits) or None,
+                           list(in_splits) or None, group=_group(name))
+    return out.to(x.device)
+
+
+def stage_placed_collectives(device_type: str = "cuda") -> None:
+    """Route the functional collectives of tensors on ``device_type``
+    (``_c10d_functional``'s all-gather, all-reduce, reduce-scatter and
+    all-to-all, what DTensor's redistributions call) through host buffers
+    on their gloo group: each runs the plain collective on host copies and
+    returns the result on the operand's device, done (its wait is a
+    no-op).  Once a process; the ranks of a card shared over gloo install
+    it for ``"cuda"`` (:func:`placed_wire`)."""
+    if device_type in _STAGED:
+        return
+    key = {"cuda": "CUDA", "cpu": "CPU"}[device_type]
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    for op, fn in (("all_gather_into_tensor", _staged_all_gather),
+                   ("all_reduce", _staged_all_reduce),
+                   ("all_reduce_", _staged_all_reduce_),
+                   ("reduce_scatter_tensor", _staged_reduce_scatter),
+                   ("all_to_all_single", _staged_all_to_all),
+                   ("all_gather_into_tensor_coalesced",
+                    lambda xs, n, name: [_staged_all_gather(x, n, name)
+                                         for x in xs]),
+                   ("reduce_scatter_tensor_coalesced",
+                    lambda xs, op, n, name: [
+                        _staged_reduce_scatter(x, op, n, name) for x in xs]),
+                   ("all_reduce_coalesced",
+                    lambda xs, op, name: [_staged_all_reduce(x, op, name)
+                                          for x in xs])):
+        lib.impl(op, fn, key)
+    _STAGED[device_type] = lib
+
+
+def placed_wire(mesh) -> str:
+    """The wire of a mesh's placed tensors: ``"nccl"``, ``"gloo"`` (CPU
+    tensors) or ``"gloo-host-staged"`` (a CUDA mesh over gloo: ranks that
+    share a card), installing the staged collectives for the last."""
+    wire = wire_name(mesh.get_group(0), mesh.device_type)
+    if wire == "gloo-host-staged":
+        stage_placed_collectives("cuda")
+    return wire
+
+
 def local_problem(problem, mesh=None, axis: str = "nodes"):
     """``problem`` (an ``algorithm.Problem`` whose ``x0`` and
     ``full_data`` lead with the ``m`` nodes) cut to this rank's rows of
@@ -305,9 +409,11 @@ def spawn(fn: Callable, world: int, *, backend: str = "gloo",
     results: dict = {}
     deadline = time.monotonic() + timeout
     done = False
+    started = []
     try:
         for p in procs:
             p.start()
+            started.append(p)
         while len(results) < world:
             left = deadline - time.monotonic()
             if left <= 0:
@@ -330,8 +436,10 @@ def spawn(fn: Callable, world: int, *, backend: str = "gloo",
             results[rank] = payload
         done = True
     finally:
-        # after a failure the other ranks may wait in a collective: kill
-        for p in procs:
+        # after a failure the other ranks may wait in a collective: kill.
+        # Only the processes that started can be joined: when a start
+        # fails, its error is the one the caller gets
+        for p in started:
             p.join(timeout=5.0 if done else 0.0)
             if p.is_alive():
                 p.kill()

@@ -16,8 +16,10 @@ Config-driven front end for ``trainer.train_loop`` at the smoke variant of
     window next to the in-memory history,
   * ``--device``: ``cuda`` (the default) or ``cpu``.
 
-The reference's ``--mesh`` (sharded state) is multi-device work (ROADMAP
-Queue 1 item 14 (b)).
+The reference's module docstring names a ``--mesh single|multi`` flag,
+but its parser has no such flag, and neither has this one: sharded
+training is ``trainer.train_loop(mesh=, plan=)``, called on every rank
+(``core.spmd``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \
         --steps 50 --ckpt-dir /tmp/run0 --ckpt-every 25 \

@@ -19,7 +19,7 @@ import math
 
 from . import attention, moe as moe_lib, ssm
 
-__all__ = ["ModelConfig", "LayerPlan", "layer_plan", "check_supported",
+__all__ = ["ModelConfig", "LayerPlan", "layer_plan",
            "scan_group_size"]
 
 
@@ -69,7 +69,9 @@ class ModelConfig:
     # card); layernorm configs ignore it
     use_fused_norm: bool = False
     max_position: int = 1 << 20
-    # multi-device activation sharding: not ported, a set value raises
+    # multi-device activation sharding of q/k/v (batch axis, head axis),
+    # applied on placed operands (see AttnSpec.shard_constraint); set by
+    # the launcher, None by default
     attn_shard_constraint: tuple | None = None
 
     # --- SSM ----------------------------------------------------------------
@@ -113,15 +115,6 @@ class LayerPlan:
     slstm: ssm.SLstmSpec | None = None
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError``, by ROADMAP item, for what the port has
-    not ported yet: multi-device sharding constraints."""
-    if cfg.attn_shard_constraint is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: attention sharding constraints are multi-device "
-            "work, not ported yet (ROADMAP Queue 1 item 14 (b))")
-
-
 def scan_group_size(cfg: ModelConfig) -> int | None:
     """Size of the repeating layer group the JAX package scans over (with
     remat), or None if the stack is not periodic-divisible.  The port runs
@@ -157,11 +150,11 @@ def _attn_spec(cfg: ModelConfig, i: int) -> attention.AttnSpec:
         sliding_window=sw, chunk=chunk, softcap=cfg.attn_softcap,
         causal=True, cross=False, use_rope=use_rope,
         rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
-        use_flash=cfg.use_flash)
+        use_flash=cfg.use_flash,
+        shard_constraint=cfg.attn_shard_constraint)
 
 
 def layer_plan(cfg: ModelConfig) -> list[LayerPlan]:
-    check_supported(cfg)
     plans = []
     for i in range(cfg.num_layers):
         mixer = cfg.mixer_pattern[i % len(cfg.mixer_pattern)]

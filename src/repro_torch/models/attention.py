@@ -26,7 +26,7 @@ import math
 
 import torch
 
-from . import common
+from . import common, placed
 
 __all__ = ["AttnSpec", "init_attention", "attention_forward",
            "init_kv_cache", "attention_decode", "attention_prefill",
@@ -50,7 +50,9 @@ class AttnSpec:
     rope_theta: float = 10000.0
     qk_norm: bool = False
     use_flash: bool = False
-    # multi-device activation sharding: not ported, a set value raises
+    # multi-device activation sharding (batch axis, head axis) of q, k and
+    # v on placed (DTensor) operands; raises on plain ones, as the
+    # reference's with_sharding_constraint does without a mesh
     shard_constraint: tuple | None = None
 
 
@@ -134,13 +136,6 @@ def _flash_ok(spec: AttnSpec, kv_src, positions) -> bool:
             and spec.shard_constraint is None)
 
 
-def _check_spec(spec: AttnSpec):
-    if spec.shard_constraint is not None:
-        raise NotImplementedError(
-            "attention sharding constraints are multi-device work, not "
-            "ported yet (ROADMAP Queue 1 item 14 (b))")
-
-
 def attention_forward(params, spec: AttnSpec, x, kv_src=None, positions=None):
     """Training/prefill forward without cache.  x: (B, S, d)."""
     return _forward(params, spec, x, kv_src, positions)[0]
@@ -150,7 +145,6 @@ def _forward(params, spec: AttnSpec, x, kv_src=None, positions=None):
     """attention_forward's output, with the RoPE'd k and v (B, S, KV, hd)
     it attended over, so that prefill caches them without projecting
     twice."""
-    _check_spec(spec)
     b, s, _ = x.shape
     q, k, v = _qkv(params, spec, x, kv_src)
     sk = k.shape[1]
@@ -164,13 +158,19 @@ def _forward(params, spec: AttnSpec, x, kv_src=None, positions=None):
         k = common.apply_rope(k, kcos, ksin)
     if _flash_ok(spec, kv_src, positions):
         from ..kernels.flash_attention import ops as fa_ops
-        out = fa_ops.flash_attention(          # handles GQA: k/v unrepeated
-            q, k, v, causal=True, sliding_window=spec.sliding_window,
-            softcap=spec.softcap)
+        # handles GQA: k/v unrepeated
+        out = placed.attention_core(
+            lambda q_, k_, v_: fa_ops.flash_attention(
+                q_, k_, v_, causal=True, sliding_window=spec.sliding_window,
+                softcap=spec.softcap), q, k, v)
         return _merge_heads(out) @ params["wo"], k, v
+    if spec.shard_constraint is not None:
+        q, k, v = placed.constrain(spec.shard_constraint, q, k, v)
     bias = _mask_bias(spec, q_pos, k_pos)
-    out = _sdpa(spec, q, _repeat_kv(k, spec.num_heads),
-                _repeat_kv(v, spec.num_heads), bias)
+    # each rank's heads, repeated to its own query heads
+    out = placed.attention_core(
+        lambda q_, k_, v_: _sdpa(spec, q_, _repeat_kv(k_, q_.shape[2]),
+                                 _repeat_kv(v_, q_.shape[2]), bias), q, k, v)
     return _merge_heads(out) @ params["wo"], k, v
 
 
@@ -206,7 +206,18 @@ def attention_prefill(params, spec: AttnSpec, x, positions=None,
     """
     b, s, _ = x.shape
     out, k, v = _forward(params, spec, x, positions=positions)
-    cache = init_kv_cache(b, max(max_len or s, s), spec, x.dtype, x.device)
+    total = max(max_len or s, s)
+    # on placed operands each rank fills its batch rows and heads of the
+    # cache, which keeps the layout of k and v
+    return out, placed.cache_core(
+        lambda k_, v_: _fill_cache(spec, k_, v_, total), k, v,
+        (b, kv_alloc(spec, total)) + tuple(k.shape[2:]))
+
+
+def _fill_cache(spec: AttnSpec, k, v, max_len: int) -> dict:
+    b, s = k.shape[:2]
+    cache = init_kv_cache(b, max_len, dataclasses.replace(
+        spec, num_kv_heads=k.shape[2]), k.dtype, k.device)
     alloc = cache["k"].shape[1]
     if s >= alloc:
         # keep the last `alloc` positions, rolled so slot == position % alloc
@@ -216,7 +227,7 @@ def attention_prefill(params, spec: AttnSpec, x, positions=None,
     else:
         cache["k"][:, :s] = k
         cache["v"][:, :s] = v
-    return out, cache
+    return cache
 
 
 def attention_decode(params, spec: AttnSpec, x, cache, pos):
@@ -227,7 +238,6 @@ def attention_decode(params, spec: AttnSpec, x, cache, pos):
     all past positions (entries beyond each row's ``pos`` are masked out).
     The new key and value are written into ``cache`` in place.
     """
-    _check_spec(spec)
     b = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     pos = torch.broadcast_to(pos, (b,)).to(torch.int64)         # (B,)
@@ -237,16 +247,27 @@ def attention_decode(params, spec: AttnSpec, x, cache, pos):
                                       spec.rope_theta)           # (B,1,half)
         q = common.apply_rope(q, cos, sin)
         k_new = common.apply_rope(k_new, cos, sin)
-    k_cache, v_cache = cache["k"], cache["v"]
+    # on placed operands each rank attends over its batch rows and heads
+    out, cache = placed.decode_core(
+        lambda *a: _decode_core(spec, pos, *a), q, k_new, v_new, cache)
+    return _merge_heads(out) @ params["wo"], cache
+
+
+def _decode_core(spec: AttnSpec, pos, q, k_new, v_new, k_cache, v_cache,
+                 rows):
+    """Attention of q (B, 1, H, hd) over the cache after writing k_new and
+    v_new into it, for the batch ``rows`` of ``pos``."""
+    b = q.shape[0]
+    pos = pos[rows]
     alloc = k_cache.shape[1]
     slot = pos % alloc                                           # (B,)
-    rows = torch.arange(b, device=x.device)
-    k_cache[rows, slot] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[rows, slot] = v_new[:, 0].to(v_cache.dtype)
+    brows = torch.arange(b, device=q.device)
+    k_cache[brows, slot] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[brows, slot] = v_new[:, 0].to(v_cache.dtype)
 
     # absolute position of each cache slot (ring-buffer aware), per row:
     # slot s holds the largest p <= pos with p % alloc == s
-    slots = torch.arange(alloc, device=x.device)[None, :]       # (1, alloc)
+    slots = torch.arange(alloc, device=q.device)[None, :]       # (1, alloc)
     p = pos[:, None]                                             # (B, 1)
     abs_pos = p - torch.remainder(p - slots, alloc)              # (B, alloc)
     valid = abs_pos >= 0
@@ -257,12 +278,12 @@ def attention_decode(params, spec: AttnSpec, x, cache, pos):
             torch.div(p, spec.chunk, rounding_mode="floor")
     if spec.causal and not spec.cross:
         valid &= abs_pos <= p
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
     bias = torch.where(valid, zero, torch.full_like(zero, NEG_INF))
 
     # grouped-query form: each kv head serves its group of query heads, so
     # the cache is never repeated to H heads (the JAX package broadcasts it)
-    h, kv, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    h, kv, hd = q.shape[2], k_cache.shape[2], spec.head_dim
     qg = q[:, 0].reshape(b, kv, h // kv, hd)                     # (B,KV,r,hd)
     kt = k_cache.permute(0, 2, 3, 1)                             # (B,KV,hd,A)
     scale = 1.0 / math.sqrt(hd)
@@ -271,8 +292,7 @@ def attention_decode(params, spec: AttnSpec, x, cache, pos):
     logits = logits + bias[:, None, None, :]
     probs = torch.softmax(logits, dim=-1).to(v_cache.dtype)
     out = torch.matmul(probs, v_cache.permute(0, 2, 1, 3))      # (B,KV,r,hd)
-    out = out.reshape(b, 1, h * hd)
-    return out @ params["wo"], cache
+    return out.reshape(b, 1, h, hd)
 
 
 def cross_attention_cache(params, spec: AttnSpec, enc_out):

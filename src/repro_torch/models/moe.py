@@ -25,7 +25,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from . import common
+from . import common, placed
 
 __all__ = ["MoESpec", "init_moe", "moe_forward", "route", "capacity"]
 
@@ -117,7 +117,26 @@ def route(params, spec: MoESpec, xt):
 
 
 def _moe_tokens(params, spec: MoESpec, xt):
-    """xt: (T, d) -> (y (T, d), aux)."""
+    """xt: (T, d) -> (y (T, d), aux).  On placed parameters the experts
+    split over ranks compute their own tokens (``placed.moe_tokens``)."""
+    return placed.moe_tokens(
+        lambda p, x, mine: _routed(p, spec, x, mine),
+        lambda p, x: _shared(p, spec, x), params, xt)
+
+
+def _shared(params, spec: MoESpec, xt):
+    """The always-on shared expert's output, or None."""
+    if not spec.shared_expert:
+        return None
+    return (F.silu(xt @ params["shared_gate"])
+            * (xt @ params["shared_up"])) @ params["shared_down"]
+
+
+def _routed(params, spec: MoESpec, xt, mine: slice):
+    """The routed experts' output and the aux over ``xt`` (T, d), of the
+    experts in the slice ``mine`` of the expert axis (whose weights
+    ``params`` holds): routing over every expert, the FFN and the combine
+    over the slice's."""
     t, d = xt.shape
     e, k = spec.num_experts, spec.top_k
     cap = capacity(spec, t)
@@ -140,6 +159,9 @@ def _moe_tokens(params, spec: MoESpec, xt):
         buf = buf + padded[:, :cap]
 
     # expert FFN (SwiGLU), batched over experts
+    lo, n = mine.start or 0, params["w_gate"].shape[0]
+    if n < e:
+        buf = buf[lo:lo + n]
     h = torch.matmul(buf, params["w_gate"])
     u = torch.matmul(buf, params["w_up"])
     out = torch.matmul(F.silu(h) * u, params["w_down"]).to(xt.dtype)
@@ -152,10 +174,11 @@ def _moe_tokens(params, spec: MoESpec, xt):
         gate = torch.where(keeps[:, choice], gate_vals[:, choice],
                            0.0).to(xt.dtype)
         safe_slot = torch.clamp(slots[:, choice], max=cap - 1)
-        y = y + out[expert_idx[:, choice], safe_slot] * gate[:, None]
-
-    if spec.shared_expert:
-        sh = (F.silu(xt @ params["shared_gate"])
-              * (xt @ params["shared_up"])) @ params["shared_down"]
-        y = y + sh
+        idx = expert_idx[:, choice]
+        if n < e:
+            # another rank's expert adds nothing here
+            idx = idx - lo
+            gate = torch.where((idx >= 0) & (idx < n), gate, 0.0)
+            idx = torch.clamp(idx, 0, n - 1)
+        y = y + out[idx, safe_slot] * gate[:, None]
     return y, aux

@@ -44,10 +44,10 @@ import math
 from typing import Any
 
 import torch
-import torch.nn.functional as F
 from torch.utils import _pytree as pytree
 
-from . import attention, common, ffn as ffn_lib, moe as moe_lib, ssm
+from . import attention, common, ffn as ffn_lib, moe as moe_lib, placed, \
+    ssm
 from .api import LayerPlan, ModelConfig, layer_plan
 
 __all__ = ["init_params", "forward", "loss_fn", "prefill", "decode_step",
@@ -68,8 +68,8 @@ def _init_norm(cfg: ModelConfig, dtype, device):
 def _apply_norm(cfg: ModelConfig, p, x):
     if cfg.norm == "rmsnorm":
         if cfg.use_fused_norm:
-            from ..kernels.rmsnorm import ops as rmsnorm_ops
-            return rmsnorm_ops.rmsnorm(x, p["w"])
+            # on placed activations, the kernel on each rank's rows
+            return placed.rmsnorm_kernel(x, p["w"])
         return common.rms_norm(x, p["w"])
     return common.layer_norm(x, p["w"], p["b"])
 
@@ -195,11 +195,14 @@ def _block_forward(cfg: ModelConfig, plan: LayerPlan, p, x, enc_out=None):
     if plan.mixer == "attn":
         mix = attention.attention_forward(p["attn"], plan.attn, h)
     elif plan.mixer == "mamba":
-        mix = ssm.mamba_forward(p["mamba"], plan.mamba, h)
+        mix = placed.replicated_call(ssm.mamba_forward, p["mamba"],
+                                     plan.mamba, h)
     elif plan.mixer == "mlstm":
-        mix = ssm.mlstm_forward(p["mlstm"], plan.mlstm, h)
+        mix = placed.replicated_call(ssm.mlstm_forward, p["mlstm"],
+                                     plan.mlstm, h)
     else:
-        mix = ssm.slstm_forward(p["slstm"], plan.slstm, h)
+        mix = placed.replicated_call(ssm.slstm_forward, p["slstm"],
+                                     plan.slstm, h)
     x = _mixer_residual(cfg, p, x, mix)
     if enc_out is not None:
         cc = attention.cross_attention_cache(p["cross"], _cross_spec(plan),
@@ -252,10 +255,12 @@ def _embed_inputs(cfg: ModelConfig, params, tokens, image_embeds=None,
                   position_offset: int = 0):
     """(x, prefix): the embedded tokens, after the projected image rows
     where there are any (prefix = their count)."""
-    # F.embedding, not indexing: the same rows, and under the trainer's
-    # vmap over nodes its backward sums repeated tokens in a fixed order,
-    # where indexing's batched backward does not (a resume must be bitwise)
-    x = _embed_scale(cfg, F.embedding(tokens, params["embed"]))
+    # F.embedding (placed.embedding's plain route), not indexing: the same
+    # rows, and under the trainer's vmap over nodes its backward sums
+    # repeated tokens in a fixed order, where indexing's batched backward
+    # does not (a resume must be bitwise); a placed table is looked up
+    # vocab-parallel over its split rows
+    x = _embed_scale(cfg, placed.embedding(tokens, params["embed"]))
     prefix = 0
     if image_embeds is not None:
         img = image_embeds.to(x.dtype) @ params["vision_proj"]
@@ -273,7 +278,7 @@ def _lm_logits(cfg: ModelConfig, params, x):
         logits = x @ params["embed"].T
     else:
         logits = x @ params["lm_head"]
-    logits = logits.to(getattr(torch, cfg.logit_dtype))
+    logits = placed.whole_last_dim(logits).to(getattr(torch, cfg.logit_dtype))
     return common.softcap(logits, cfg.final_softcap)
 
 
@@ -367,13 +372,16 @@ def prefill(cfg: ModelConfig, params, tokens, image_embeds=None,
                                                   max_len=max_len)
             entry = {"kv": kv}
         elif plan.mixer == "mamba":
-            mix, st = _mamba_prefill(p["mamba"], plan.mamba, h)
+            mix, st = placed.replicated_call(_mamba_prefill, p["mamba"],
+                                             plan.mamba, h)
             entry = {"mamba": st}
         elif plan.mixer == "mlstm":
-            mix, st = _mlstm_prefill(p["mlstm"], plan.mlstm, h)
+            mix, st = placed.replicated_call(_mlstm_prefill, p["mlstm"],
+                                             plan.mlstm, h)
             entry = {"mlstm": st}
         else:
-            mix, st = _slstm_prefill(p["slstm"], plan.slstm, h)
+            mix, st = placed.replicated_call(_slstm_prefill, p["slstm"],
+                                             plan.slstm, h)
             entry = {"slstm": st}
         x = _mixer_residual(cfg, p, x, mix)
         if enc_out is not None:
@@ -416,8 +424,13 @@ def decode_step(cfg: ModelConfig, params, cache, token):
     returned cache holds the same buffers, the new SSM states and the
     advanced positions."""
     plans = layer_plan(cfg)
-    pos = torch.broadcast_to(cache["pos"].to(torch.int32), (token.shape[0],))
-    x = _embed_scale(cfg, params["embed"][token][:, None, :])
+    pos = cache["pos"]
+    if placed.is_placed(pos):
+        pos = pos.full_tensor()
+    pos = torch.broadcast_to(pos.to(torch.int32), (token.shape[0],))
+    embed = params["embed"]
+    x = _embed_scale(cfg, placed.embedding(token, embed)[:, None, :]
+                     if placed.is_placed(embed) else embed[token][:, None, :])
     if not cfg.use_rope:
         x = x + params["pos_embed"][torch.clamp(
             pos, max=params["pos_embed"].shape[0] - 1)][:, None, :]
@@ -429,16 +442,16 @@ def decode_step(cfg: ModelConfig, params, cache, token):
                                                  entry["kv"], pos)
             new_entry = dict(entry, kv=kv)
         elif plan.mixer == "mamba":
-            mix, st = ssm.mamba_step(p["mamba"], plan.mamba, h,
-                                     entry["mamba"])
+            mix, st = placed.replicated_call(ssm.mamba_step, p["mamba"],
+                                             plan.mamba, h, entry["mamba"])
             new_entry = dict(entry, mamba=st)
         elif plan.mixer == "mlstm":
-            mix, st = ssm.mlstm_step(p["mlstm"], plan.mlstm, h,
-                                     entry["mlstm"])
+            mix, st = placed.replicated_call(ssm.mlstm_step, p["mlstm"],
+                                             plan.mlstm, h, entry["mlstm"])
             new_entry = dict(entry, mlstm=st)
         else:
-            mix, st = ssm.slstm_step(p["slstm"], plan.slstm, h,
-                                     entry["slstm"])
+            mix, st = placed.replicated_call(ssm.slstm_step, p["slstm"],
+                                             plan.slstm, h, entry["slstm"])
             new_entry = dict(entry, slstm=st)
         x = _mixer_residual(cfg, p, x, mix)
         if "cross" in entry:

@@ -3,18 +3,18 @@ paper's DPSVRG / DSPG update as the data-parallel training rule of the
 model zoo.
 
 * :mod:`.steps` — ``TrainState``, ``build_train_step`` (per-node gradients
-  under ``torch.func.vmap``), ``build_serve_steps``,
+  under ``torch.func.vmap``; sharded state over a mesh with ``plan=``/
+  ``mesh=``), ``build_serve_steps``,
+* :mod:`.sharding` — ``MeshPlan`` and the specs of parameters, batches and
+  caches, and their DTensor placements,
 * :mod:`.trainer` — ``TrainerConfig``, ``train_loop`` (host loop and
   resident path, window starts drawn on the host or on the device,
   checkpoints and bitwise resume) and ``train_sweep`` (a λ/α grid of
   cells as one resident program),
 * :mod:`.tracker` — metrics sinks,
 * :mod:`.evaluate` — held-out perplexity of the consensus and of each node.
-
-The reference's ``sharding`` is multi-device work (ROADMAP Queue 1 item
-14 (b)).
 """
 
-from . import evaluate, steps, tracker, trainer
+from . import evaluate, sharding, steps, tracker, trainer
 
-__all__ = ["evaluate", "steps", "tracker", "trainer"]
+__all__ = ["evaluate", "sharding", "steps", "tracker", "trainer"]

@@ -19,22 +19,50 @@ rule for the model zoo:
 The step runs the plain model path: the RMSNorm and flash attention
 kernels have no backward (the reference cannot differentiate its Pallas
 kernels either), so ``train_loop`` refuses configs that turn them on.
-Sharded state (``plan``/``mesh``) is multi-device work (ROADMAP Queue 1
-item 14 (b)) and raises.
+
+**Sharded state** (``plan=`` and ``mesh=``, a ``DeviceMesh`` with named
+dims, every rank making the same call; ``core.spmd``), the counterpart of
+the reference's GSPMD shardings:
+
+  * the stacked node axis is split over the plan's node axis in
+    contiguous blocks, ``m / size`` rows a rank (``spmd.node_axis``), and
+    the mix runs over the wire (``gossip.shard_phi``: ``GatheredPhi`` or
+    ``PermutePhi``) on each rank's local shards;
+  * each leaf of the rank's rows is a DTensor on the submesh of the other
+    dims (the model and FSDP axes), placed by ``sharding.param_specs(
+    stacked=True)``; the batch's per-node dim is split over the FSDP axes
+    (``sharding.batch_spec``).  The model runs on them with its local
+    regions (``models.placed``); the SVRG direction and the prox run on
+    the DTensors;
+  * the per-node gradient is one ``torch.autograd.grad`` a row of the
+    rank's rows, where the unsharded step vmaps ``torch.func.grad``: under
+    ``torch.func``'s transforms a DTensor is hidden inside the transform's
+    wrapper, so the model's local regions cannot see it, and DTensor's
+    sharding propagation cannot carry the model's gradient by itself
+    (a vocab-split lookup's masked partial sum loses its mask).  The rows'
+    gradients are the vmapped ones, computed one node at a time.
+
+``TrainBundle.gather`` turns a sharded state's tree into the whole
+stacked tensors on every rank (an all-gather over each dim), and
+``ServeBundle.place_params`` places serving weights by the unstacked
+specs; sharded prefill and decode take placed tokens and caches
+(``cache_shardings``).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 from typing import Any, Callable, NamedTuple
 
 import torch
 from torch.utils import _pytree as pytree
 
-from ..core import algorithm as algo_lib, compression, prox as prox_lib, \
-    svrg
-from ..models import transformer
+from ..core import algorithm as algo_lib, compression, gossip, \
+    prox as prox_lib, spmd, svrg
+from ..models import placed, transformer
 from ..models.api import ModelConfig
+from . import sharding
 
 __all__ = ["TrainBundle", "ServeBundle", "build_train_step",
            "build_serve_steps", "make_stacked_init", "TrainState"]
@@ -57,19 +85,42 @@ class TrainBundle(NamedTuple):
     snapshot_step: Callable  # (state, big_batch) -> state
     init_state: Callable     # (seed, device) -> state
     loss_fn: Callable
+    # sharded: the TrainState of each leaf's DTensor placements, a function
+    # of a (whole, stacked) batch giving its leaves' placements a row, the
+    # rank's placed rows of a whole stacked params-shaped tree, and the
+    # whole stacked tensors of one; None / identity unsharded
+    state_shardings: Any = None
+    batch_shardings: Callable = lambda batch: None
+    place: Callable = lambda tree: tree
+    gather: Callable = lambda tree: tree
 
 
 class ServeBundle(NamedTuple):
     prefill_step: Callable
     decode_step: Callable
     init_params: Callable    # (seed, device) -> params
+    # sharded: each weight's placements, the cache's (a function of the
+    # cache), and the weights placed by them; None / identity unsharded
+    param_shardings: Any = None
+    cache_shardings: Callable = lambda cache: None
+    place_params: Callable = lambda params: params
 
 
-def _no_mesh(plan, mesh) -> None:
-    if plan is not None or mesh is not None:
-        raise NotImplementedError(
-            "sharded state (plan=/mesh=) is multi-device work, not ported "
-            "to PyTorch yet (ROADMAP Queue 1 item 14 (b))")
+def _check_mesh(plan, mesh) -> bool:
+    """Whether the step is sharded: ``plan`` and ``mesh`` together."""
+    if (plan is None) != (mesh is None):
+        raise ValueError(
+            "sharded state needs both plan= (a sharding.MeshPlan) and mesh= "
+            "(a DeviceMesh with named dims); got only "
+            + ("plan" if mesh is None else "mesh"))
+    return mesh is not None
+
+
+def _replicating(on: bool):
+    """The placed model runs with its plain tensors (positions, masks)
+    taken as replicated."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication() if on else contextlib.nullcontext()
 
 
 # ---------------------------------------------------------------------------
@@ -112,10 +163,13 @@ def build_train_step(cfg: ModelConfig,
     The train step's ``phi`` is any wire format the transports produce: a
     dense ``(m, m)`` matrix, a ``gossip.BandedPhi`` or a
     ``compression.CompressedPhi`` (whose error feedback threads through
-    ``TrainState.mix_state``), its leaves on the state's device."""
-    _no_mesh(plan, mesh)
+    ``TrainState.mix_state``), its leaves on the state's device.  With
+    ``plan=`` and ``mesh=`` the state is sharded (see the module's
+    docstring); a phi over the whole stack is applied over the wire."""
     rule = (algo_lib.UPDATE_RULES[algorithm] if isinstance(algorithm, str)
             else algorithm)
+    if _check_mesh(plan, mesh):
+        return _build_sharded_step(cfg, prox, m, plan, mesh, rule)
     try:
         cache_key = (cfg, prox, m, rule)
         cached = _BUNDLE_CACHE.get(cache_key)
@@ -178,24 +232,255 @@ def _build_train_step(cfg, prox, m, rule) -> TrainBundle:
                        init_state=init_state, loss_fn=loss)
 
 
+class _Layout(NamedTuple):
+    """Where a sharded step's state lives: the node axis of ranks, the
+    submesh of the other dims (None when the node axis is the whole
+    mesh), their sizes, the node dim's own mesh, and the wire."""
+    axis: spmd.NodeAxis
+    sub: Any
+    axis_sizes: dict
+    node_mesh: Any
+    wire: str          # the placed tensors' wire (spmd.placed_wire)
+
+
+def node_layout(mesh, plan: sharding.MeshPlan, m: int) -> _Layout:
+    """The node axis of ``plan`` on ``mesh`` and the submesh of the other
+    dims.  The plan's node axes must be one mesh dim."""
+    if len(plan.node_axes) != 1:
+        raise ValueError(
+            f"the sharded step lays the nodes over one mesh dim; the plan's "
+            f"node axes are {plan.node_axes}: build the mesh with them as "
+            f"one dim")
+    node = plan.node_axes[0]
+    names = tuple(mesh.mesh_dim_names or ())
+    if node not in names:
+        raise ValueError(f"the plan's node axis {node!r} is not a dim of "
+                         f"the mesh {names}")
+    rest = tuple(n for n in names if n != node)
+    return _Layout(axis=spmd.node_axis(mesh, node, m),
+                   sub=mesh[rest] if rest else None,
+                   axis_sizes=spmd.mesh_shape(mesh), node_mesh=mesh[node],
+                   wire=spmd.placed_wire(mesh))
+
+
+def _sub_placements(layout: _Layout, spec: tuple):
+    """Placements on the submesh of a stacked spec (its node entry, which
+    the rows carry, dropped)."""
+    if layout.sub is None:
+        return None
+    return sharding.placements((None,) + tuple(spec[1:]), layout.sub)
+
+
+def _place_rows(layout: _Layout, x: torch.Tensor, pl):
+    """The rank's rows of a whole stacked leaf (its own memory), placed on
+    the submesh."""
+    rows = x[layout.axis.rows]
+    return rows.clone() if pl is None else sharding.place(rows, layout.sub,
+                                                          pl)
+
+
+def _local(x):
+    return x.to_local() if placed.is_placed(x) else x
+
+
+def _rewrap(like, local):
+    """``local`` as the shard of a DTensor laid out as ``like``."""
+    if not placed.is_placed(like):
+        return local
+    return placed.wrap(local, like.device_mesh, like.placements, like.shape)
+
+
+def _build_sharded_step(cfg, prox, m, plan, mesh, rule) -> TrainBundle:
+    layout = node_layout(mesh, plan, m)
+    ax = layout.axis
+    loss = transformer.loss_fn(cfg)
+    shapes = make_stacked_init(cfg, m)(0, "meta")
+    specs = sharding.param_specs(shapes, plan, stacked=True,
+                                 axis_sizes=layout.axis_sizes)
+    pls = pytree.tree_map(lambda sp: _sub_placements(layout, sp), specs,
+                          is_leaf=lambda x: isinstance(x, tuple))
+
+    def batch_shardings(batch):
+        return pytree.tree_map(lambda leaf: _sub_placements(
+            layout, sharding.batch_spec(plan, leaf.ndim, shape=leaf.shape,
+                                        axis_sizes=layout.axis_sizes)),
+            batch)
+
+    def row_grads(params, batch, want_loss: bool):
+        """Each of the rank's rows' gradient (and loss), stacked."""
+        bpl = batch_shardings(batch)
+        rows = pytree.tree_map(
+            lambda x, pl: _place_rows(layout, x, pl), batch, bpl,
+            is_leaf=lambda x: x is None or isinstance(x, torch.Tensor))
+        grads, losses = [], []
+        for i in range(m // ax.size):
+            p_i = pytree.tree_map(
+                lambda x: x[i].detach().requires_grad_(True), params)
+            b_i = pytree.tree_map(lambda x: x[i], rows)
+            leaves, tdef = pytree.tree_flatten(p_i)
+            with torch.enable_grad(), _replicating(layout.sub is not None):
+                li = loss(p_i, b_i)
+                grads.append(pytree.tree_unflatten(
+                    list(torch.autograd.grad(li, leaves)), tdef))
+            losses.append(_full(li.detach()))
+            del p_i, leaves
+        g = pytree.tree_map(lambda *xs: torch.stack(xs), *grads)
+        return g, (torch.stack(losses) if want_loss else None)
+
+    def whole_rows(x):
+        """All m rows of a node-sharded vector of the rank's rows."""
+        return spmd.all_gather_rows(x, ax)
+
+    def tree_norm(tree):
+        """``svrg.tree_norm`` over every node: each leaf's squared norm over
+        the rank's rows, summed over the node axis in one exchange."""
+        sq = torch.stack([_full(torch.linalg.vector_norm(leaf)) ** 2
+                          for leaf in pytree.tree_leaves(tree)])
+        sq = spmd.all_reduce_sum(sq, ax.group)
+        return torch.linalg.vector_norm(torch.sqrt(sq))
+
+    def train_step(state: TrainState, batch, phi, alpha):
+        g_now, losses = row_grads(state.params, batch, True)
+        g_snap = row_grads(state.snapshot, batch, False)[0] \
+            if rule.needs_snapshot else None
+        v = rule.direction(g_now, g_snap, state.full_grad)
+        del g_now, g_snap
+        v_norm = tree_norm(v)
+        wire_phi = gossip.shard_phi(phi, layout.node_mesh, ax.axis)
+        mix_out = {}
+
+        def mix_fn(phi_, tree):
+            # the mix crosses the node axis only: each rank exchanges its
+            # local shards with the ranks that hold the same shards of the
+            # other nodes' rows
+            mixed, mix_out["state"] = compression.mix_with_state(
+                phi_, pytree.tree_map(_local, tree), state.mix_state)
+            return pytree.tree_map(_rewrap, tree, mixed)
+
+        new_params = algo_lib.prox_gossip_update(
+            state.params, v, wire_phi, alpha, prox, mix_fn=mix_fn)
+        metrics = {"loss": torch.mean(whole_rows(losses)), "v_norm": v_norm}
+        return state._replace(params=new_params, step=state.step + 1,
+                              mix_state=mix_out["state"]), metrics
+
+    def snapshot_step(state: TrainState, big_batch):
+        mu = row_grads(state.params, big_batch, False)[0]
+        return state._replace(snapshot=state.params, full_grad=mu)
+
+    def init_state(seed, device="cuda"):
+        params = pytree.tree_map(
+            lambda x, pl: _place_rows(layout, x[None].expand(
+                (m,) + x.shape), pl),
+            transformer.init_params(cfg, seed, device=device), pls,
+            is_leaf=lambda x: x is None or isinstance(x, torch.Tensor))
+        zeros = pytree.tree_map(torch.zeros_like, params)
+        step = torch.zeros((), dtype=torch.int32,
+                           device=_local(pytree.tree_leaves(params)[0]).device)
+        return TrainState(params=params, snapshot=params, full_grad=zeros,
+                          step=step)
+
+    def place(tree):
+        return pytree.tree_map(lambda x, pl: _place_rows(layout, x, pl),
+                               tree, pls, is_leaf=lambda x: x is None
+                               or isinstance(x, torch.Tensor))
+
+    def gather(tree):
+        return pytree.tree_map(lambda x: whole_rows(_full(x)), tree)
+
+    return TrainBundle(
+        train_step=train_step, snapshot_step=snapshot_step,
+        init_state=init_state, loss_fn=loss,
+        state_shardings=TrainState(params=pls, snapshot=pls, full_grad=pls,
+                                   step=None),
+        batch_shardings=batch_shardings, place=place, gather=gather)
+
+
+def _full(x):
+    """A DTensor's whole value (the rank's rows of the node axis)."""
+    return x.full_tensor() if placed.is_placed(x) else x
+
+
 # ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------
 
 def build_serve_steps(cfg: ModelConfig, plan=None, mesh=None) -> ServeBundle:
-    _no_mesh(plan, mesh)
-
-    def prefill_step(params, tokens, image_embeds=None, audio_frames=None,
-                     max_len=None):
-        return transformer.prefill(cfg, params, tokens,
-                                   image_embeds=image_embeds,
-                                   audio_frames=audio_frames, max_len=max_len)
-
-    def decode_step(params, cache, token):
-        return transformer.decode_step(cfg, params, cache, token)
+    """Prefill and decode steps.  With ``plan=`` and ``mesh=`` the weights
+    are placed by ``sharding.param_specs`` (``place_params``), a step's
+    tokens and modality inputs are split over the mesh's ``"data"`` dim
+    where the batch divides it (the reference's serving inputs), and the
+    cache comes back placed by ``sharding.cache_specs``; logits come back
+    as DTensors (``full_tensor()`` gives them whole)."""
 
     def init_params(seed, device="cuda"):
         return transformer.init_params(cfg, seed, device=device)
 
+    if not _check_mesh(plan, mesh):
+        def prefill_step(params, tokens, image_embeds=None,
+                         audio_frames=None, max_len=None):
+            return transformer.prefill(cfg, params, tokens,
+                                       image_embeds=image_embeds,
+                                       audio_frames=audio_frames,
+                                       max_len=max_len)
+
+        def decode_step(params, cache, token):
+            return transformer.decode_step(cfg, params, cache, token)
+
+        return ServeBundle(prefill_step=prefill_step,
+                           decode_step=decode_step, init_params=init_params)
+
+    from torch.distributed.tensor.experimental import implicit_replication
+    spmd.placed_wire(mesh)
+    axis_sizes = spmd.mesh_shape(mesh)
+    pspecs = sharding.param_specs(transformer.init_params(cfg, 0, "meta"),
+                                  plan, axis_sizes=axis_sizes)
+    param_shardings = pytree.tree_map(
+        lambda sp: sharding.placements(sp, mesh), pspecs,
+        is_leaf=lambda x: isinstance(x, tuple))
+
+    def cache_shardings(cache):
+        specs = sharding.cache_specs(cache, plan, axis_sizes=axis_sizes)
+        return pytree.tree_map(lambda sp: sharding.placements(sp, mesh),
+                               specs, is_leaf=lambda x: isinstance(x, tuple))
+
+    def place_params(params):
+        return pytree.tree_map(
+            lambda x, pl: sharding.place(x, mesh, pl), params,
+            param_shardings)
+
+    def place_inputs(x):
+        """A batch-leading input, split over "data" where it divides."""
+        if x is None or placed.is_placed(x):
+            return x
+        data = "data" if "data" in axis_sizes and \
+            x.shape[0] % axis_sizes["data"] == 0 else None
+        return sharding.place(x, mesh, sharding.placements(
+            (data,) + (None,) * (x.ndim - 1), mesh))
+
+    def place_cache(cache):
+        def one(x, pl):
+            if placed.is_placed(x):
+                return x.redistribute(mesh, pl)
+            return sharding.place(x, mesh, pl)
+        return pytree.tree_map(one, cache, cache_shardings(cache))
+
+    def prefill_step(params, tokens, image_embeds=None, audio_frames=None,
+                     max_len=None):
+        with implicit_replication():
+            logits, cache = transformer.prefill(
+                cfg, params, place_inputs(tokens),
+                image_embeds=place_inputs(image_embeds),
+                audio_frames=place_inputs(audio_frames), max_len=max_len)
+        return logits, place_cache(cache)
+
+    def decode_step(params, cache, token):
+        with implicit_replication():
+            logits, cache = transformer.decode_step(
+                cfg, params, cache, place_inputs(token))
+        return logits, place_cache(cache)
+
     return ServeBundle(prefill_step=prefill_step, decode_step=decode_step,
-                       init_params=init_params)
+                       init_params=init_params,
+                       param_shardings=param_shardings,
+                       cache_shardings=cache_shardings,
+                       place_params=place_params)

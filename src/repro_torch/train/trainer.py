@@ -40,11 +40,21 @@ other's.
 loader stream, staged once, every cell's node-vmapped step under one
 ``torch.func.vmap`` over the cells, one metrics pull.
 
-Refused, by name: sharded state (``mesh``/``plan``, ``ExecSpec(mesh=,
-shard=)``: ROADMAP Queue 1 item 14 (b)), ``kernel``
-other than ``"plain"`` (as the reference refuses other than ``"xla"``),
-and configs that route the forward through the RMSNorm or flash kernels,
-which have no backward.
+Across ranks (SPMD over ``torch.distributed``, ``core.spmd``: every rank
+makes the same call with the same loader and gets the same history back):
+``train_loop(mesh=, plan=)`` shards the state on the host loop
+(``steps.build_train_step``: the node axis over the plan's node dim, each
+leaf a DTensor over the others; ``final_state`` holds each rank's shards,
+``TrainBundle.gather`` makes them whole), and ``train_sweep(exec=
+ExecSpec(shard="cells", mesh=))`` splits the grid's cells over the mesh's
+``"cells"`` dim, as ``core.sweep.run_sweep`` does.  The reference's
+refusals stand: sharded state on the resident path, ``shard="nodes"`` and
+``shard="cells"`` in ``train_loop``, ``shard="nodes"`` in
+``train_sweep``.  Checkpoints of sharded state are not written.
+
+Refused, by name: ``kernel`` other than ``"plain"`` (as the reference
+refuses other than ``"xla"``), and configs that route the forward through
+the RMSNorm or flash kernels, which have no backward.
 """
 
 from __future__ import annotations
@@ -60,7 +70,7 @@ from torch.utils import _pytree as pytree
 
 from .. import checkpoint as ckpt_lib
 from ..core import algorithm as algo_lib, graphs, prox as prox_lib, \
-    runner as runner_lib, schedules, sweep as sweep_lib, transport
+    runner as runner_lib, schedules, spmd, sweep as sweep_lib, transport
 from ..core.device_sampling import IndexStream, trainer_key
 from ..core.exec_spec import ExecSpec
 from ..data import loader as loader_lib
@@ -132,11 +142,6 @@ def _check_lm_spec(spec: ExecSpec, caller: str) -> None:
     implements the host-loop / resident halves of it; fields that select
     logistic-regression-only machinery fail loudly instead of being
     ignored."""
-    if spec.mesh is not None or spec.shard is not None:
-        raise NotImplementedError(
-            f"{caller}: ExecSpec(mesh=, shard=) shards the LM trainer's "
-            f"state, multi-device work not ported to PyTorch yet (ROADMAP "
-            f"Queue 1 item 14 (b))")
     if spec.scan:
         raise ValueError(f"{caller}: the LM trainer has no scan path — "
                          f"ExecSpec(scan=True) selects runner.run's "
@@ -244,8 +249,18 @@ def train_loop(cfg: ModelConfig,
         raise TypeError(f"train_loop: exec must be an ExecSpec, got "
                         f"{type(spec).__name__}")
     _check_lm_spec(spec, "train_loop")
+    if spec.shard == "cells":
+        raise ValueError("shard='cells' partitions a hyperparameter grid's "
+                         "cell axis — use train_sweep for batched λ/lr "
+                         "grids; train_loop drives a single configuration")
+    if spec.shard == "nodes":
+        raise ValueError("the resident LM path does not support sharded "
+                         "state (shard='nodes') yet — use the host loop "
+                         "with mesh/plan")
     _check_trainable(cfg, "train_loop")
     resident = spec.resident
+    if mesh is None:
+        mesh = spec.mesh
     gossip = tc.gossip if spec.gossip == "auto" else spec.gossip
 
     m = schedule.m
@@ -260,9 +275,17 @@ def train_loop(cfg: ModelConfig,
             "resident=True plans the whole run up front, which needs the "
             "LMLoader's index-based sampling — pass the loader itself, not "
             "a batch iterator")
+    if resident and (mesh is not None or plan is not None):
+        raise ValueError("the resident LM path does not support sharded "
+                         "state (mesh/plan) yet — use the host loop")
     if resume and not (tc.ckpt_dir and is_loader):
         raise ValueError("resume=True needs ckpt_dir and an LMLoader (the "
                          "checkpoint stores the loader's data cursor)")
+    if tc.ckpt_dir and mesh is not None:
+        raise ValueError("train_loop(mesh=, plan=) keeps each rank's shards "
+                         "of the state and writes no checkpoint; drop "
+                         "ckpt_dir, or gather the final state "
+                         "(TrainBundle.gather) and save it")
     if is_loader and snapshot_batch_iter is not None:
         raise ValueError(
             "snapshot_batch_iter is not supported with an LMLoader: both "
@@ -276,15 +299,20 @@ def train_loop(cfg: ModelConfig,
 
     # the transport backend owns the wire format: its per-step phi flows
     # into the train step, which dispatches the mix on its type; stateful
-    # transports thread their state via TrainState.mix_state
+    # transports thread their state via TrainState.mix_state.  A sharded
+    # run's transport sees the node dim only (ppermute takes it when it has
+    # one node a rank)
+    node_mesh = None if mesh is None else \
+        steps_lib.node_layout(mesh, plan, m).node_mesh
     tmeta = transport.TransportMeta.constant(tc.consensus_rounds)
-    backend = transport.resolve_backend(gossip, schedule, tmeta)
-    gaux = backend.prepare(schedule, tmeta)
+    backend = transport.resolve_backend(gossip, schedule, tmeta, node_mesh)
+    gaux = backend.prepare(schedule, tmeta, mesh=node_mesh)
 
     state = bundle.init_state(tc.seed, device)
     if backend.needs_mix_state:
-        state = state._replace(
-            mix_state=backend.init_mix_state(gaux, state.params))
+        # the mix runs on each rank's local shards, and so does its state
+        state = state._replace(mix_state=backend.init_mix_state(
+            gaux, pytree.tree_map(steps_lib._local, state.params)))
     param_count = transport.node_param_count(state.params)
     # the device stream's key: the stream's whole state, beside the step
     key = trainer_key(tc.seed) if device_sampling else None
@@ -497,6 +525,9 @@ def train_loop(cfg: ModelConfig,
     hist = history.history()
     hist["final_state"] = state
     hist["transfers"] = dict(transfers)
+    if mesh is not None:
+        hist["wire"] = spmd.wire_name(
+            steps_lib.node_layout(mesh, plan, m).axis.group, device)
     return hist
 
 
@@ -560,6 +591,10 @@ def train_sweep(cfg: ModelConfig,
         raise ValueError("train_sweep neither checkpoints nor streams "
                          "trackers — run cells through train_loop for "
                          "those")
+    if spec.shard == "nodes":
+        raise ValueError("shard='nodes' partitions a single run's node "
+                         "axis — train_sweep partitions the CELL axis "
+                         "(shard='cells')")
     if not isinstance(data, loader_lib.LMLoader):
         raise ValueError("train_sweep plans the whole run up front, which "
                          "needs the LMLoader's index-based sampling")
@@ -569,6 +604,12 @@ def train_sweep(cfg: ModelConfig,
 
     cells = sweep_lib.expand_grid(grid, mode)
     n_cells = len(cells)
+    if spec.shard == "cells":
+        return _sweep_cells_sharded(cfg, build, schedule, data, tc, cells,
+                                    spec, gossip)
+    if spec.mesh is not None:
+        raise ValueError("train_sweep takes a mesh with shard='cells' only "
+                         "(the cells split over its \"cells\" dim)")
     axis_names = [n for n in grid if n != "alpha"]
     m = schedule.m
     rule = algo_lib.UPDATE_RULES[tc.algorithm] \
@@ -696,3 +737,35 @@ def train_sweep(cfg: ModelConfig,
         "final_state": state,
         "transfers": dict(transfers),
     }
+
+
+def _sweep_cells_sharded(cfg, build, schedule, data, tc, cells, spec,
+                         gossip) -> dict:
+    """``train_sweep`` with its cells split over the mesh's ``"cells"``
+    dim: each rank runs its contiguous slice of the grid as the batched
+    program (every rank draws the same loader stream), then every rank's
+    columns and final states are gathered in grid order."""
+    backend = transport.resolve_backend(
+        gossip, schedule, transport.TransportMeta.constant(
+            tc.consensus_rounds))
+    if sweep_lib._mesh_collective(backend):
+        raise ValueError(
+            f"shard='cells' partitions the CELL axis over the mesh, but "
+            f"the {backend.name!r} transport mixes through node-axis mesh "
+            f"collectives — use gossip='dense' or 'banded'")
+    ax = sweep_lib._cells_axis(spec.mesh, len(cells))
+    mine = cells[ax.rows]
+    part = train_sweep(cfg, build, schedule, data, tc,
+                       {k: [c[k] for c in mine] for k in cells[0]},
+                       exec=spec.replace(shard=None, mesh=None), mode="zip")
+    columns = spmd.all_gather_object(
+        {k: np.asarray(part[k]) for k in ("loss", "v_norm", "alpha")},
+        ax.group)
+    out = dict(part, grid=cells, **{
+        k: np.concatenate([c[k] for c in columns], axis=1)
+        for k in ("loss", "v_norm", "alpha")})
+    out["final_state"] = pytree.tree_map(
+        lambda x: None if x is None else spmd.all_gather_rows(x, ax),
+        part["final_state"])
+    out["wire"] = spmd.wire_name(ax.group, resolve_device(spec.device))
+    return out

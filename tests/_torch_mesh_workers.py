@@ -172,18 +172,22 @@ def gossip_spec(g):
     return sc_transports.ScenarioBackend(inner=inner, delay=arg)
 
 
-def run_node_case(name: str, sharded: bool):
+def run_node_case(name: str, sharded: bool, device="cpu"):
     """Case ``name``'s run on this rank (``sharded``: the rank's rows of
     the problem) or on the whole stack."""
     m, sched, algo, seed, every, kw, plain_kw = NODE_CASES[name]
     kw = dict(kw if sharded else plain_kw)
     kw["gossip"] = gossip_spec(kw["gossip"])
     problem = make_problem(m)
+    problem = problem._replace(
+        x0=problem.x0.to(device),
+        full_data=torch.utils._pytree.tree_map(lambda a: a.to(device),
+                                               problem.full_data))
     if sharded:
         problem = spmd.local_problem(problem)
     return runner.run(factory(algorithm, algo, problem), problem,
                       schedule(graphs, sched, m),
-                      ExecSpec(device="cpu", **kw), seed=seed,
+                      ExecSpec(device=device, **kw), seed=seed,
                       record_every=every)
 
 
@@ -366,3 +370,222 @@ def fail_on_rank(bad: int) -> int:
 def sleep_for(seconds: float) -> None:
     import time
     time.sleep(seconds)
+
+
+# ---------------------------------------------------------------------------
+# The LM path across ranks (tests/test_torch_mesh_lm.py)
+# ---------------------------------------------------------------------------
+
+# test_eight_device_equivalence's toy config
+TINY_LM = dict(name="tiny", arch_type="dense", num_layers=2, d_model=32,
+               num_heads=4, num_kv_heads=2, d_ff=64, vocab_size=64,
+               scan_layers=False)
+LM_ARCHS = ("tiny", "h2o-danube-1.8b", "llama4-scout-17b-a16e")
+LM_LAM, LM_ALPHA = 1e-4, 0.1
+LM_TOKENS = np.random.default_rng(7).integers(0, 64, size=2400)
+
+
+def lm_cfg(arch: str, serve: bool = False):
+    """The port's config of ``arch`` at its smoke size (``TINY_LM`` for
+    ``"tiny"``); trained without the kernels, served with them."""
+    from repro_torch import configs
+    from repro_torch.models.api import ModelConfig
+    if arch == "tiny":
+        return ModelConfig(**TINY_LM)
+    cfg = configs.smoke_variant(configs.get_config(arch))
+    return cfg if serve else cfg.scaled(use_flash=False,
+                                        use_fused_norm=False)
+
+
+def lm_inputs(vocab: int, m: int, seed: int = 0) -> dict:
+    """The batch (also the snapshot's large batch, as in the reference's
+    test) and the two steps' dense mixing matrices on the b=2 ring."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, size=(m, 2, 16)).astype(np.int64)
+    sched = graphs.b_connected_ring_schedule(m, b=2, seed=0)
+    return {"batch": {"tokens": toks, "labels": toks},
+            "phis": [sched.consensus_rounds(0, 2).astype(np.float32),
+                     sched.consensus_rounds(2, 2).astype(np.float32)]}
+
+
+def lm_phi(phi: np.ndarray, kind: str, device="cpu"):
+    """``phi`` dense or as its bands, on ``device``."""
+    if kind == "dense":
+        return torch.as_tensor(phi, device=device)
+    offsets, _ = gossip.band_decompose(phi)
+    return gossip.BandedPhi(offsets, torch.as_tensor(
+        gossip.bands_for_phi(phi, offsets), device=device))
+
+
+def lm_train_steps(cfg, init, m: int, phi_kind: str, device="cpu",
+                   plan=None, mesh=None) -> dict:
+    """A snapshot refresh and two DPSVRG steps from the whole stacked
+    ``init`` (numpy, every node alike): the whole stacked params after
+    them, and each step's loss and v_norm."""
+    from repro_torch.train import steps
+    bundle = steps.build_train_step(cfg, prox.l1(LM_LAM), m, plan=plan,
+                                    mesh=mesh)
+    params = params_from_numpy(init, device)
+    stacked = torch.utils._pytree.tree_map(
+        lambda x: x[None].expand((m,) + x.shape).clone(), params)
+    zeros = torch.utils._pytree.tree_map(torch.zeros_like, stacked)
+    placed = bundle.place(stacked)
+    state = steps.TrainState(
+        params=placed, snapshot=placed, full_grad=bundle.place(zeros),
+        step=torch.zeros((), dtype=torch.int32, device=device))
+    inputs = lm_inputs(cfg.vocab_size, m)
+    batch = params_from_numpy(inputs["batch"], device)
+    state = bundle.snapshot_step(state, batch)
+    metrics = []
+    for phi in inputs["phis"]:
+        state, mets = bundle.train_step(
+            state, batch, lm_phi(phi, phi_kind, device), LM_ALPHA)
+        metrics.append([float(mets["loss"]), float(mets["v_norm"])])
+    return {"params": bundle.gather(state.params),
+            "metrics": np.asarray(metrics)}
+
+
+def lm_serve(cfg, params, device="cpu", plan=None, mesh=None,
+             decode: int = 2) -> dict:
+    """Prefill 2 prompts of 8 tokens, then ``decode`` greedy steps: the
+    tokens and each step's logits, whole."""
+    from repro_torch.train import steps
+    bundle = steps.build_serve_steps(cfg, plan=plan, mesh=mesh)
+    p = bundle.place_params(params_from_numpy(params, device))
+    prompts = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(2, 8)), device=device)
+    whole = lambda x: x.full_tensor() if hasattr(x, "full_tensor") else x
+    logits, cache = bundle.prefill_step(p, prompts, max_len=8 + decode)
+    outs, toks = [whole(logits)], []
+    for _ in range(decode):
+        tok = torch.argmax(outs[-1], dim=-1)
+        toks.append(tok)
+        logits, cache = bundle.decode_step(p, cache, tok)
+        outs.append(whole(logits))
+    return {"tokens": torch.stack(toks, dim=1), "logits": torch.stack(outs)}
+
+
+def lm_loader(m: int):
+    from repro_torch.data.loader import LMLoader
+    return LMLoader(LM_TOKENS, num_nodes=m, per_node_batch=2, seq_len=16,
+                    seed=1)
+
+
+def lm_trainer_config(**kw):
+    from repro_torch.train import trainer
+    base = dict(num_steps=3, snapshot_every=2, log_every=1, alpha=0.05,
+                consensus_rounds=2, seed=0, gossip="dense")
+    base.update(kw)
+    return trainer.TrainerConfig(**base)
+
+
+def lm_train_loop(m: int, device="cpu", plan=None, mesh=None) -> dict:
+    """``train_loop`` of the tiny config on the host loop: its history,
+    wire bytes and the whole final params."""
+    from repro_torch.train import steps, trainer
+    cfg = lm_cfg("tiny")
+    hist = trainer.train_loop(
+        cfg, prox.l1(LM_LAM), graphs.b_connected_ring_schedule(m, b=2,
+                                                               seed=0),
+        lm_loader(m), lm_trainer_config(), mesh=mesh, plan=plan,
+        exec=ExecSpec(device=device))
+    params = hist["final_state"].params
+    if mesh is not None:
+        params = steps.build_train_step(cfg, prox.l1(LM_LAM), m, plan=plan,
+                                        mesh=mesh).gather(params)
+    return {"loss": np.asarray(hist["loss"]),
+            "v_norm": np.asarray(hist["v_norm"]),
+            "wire_bytes": np.asarray(hist["wire_bytes"]),
+            "params": params, "wire": hist.get("wire")}
+
+
+LM_SWEEP_GRID = {"lam": [1e-4, 1e-3]}
+
+
+def lm_train_sweep(init, m: int = 4, device="cpu", mesh=None) -> dict:
+    """``train_sweep`` of two l1 cells of a 1-layer toy model from the
+    whole ``init`` (numpy), split over the mesh's ``"cells"`` dim when
+    ``mesh`` is given."""
+    from repro_torch.models.api import ModelConfig
+    from repro_torch.train import steps, trainer
+    cfg = ModelConfig(**dict(TINY_LM, name="tiny-sw", num_layers=1,
+                             num_heads=2, num_kv_heads=1))
+    real = steps.transformer.init_params
+    steps.transformer.init_params = \
+        lambda cfg_, seed, device=device: params_from_numpy(init, device)
+    try:
+        out = trainer.train_sweep(
+            cfg, prox.l1, graphs.b_connected_ring_schedule(m, b=2, seed=0),
+            lm_loader(m), lm_trainer_config(num_steps=5, snapshot_every=3,
+                                            log_every=2, gossip="auto"),
+            LM_SWEEP_GRID, exec=ExecSpec(
+                resident=True, device=device,
+                shard=None if mesh is None else "cells", mesh=mesh))
+    finally:
+        steps.transformer.init_params = real
+    return {k: out[k] for k in ("loss", "v_norm", "alpha", "wire_bytes",
+                                "step")} | {
+        "params": out["final_state"].params, "wire": out.get("wire")}
+
+
+def lm_meshes(device="cpu") -> dict:
+    """The faithful (data=2, model=2) mesh with m = 4 and the production
+    (pod=2, data=2, model=1) one with m = 2, FSDP over data."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.train import sharding
+    return {
+        "faithful": (mesh_lib.make_mesh((2, 2), ("data", "model"), device),
+                     mesh_lib.PLANS[("single", "faithful")], 4),
+        "production": (mesh_lib.make_mesh((2, 2, 1), ("pod", "data", "model"),
+                                          device),
+                       sharding.MeshPlan(node_axes=("pod",),
+                                         fsdp_axes=("data",),
+                                         fsdp_min_size=0), 2),
+    }
+
+
+def lm_cases(inits: dict, sweep_init, device="cpu") -> dict:
+    """Every sharded LM case of one group of 4 ranks: the train steps of
+    each arch on the faithful mesh (dense phi; the tiny config banded too)
+    and of the tiny config on the production mesh, sharded serving on the
+    faithful mesh, ``train_loop`` on it, and ``train_sweep`` split over a
+    ``("cells", "other")`` mesh."""
+    from repro_torch.launch import mesh as mesh_lib
+    meshes = lm_meshes(device)
+    out = {}
+    mesh, plan, m = meshes["faithful"]
+    for arch in LM_ARCHS:
+        kinds = ("dense", "banded") if arch == "tiny" else ("dense",)
+        for kind in kinds:
+            out[f"faithful/{arch}/{kind}"] = lm_train_steps(
+                lm_cfg(arch), inits[arch], m, kind, device, plan, mesh)
+    pmesh, pplan, pm = meshes["production"]
+    for kind in ("dense", "banded"):
+        out[f"production/tiny/{kind}"] = lm_train_steps(
+            lm_cfg("tiny"), inits["tiny"], pm, kind, device, pplan, pmesh)
+    out["serve"] = lm_serve(lm_cfg("h2o-danube-1.8b", serve=True),
+                            inits["h2o-danube-1.8b"], device, plan, mesh)
+    out["train_loop"] = lm_train_loop(m, device, plan, mesh)
+    cells = mesh_lib.make_mesh((2, 2), ("cells", "other"), device)
+    out["train_sweep"] = lm_train_sweep(sweep_init, device=device, mesh=cells)
+    if device == "cpu":
+        # the host-staged route of the placed tensors' collectives, which
+        # ranks sharing a card take, on the CPU last
+        spmd.stage_placed_collectives("cpu")
+        out["staged/tiny/dense"] = lm_train_steps(
+            lm_cfg("tiny"), inits["tiny"], m, "dense", device, plan, mesh)
+    return out
+
+
+def card_mesh_cases(init) -> dict:
+    """Two ranks sharing one card over gloo (host-staged): a node-sharded
+    run (``shard="nodes"``, the tests' first one) and a sharded train step
+    of the toy LM on a (data=1, model=2) mesh with m = 2 (each leaf split
+    over model, its collectives host-staged)."""
+    from repro_torch.launch import mesh as mesh_lib
+    mesh = mesh_lib.make_mesh((1, 2), ("data", "model"), "cuda")
+    return {"nodes": _summary(run_node_case("nodes_dense", True, "cuda")),
+            "lm": lm_train_steps(lm_cfg("tiny"), init, 2, "dense", "cuda",
+                                 mesh_lib.PLANS[("single", "faithful")],
+                                 mesh),
+            "wire": spmd.placed_wire(mesh)}

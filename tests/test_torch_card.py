@@ -1718,3 +1718,38 @@ def test_centralized_prox_gd_replayed_equals_eager_on_card(cuda_device,
     assert torch.equal(x, x_eager)
     np.testing.assert_array_equal(hist, hist_eager)
     np.testing.assert_allclose(hist, hist_cpu, rtol=1e-4, atol=1e-6)
+
+
+def test_mesh_paths_on_one_card_match_their_unsharded_twins(cuda_device):
+    """Two ranks sharing the card over gloo, host-staged: the
+    node-sharded logistic-regression run (``shard="nodes"``) and a sharded
+    train step of the toy LM (each leaf split over a model dim of 2, the
+    placed tensors' collectives host-staged) equal their unsharded twins
+    on the card, as their CPU twins do (tests/test_torch_mesh.py,
+    tests/test_torch_mesh_lm.py)."""
+    import _torch_mesh_workers as w
+    from repro_torch.core import spmd
+    init = pytree.tree_map(lambda x: x.numpy(), transformer.init_params(
+        w.lm_cfg("tiny"), 0, "cpu"))
+    ranks = spmd.spawn(w.card_mesh_cases, 2, backend="gloo", device="cuda",
+                       args=(init,), timeout=300.0)
+    nodes = w.run_node_case("nodes_dense", False, "cuda")
+    lm = w.lm_train_steps(w.lm_cfg("tiny"), init, 2, "dense", "cuda")
+    for got in ranks:
+        assert got["wire"] == "gloo-host-staged"
+        assert got["nodes"]["extras"]["wire"] == "gloo-host-staged"
+        for field, want in nodes.history._asdict().items():
+            np.testing.assert_allclose(got["nodes"]["history"][field],
+                                       np.asarray(want), rtol=1e-5,
+                                       atol=1e-7)
+        np.testing.assert_allclose(got["nodes"]["params"],
+                                   nodes.params.cpu().numpy(), rtol=1e-5,
+                                   atol=1e-7)
+        for a, b in zip(pytree.tree_leaves(got["lm"]["params"]),
+                        pytree.tree_leaves(lm["params"])):
+            np.testing.assert_allclose(a, b.detach().cpu().numpy(), rtol=0,
+                                       atol=5e-5)
+        np.testing.assert_allclose(got["lm"]["metrics"][:, 0],
+                                   lm["metrics"][:, 0], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(got["lm"]["metrics"][:, 1],
+                                   lm["metrics"][:, 1], rtol=1e-4)

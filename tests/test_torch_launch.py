@@ -8,7 +8,8 @@ refuses unknown cards and its collective bytes read a gloo trace by the
 reference's conventions; ``launch.dryrun`` on meta tensors at smoke size
 (analytic fields equal the reference's, exact extrapolation of the cut
 counts, the counted-to-analytic ratio of a dense prefill pinned, the pod
-meshes refused by ROADMAP item); ``launch.inspect_trace`` and
+meshes and the reference's flags, each row's bytes a rank from the
+reference's specs); ``launch.inspect_trace`` and
 ``launch.make_table`` on what the tools write.
 """
 
@@ -18,18 +19,26 @@ import math
 import types
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile, record_function
 
+from jax.sharding import PartitionSpec as P
+
 from repro import configs as jconfigs
+from repro.core import prox as jprox
 from repro.launch import analytic as janalytic
+from repro.launch import mesh as jmesh
 from repro.launch import roofline as jroofline
+from repro.models import transformer as jtransformer
+from repro.train import sharding as jsharding, steps as jsteps
 from repro_torch import configs as tconfigs
 from repro_torch.launch import analytic, dryrun, inspect_trace, make_table, \
     roofline
+from repro_torch.launch import mesh as tmesh
 from repro_torch.models import transformer
 
 torch.set_num_threads(1)
@@ -309,15 +318,143 @@ def test_counted_flops_of_a_dense_prefill_against_analytic():
                         / analytic.step_flops(cfg, shape), 0.8825)
 
 
-@pytest.mark.parametrize("flags", [
-    ["--mesh", "single"], ["--mesh", "multi"], ["--mesh", "both"],
-    ["--mapping", "production"], ["--gossip", "banded"],
-    ["--serve-attn-dim0"], ["--pin-serve-outputs"], ["--moe-groups", "2"],
-    ["--constrain-attn"]])
+# each of the reference's pod-mesh flags, and the variant it spells
+POD_FLAGS = [
+    (["--mesh", "single"], "baseline"), (["--mesh", "multi"], "baseline"),
+    (["--mesh", "both"], "baseline"),
+    (["--mesh", "multi", "--mapping", "production"], "baseline"),
+    (["--gossip", "banded"], "banded"),
+    (["--serve-attn-dim0"], "attn_dim0"), (["--pin-serve-outputs"], "pinned"),
+    (["--moe-groups", "2"], "moe_g2"), (["--constrain-attn"], "attn_cons")]
+
+
+@pytest.mark.parametrize("flags", [f for f, _ in POD_FLAGS])
 def test_dryrun_refuses_the_pod_meshes_by_item(flags):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 14"):
-        dryrun.main(flags)
+    """The reference's pod meshes and flags run on meta tensors: one row
+    per shape and mesh, each on the mesh's chips, m its plan's node count,
+    the reference's variant spelling, and bytes a rank from the specs that
+    fit the card."""
+    variant = dict((tuple(f), v) for f, v in POD_FLAGS)[tuple(flags)]
+    argv = ["--arch", "h2o-danube-1.8b"] + flags
+    if "--mesh" not in flags:
+        argv += ["--mesh", "both"]
+    rows = dryrun.main(argv)
+    meshes = {"single": ["single"], "multi": ["multi"]}.get(
+        argv[argv.index("--mesh") + 1], ["single", "multi"])
+    assert [r["mesh"] for r in rows] == [
+        mesh for _ in tconfigs.INPUT_SHAPES for mesh in meshes]
+    for row in rows:
+        if row["status"] == "skipped":
+            continue
+        assert row["status"] == "ok"
+        multi = row["mesh"] == "multi"
+        assert row["chips"] == (512 if multi else 256)
+        mapping = "production" if "production" in flags else "auto"
+        plan = jmesh.default_plan(multi, mapping)
+        fake = types.SimpleNamespace(shape=tmesh.make_production_mesh(
+            multi_pod=multi).shape)
+        if row["kind"] == "train":
+            assert row["nodes"] == jmesh.node_count(fake, plan)
+        kind_variant = {"banded": "train", "attn_dim0": "decode",
+                        "pinned": "prefill decode"}.get(variant)
+        want = variant if kind_variant is None or \
+            row["kind"] in kind_variant else "baseline"
+        assert row["variant"] == want
+        assert 0 < row["bytes_per_rank"] and row["fits"] == (
+            row["bytes_per_rank"] <= dryrun.CARD_BYTES)
+
+
+def _jax_shard_bytes(tree, specs, sizes) -> float:
+    """The largest device's bytes of the reference's ``tree`` under its
+    ``PartitionSpec``s (each dim over the product of its axes' sizes)."""
+    total = 0.0
+    for leaf, spec in zip(jax.tree.leaves(tree), jax.tree.leaves(
+            specs, is_leaf=lambda s: isinstance(s, P))):
+        n = 1
+        for dim, entry in zip(leaf.shape, tuple(spec) + (None,) * (
+                len(leaf.shape) - len(spec))):
+            axes = () if entry is None else (
+                entry if isinstance(entry, tuple) else (entry,))
+            n *= -(-dim // math.prod(sizes[a] for a in axes))
+        total += n * np.dtype(leaf.dtype).itemsize
+    return total
+
+
+def _jax_dry_bytes(arch, shape, multi, mapping, attn_dim0) -> tuple:
+    """(bytes_per_device, bytes a rank) of the reference's dry-run
+    arguments at ``shape``, from ``jax.eval_shape`` trees and its
+    ``param_specs`` / ``batch_spec`` / ``cache_specs``."""
+    cfg = jconfigs.smoke_variant(jconfigs.get_config(arch)).scaled(
+        param_dtype="bfloat16")
+    sizes = tmesh.make_production_mesh(multi_pod=multi).shape
+    chips = math.prod(sizes.values())
+    plan = jmesh.default_plan(multi, mapping)
+    sds = jax.ShapeDtypeStruct
+    b = shape.global_batch
+    if shape.kind == "train":
+        m = jmesh.node_count(types.SimpleNamespace(shape=sizes), plan)
+        bundle = jsteps.build_train_step(cfg, jprox.l1(1e-5), m,
+                                         donate=False)
+        state = jax.eval_shape(bundle.init_state, jax.random.PRNGKey(0))
+        per = max(b // m, 1)
+        batch = {"tokens": sds((m, per, shape.seq_len), jnp.int32),
+                 "labels": sds((m, per, shape.seq_len), jnp.int32)}
+        pspecs = jsharding.param_specs(state.params, plan, stacked=True,
+                                       axis_sizes=sizes)
+        bspecs = jax.tree.map(lambda x: jsharding.batch_spec(
+            plan, x.ndim, shape=x.shape, axis_sizes=sizes), batch)
+        args = (state, batch)
+        rank = 3 * _jax_shard_bytes(state.params, pspecs, sizes) + 4 + \
+            _jax_shard_bytes(batch, bspecs, sizes)
+    else:
+        params = jax.eval_shape(lambda k: jtransformer.init_params(cfg, k),
+                                jax.random.PRNGKey(0))
+        data = "data" if b % sizes["data"] == 0 else None
+        rank = _jax_shard_bytes(params, jsharding.param_specs(
+            params, plan, axis_sizes=sizes,
+            attn_dim0=attn_dim0 and shape.kind == "decode"), sizes)
+        if shape.kind == "prefill":
+            ins = {"tokens": sds((b, shape.seq_len), jnp.int32)}
+            rank += _jax_shard_bytes(ins, {"tokens": P(data, None)}, sizes)
+        else:
+            cache = jax.eval_shape(lambda: jtransformer.init_cache(
+                cfg, b, shape.seq_len, jnp.bfloat16))
+            ins = {"token": sds((b,), jnp.int32), "cache": cache}
+            rank += _jax_shard_bytes(cache, jsharding.cache_specs(
+                cache, plan, axis_sizes=sizes), sizes)
+            rank += _jax_shard_bytes(ins["token"], P(data), sizes)
+        args = (params, ins)
+    total = sum(math.prod(x.shape) * np.dtype(x.dtype).itemsize
+                for x in jax.tree.leaves(args))
+    return total / chips, rank
+
+
+DRY_SHAPES = [tconfigs.InputShape("t", 16, 32, "train"),
+              tconfigs.InputShape("p", 16, 32, "prefill"),
+              tconfigs.InputShape("d", 16, 32, "decode")]
+
+
+@pytest.mark.parametrize("mapping", ["auto", "faithful"])
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "llama4-scout-17b-a16e",
+                                  "jamba-1.5-large-398b", "xlstm-350m"])
+def test_dryrun_bytes_a_rank_are_the_references_specs(arch, multi, mapping):
+    """At smoke size on both pod meshes, ``bytes_per_device`` is the
+    reference's even split and ``bytes_per_rank`` the sum of the shard
+    bytes its specs give, with and without ``attn_dim0``."""
+    cfg = tconfigs.smoke_variant(tconfigs.get_config(arch)).scaled(
+        param_dtype="bfloat16")
+    mesh = "multi" if multi else "single"
+    for shape in DRY_SHAPES:
+        for attn_dim0 in (False, True):
+            row = dryrun.run_config(cfg, shape, roofline.HW(), arch=arch,
+                                    mesh=mesh, mapping=mapping,
+                                    serve_attn_dim0=attn_dim0)
+            per_device, per_rank = _jax_dry_bytes(arch, shape, multi,
+                                                  mapping, attn_dim0)
+            assert math.isclose(row["bytes_per_device"], per_device,
+                                rel_tol=1e-12)
+            assert row["bytes_per_rank"] == per_rank
 
 
 def test_dryrun_main_writes_rows_and_make_table_renders_them(tmp_path,

@@ -24,6 +24,7 @@ The validation that needs no group runs here, before any spawn.
 
 import concurrent.futures
 import time
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -376,6 +377,34 @@ def test_a_group_past_its_timeout_is_killed():
     t0 = time.monotonic()
     with pytest.raises(TimeoutError, match="not done after 5 s"):
         spmd.spawn(w.sleep_for, 2, args=(120.0,), timeout=5.0)
+    assert time.monotonic() - t0 < 30
+
+
+def test_a_rank_that_fails_to_start_reports_its_own_error(monkeypatch):
+    """When a rank's process cannot start, the ones before it are killed
+    and the start's error reaches the caller: only started processes are
+    joined (joining one that never started raises an AssertionError that
+    would hide it)."""
+    real = spmd.multiprocessing.get_context("spawn")
+    made = []
+
+    def refuse():
+        raise OSError("no process for rank 1")
+
+    def process(*args, **kw):
+        p = real.Process(*args, **kw)
+        made.append(p)
+        if len(made) == 2:
+            p.start = refuse
+        return p
+
+    monkeypatch.setattr(spmd.multiprocessing, "get_context",
+                        lambda method: types.SimpleNamespace(
+                            Process=process, Queue=real.Queue))
+    t0 = time.monotonic()
+    with pytest.raises(OSError, match="no process for rank 1"):
+        spmd.spawn(w.sleep_for, 3, args=(120.0,), timeout=30.0)
+    assert len(made) == 3 and not made[0].is_alive()
     assert time.monotonic() - t0 < 30
 
 

@@ -112,12 +112,27 @@ def test_input_shapes_and_applicability_match():
 
 
 @pytest.mark.parametrize("override,match", [
-    (dict(attn_shard_constraint=("data", "model")), "Queue 1 item 14"),
+    (dict(attn_shard_constraint=("data", "model")), "mesh"),
 ])
 def test_unported_plans_raise_by_name(override, match):
-    cfg = tconfigs.smoke_variant(tconfigs.get_config("h2o-danube-1.8b"))
-    with pytest.raises(NotImplementedError, match=match):
-        tapi.layer_plan(cfg.scaled(**override))
+    """The attention constraint plans as the reference's (each attention
+    layer's spec carries it), and on plain tensors, without a mesh, it
+    raises where the reference's ``with_sharding_constraint`` raises on one
+    CPU device (a RuntimeError naming the mesh it needs).  On placed
+    operands it runs: tests/test_torch_mesh_lm.py."""
+    jcfg = jconfigs.smoke_variant(jconfigs.get_config("h2o-danube-1.8b"))
+    tcfg = tconfigs.smoke_variant(tconfigs.get_config("h2o-danube-1.8b"))
+    jcfg, tcfg = jcfg.scaled(**override), tcfg.scaled(**override)
+    for jp, tp in zip(japi.layer_plan(jcfg), tapi.layer_plan(tcfg)):
+        assert tp.attn.shard_constraint == jp.attn.shard_constraint == \
+            override["attn_shard_constraint"]
+    toks = np.zeros((2, 8), np.int32)
+    jparams = jtransformer.init_params(jcfg, jax.random.PRNGKey(0))
+    with pytest.raises(RuntimeError, match=match):
+        jtransformer.forward(jcfg, jparams, jnp.asarray(toks))
+    with pytest.raises(RuntimeError, match=match):
+        ttransformer.forward(tcfg, params_from_numpy(
+            jax.device_get(jparams), "cpu"), torch.as_tensor(toks))
 
 
 @pytest.mark.parametrize("pattern", [("attn", "mamba"), ("mlstm", "slstm"),

@@ -351,21 +351,32 @@ def test_train_loop_refuses_kernel_configs(flags):
 
 
 def test_unported_paths_raise_by_roadmap_item():
-    """sampling="device" runs now (tests/test_torch_exec_modes.py); sharded
-    state stays unported."""
-    for kw in (dict(mesh=object()), dict(plan=object())):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            ttrainer.train_loop(TCFG, TPROX, _tsched(), _tloader(),
-                                ttrainer.TrainerConfig(**_tc()),
-                                exec=TExecSpec(device="cpu"), **kw)
-    # the reference refuses shard= in train_loop (ValueError); the port
-    # refuses it, as multi-device work of the LM half (item 14 (b))
-    for shard in ("cells", "nodes"):
-        with pytest.raises(NotImplementedError, match="item 14"):
+    """Sharded state runs on the host loop (tests/test_torch_mesh_lm.py);
+    what the reference refuses, the port refuses with its messages:
+    shard='cells' and shard='nodes' in train_loop, and sharded state on
+    the resident path.  A mesh without a plan (or the reverse) names the
+    other."""
+    for shard, match in (("cells", "use train_sweep"),
+                         ("nodes", "shard='nodes'")):
+        with pytest.raises(ValueError, match=match):
+            jtrainer.train_loop(JCFG, JPROX, _jsched(), _jloader(),
+                                jtrainer.TrainerConfig(**_tc()),
+                                exec=JExecSpec(resident=True, shard=shard))
+        with pytest.raises(ValueError, match=match):
             ttrainer.train_loop(TCFG, TPROX, _tsched(), _tloader(),
                                 ttrainer.TrainerConfig(**_tc()),
                                 exec=TExecSpec(resident=True, shard=shard,
                                                device="cpu"))
+    for kw in (dict(mesh=object()), dict(plan=object())):
+        with pytest.raises(ValueError, match="does not support sharded"):
+            ttrainer.train_loop(TCFG, TPROX, _tsched(), _tloader(),
+                                ttrainer.TrainerConfig(**_tc()),
+                                exec=TExecSpec(resident=True, device="cpu"),
+                                **kw)
+    with pytest.raises(ValueError, match="got only plan"):
+        ttrainer.train_loop(TCFG, TPROX, _tsched(), _tloader(),
+                            ttrainer.TrainerConfig(**_tc()),
+                            exec=TExecSpec(device="cpu"), plan=object())
 
 
 def test_train_loop_needs_a_card_unless_asked_for_the_cpu():

@@ -186,13 +186,16 @@ def test_sweep_rejects_device_sampling():
 
 
 def test_sweep_rejects_node_sharding():
-    """The reference refuses shard='nodes' in train_sweep; the port
-    refuses every shard there, as multi-device work of the LM half
-    (ROADMAP Queue 1 item 14 (b))."""
-    with pytest.raises(ValueError, match="shard='cells'"):
-        _refused("jax", spec=dict(resident=True, shard="nodes"))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        _refused("t", spec=dict(shard="nodes"))
+    """Both packages refuse shard='nodes' in train_sweep with the
+    reference's message (it splits the cell axis: shard='cells', run
+    across ranks in tests/test_torch_mesh_lm.py), and a cell-split sweep
+    whose transport exchanges over a node axis of ranks."""
+    for pkg in ("jax", "t"):
+        with pytest.raises(ValueError, match="shard='cells'"):
+            _refused(pkg, spec=dict(resident=True, shard="nodes"))
+        with pytest.raises(ValueError, match="'ppermute' transport"):
+            _refused(pkg, spec=dict(resident=True, shard="cells",
+                                    gossip="ppermute"))
 
 
 def test_sweep_rejects_checkpointing_cells(tmp_path):

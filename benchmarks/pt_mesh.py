@@ -291,17 +291,22 @@ def _params(p) -> np.ndarray:
         else np.asarray(p)
 
 
-def run(device="cuda", scale: float = 1.0, outer: int = OUTER) -> dict:
+def run(device="cuda", scale: float = 1.0, outer: int = OUTER,
+        ranks: list | None = None) -> dict:
     """Spawn the ranks, run the twins, hold one to the other; returns the
-    phase's summary (raises on a mismatch)."""
+    phase's summary (raises on a mismatch).  ``ranks``: each rank's
+    ``rank_runs`` result from a group spawned elsewhere (phase 31's, which
+    runs these runs first), in place of a spawn here."""
     device = common.require_device(device)
     kind = device.type
     backend = spmd.backend_for(device, RANKS)
-    t0 = time.perf_counter()
-    ranks = spmd.spawn(rank_runs, RANKS, backend=backend, device=kind,
-                       args=(scale, outer, kind, time.time()),
-                       timeout=TIMEOUT)
-    spawn_s = time.perf_counter() - t0
+    spawn_s = None
+    if ranks is None:
+        t0 = time.perf_counter()
+        ranks = spmd.spawn(rank_runs, RANKS, backend=backend, device=kind,
+                           args=(scale, outer, kind, time.time()),
+                           timeout=TIMEOUT)
+        spawn_s = time.perf_counter() - t0
     r0 = ranks[0]
     for other in ranks[1:]:
         for name in list(RUNS) + ["cells_fig1"]:

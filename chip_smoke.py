@@ -308,8 +308,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     NCCL, two DSPG steps over ppermute traced and read by
     ``launch.roofline.collective_bytes`` (``mesh_trace_events``: the
     trace's ``record_param_comms`` events);
-31. (run right after phase 30) the LM path across ranks
-    (``benchmarks/pt_mesh_lm.py``, ``mesh_lm`` line): 4 ranks on a
+31. (in phase 30's spawned group: its 4 ranks run phase 30's runs, then
+    these; phase 30's unsharded twins run after the group) the LM path
+    across ranks (``benchmarks/pt_mesh_lm.py``, ``mesh_lm`` line): 4 ranks
+    on a
     (data=2, model=2) mesh (``launch.mesh.make_mesh``; over gloo, the
     placed tensors' collectives host-staged, as the ranks share the card;
     over NCCL with 4 cards) run h2o-danube-1.8b at full width cut to 2 of
@@ -321,7 +323,22 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     unsharded run's and its logits within 1e-3, each rank's launches
     counted against the layers, both kernels held to their plain versions
     on a rank's shard shapes, and, over NCCL, a refresh and a step traced
-    and read by ``launch.roofline.collective_bytes``;
+    and read by ``launch.roofline.collective_bytes``; then, in the same
+    spawned group, (a) danube's nodes over (pod, data) of a (pod=2,
+    data=2, model=1) mesh (the reference's ("multi", "faithful") plan,
+    m = 4, ppermute) against the same nodes over one dim (params within
+    1e-6, losses within 1e-5, wire bytes exactly), (b) a 1-layer danube
+    run stopped and checkpointed (rank 0 writes) after 1 of its 2 steps
+    and resumed, bit for bit the uninterrupted run, its consensus within
+    1e-6 of the unsharded twin's, (c)
+    xlstm-350m cut to 2 blocks trained (its first loss held) and served
+    (the twin's tokens, RMSNorm on each rank's rows), its mLSTM block on
+    each rank's heads held where float32 determines it, (d)
+    jamba-1.5-large's Mamba mixer at full width on each rank's channels (a
+    512-token prefill, 4 decode steps, the gradient) within 1e-5 of each
+    leaf's largest entry, and (e) whisper-base served (the twin's tokens,
+    flash on each rank's decoder heads); each addition's seconds printed
+    (``mesh_lm additions`` line);
 32. prints the card, a ``{"kernels": [...]}`` line (all seven kernels,
     each with its ``share_of_bound``; RMSNorm and flash also with
     ``launches_consensus_serve``, phase 16's count,
@@ -334,7 +351,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     sequential runs; fused_step and fused_step_cells with
     ``launches_exec_modes``, phase 19's counts; svrg_step, mix_prox and
     fused_step_cells with ``launches_mesh``, phase 30's on rank 0;
-    RMSNorm and flash with ``launches_mesh_lm_per_rank``, phase 31's),
+    RMSNorm and flash with ``launches_mesh_lm_per_rank``, phase 31's
+    danube, ``launches_mesh_lm_xlstm_per_rank`` and
+    ``launches_mesh_lm_whisper_per_rank``, its xlstm's and whisper's),
     and last ``{"ok": true, "device": {...}}``.  (Until phase 21 came,
     these final lines were phase 20; until phase 25, phase 25; until
     phase 27, phase 27; until phase 29, phase 29; until phase 30, phase
@@ -3491,6 +3510,11 @@ def exec_modes_phase(parts, dim: int, device="cuda", scale=FIG_SCALE,
 # ---------------------------------------------------------------------------
 
 MESH_OUTER = pt_mesh.OUTER
+# budgets, printed beside the measured seconds: phase 31's, its spawn
+# included, and the whole script's, set so that a machine 1.2x slower (as
+# some have run) stays under the script's limit, SCRIPT_LIMIT_S
+MESH_LM_BUDGET_S = 90.0
+SCRIPT_BUDGET_S, SCRIPT_LIMIT_S = 960.0, 1200.0
 # the sharded runs on offsets {0, +1, -1} with the l1 prox: each row's mix
 # and prox through mix_prox, once a step and row (the dense transport
 # mixes through its matrix, and the int8 run threads a mix state)
@@ -3499,7 +3523,7 @@ MESH_MIX_PROX_RUNS = ("nodes_banded_dspg", "ppermute_dpsvrg",
 
 
 def mesh_phase(device="cuda", scale: float = FIG_SCALE,
-               outer: int = MESH_OUTER) -> dict:
+               outer: int = MESH_OUTER, ranks=None) -> dict:
     """Phase 30: ``benchmarks/pt_mesh.run`` (4 ranks: shard="nodes" at m =
     8, ppermute and compressed(ppermute) at m = 4, Fig. 1's sweep with
     shard="cells"), each held to its unsharded run on this process's
@@ -3511,10 +3535,13 @@ def mesh_phase(device="cuda", scale: float = FIG_SCALE,
     the wire
     must be the backend's (``gloo-host-staged`` for ranks sharing a card,
     ``nccl`` with a card a rank).  Returns the phase's summary with the
-    launches of rank 0.  Rehearse it on the CPU with ``device="cpu"`` and a
-    small ``scale`` (the counts are 0 off the card)."""
+    launches of rank 0.  ``ranks``: the ranks' results of
+    ``pt_mesh.rank_runs`` run in phase 31's group (``mesh_lm_phase(before=
+    mesh_ranks(...))``), in place of a spawn of this phase's own.  Rehearse
+    it on the CPU with ``device="cpu"`` and a small ``scale`` (the counts
+    are 0 off the card)."""
     t0 = time.perf_counter()
-    summary = pt_mesh.run(device, scale, outer)
+    summary = pt_mesh.run(device, scale, outer, ranks=ranks)
     runs = summary["runs"]
     if torch.device(device).type == "cuda":
         wire = ("nccl" if summary["backend"] == "nccl"
@@ -3553,35 +3580,71 @@ def mesh_phase(device="cuda", scale: float = FIG_SCALE,
         "fused_step_cells": runs["cells_fig1"]["launches"]["launches_cells"]}}
 
 
-def mesh_lm_phase(device="cuda") -> dict:
-    """Phase 31: ``benchmarks/pt_mesh_lm.run`` (4 ranks on a (data=2,
-    model=2) mesh: danube at full width cut to 2 layers, trained on the
-    host loop with m = 2 and served, each held to its unsharded run on this
-    process's device).  On the card every rank's flash and RMSNorm counts
-    are set to 0 before its sharded serving and read after it: flash once
-    a layer (one prefill, on the rank's 16 / 4 heads), RMSNorm twice a
-    layer and once more a forward (the prefill and each decode step, on
-    the rank's rows); the wire must be the backend's.  Returns the phase's
-    summary with the launches of rank 0.  Rehearse it on the CPU with
-    ``device="cpu"`` and ``pt_mesh_lm.config`` at a smoke size (the
-    counts are 0 off the card)."""
+def mesh_ranks(device="cuda", scale: float = FIG_SCALE,
+               outer: int = MESH_OUTER) -> tuple:
+    """Phase 30's rank work, for phase 31's spawned group to run first
+    (``mesh_lm_phase(before=...)``): one spawn for both phases."""
+    return (pt_mesh.rank_runs, (scale, outer, torch.device(device).type,
+                                time.time()))
+
+
+def mesh_lm_phase(device="cuda", before=None) -> dict:
+    """Phase 31: ``benchmarks/pt_mesh_lm.run``, 4 ranks in one group, each
+    part held to its unsharded run on this process's device: danube at
+    full width cut to 2 layers on a (data=2, model=2) mesh, trained on the
+    host loop with m = 2 and served; (a) the nodes over (pod, data) of a
+    (pod=2, data=2, model=1) mesh against one dim; (b) a run stopped,
+    checkpointed and resumed bit for bit, its consensus the unsharded
+    twin's; (c)
+    xlstm-350m cut to 2 blocks trained and served, its mLSTM block on each
+    rank's heads; (d) jamba-1.5-large's Mamba mixer on each rank's
+    channels; (e) whisper-base served.  On the card every rank's flash and
+    RMSNorm counts are set to 0 before each sharded serving and read
+    after: danube's flash once a layer (one prefill, on the rank's 16 / 4
+    heads) and RMSNorm twice a layer and once more a forward (the prefill
+    and each decode step, on the rank's rows); xlstm's RMSNorm once a
+    block and once more a forward; whisper's flash once a decoder layer;
+    the wire must be the backend's.  Prints the seconds of each addition
+    beside the phase's and its budget (MESH_LM_BUDGET_S, printed, not
+    enforced: machines differ in speed).  Returns the phase's summary
+    with the launches of rank 0.  Rehearse it on the CPU with ``device="cpu"`` and
+    ``pt_mesh_lm``'s sizes cut (``SMOKE=True``; the counts are 0 off the
+    card).  ``before``: other rank work to run first in the same group
+    (``mesh_ranks``); its results come back under ``"before"``."""
     t0 = time.perf_counter()
-    summary = pt_mesh_lm.run(device)
+    summary = pt_mesh_lm.run(device, before=before)
+    before_ranks = summary.pop("before", None)
     if torch.device(device).type == "cuda":
-        want = {"flash_attention": pt_mesh_lm.LAYERS,
-                "rmsnorm": (pt_mesh_lm.NEW + 1)
-                * (2 * pt_mesh_lm.LAYERS + 1)}
-        for rank, got in enumerate(summary["launches_per_rank"]):
-            if got != want:
-                fail(f"mesh_lm rank {rank}: launches {got}, want {want}")
+        b = pt_mesh_lm
+        whisper_layers = b.config(True, None, "whisper-base").num_layers
+        want = {
+            "danube": {"flash_attention": b.LAYERS,
+                       "rmsnorm": (b.NEW + 1) * (2 * b.LAYERS + 1)},
+            "xlstm": {"flash_attention": 0,
+                      "rmsnorm": (b.XLSTM_NEW + 1) * (b.XLSTM_BLOCKS + 1)},
+            "whisper": {"flash_attention": whisper_layers, "rmsnorm": 0}}
+        got = {"danube": summary["launches_per_rank"],
+               "xlstm": summary["xlstm"]["launches_per_rank"],
+               "whisper": summary["whisper"]["launches_per_rank"]}
+        for name, per_rank in got.items():
+            for rank, counts in enumerate(per_rank):
+                if counts != want[name]:
+                    fail(f"mesh_lm {name} rank {rank}: launches {counts}, "
+                         f"want {want[name]}")
         errs = summary["kernels_vs_plain"]
         if max(errs["flash"], errs["rmsnorm"]) > 2e-5:
             fail(f"mesh_lm: flash / RMSNorm differ from their plain "
                  f"versions on a rank's shard: {errs}")
     summary["phase_s"] = time.perf_counter() - t0
     print("mesh_lm " + json.dumps(summary), flush=True)
-    return {"summary": summary,
-            "launches": dict(summary["launches_per_rank"][0])}
+    print("mesh_lm additions: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in summary["additions_s"].items())
+        + f"; phase {summary['phase_s']:.1f} s (budget "
+        f"{MESH_LM_BUDGET_S:.0f} s)", flush=True)
+    return {"summary": summary, "before": before_ranks, "launches": {
+        "danube": dict(summary["launches_per_rank"][0]),
+        "xlstm": dict(summary["xlstm"]["launches_per_rank"][0]),
+        "whisper": dict(summary["whisper"]["launches_per_rank"][0])}}
 
 
 # ---------------------------------------------------------------------------
@@ -4988,21 +5051,20 @@ def main() -> None:
     print(f"phase 19 (exec modes): {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    # phase 30: the decentralized path across ranks, the kernels built
-    # above (no rank builds)
+    # phases 30-31 in one spawned group of 4 ranks, the kernels built above
+    # (no rank builds): phase 30's decentralized path across ranks first,
+    # then phase 31's LM path (danube at full width, 2 layers, on a
+    # (data=2, model=2) mesh, trained and served; (a)-(e): nodes over two
+    # mesh dims, checkpoints, xlstm, jamba's Mamba, whisper); phase 30's
+    # unsharded twins run after the group
     _free_card()
     t0 = time.perf_counter()
-    mesh = mesh_phase(device)
-    print(f"phase 30 (mesh): {time.perf_counter() - t0:.1f} s ({card})",
-          flush=True)
-
-    # phase 31: the LM path across ranks (danube at full width, 2 layers,
-    # on a (data=2, model=2) mesh), trained and served
-    _free_card()
-    t0 = time.perf_counter()
-    mesh_lm = mesh_lm_phase(device)
-    print(f"phase 31 (mesh_lm): {time.perf_counter() - t0:.1f} s ({card})",
-          flush=True)
+    mesh_lm = mesh_lm_phase(device, before=mesh_ranks(device))
+    t1 = time.perf_counter()
+    mesh = mesh_phase(device, ranks=mesh_lm.pop("before"))
+    print(f"phases 30-31 (mesh, mesh_lm; one spawned group): "
+          f"{time.perf_counter() - t0:.1f} s, phase 30's twins "
+          f"{time.perf_counter() - t1:.1f} s of it ({card})", flush=True)
 
     # phases 21-23: stablelm-12b, llama4-scout and llama4-maverick served at
     # full width; phase 24: MoE training at smoke size
@@ -5033,6 +5095,9 @@ def main() -> None:
               flush=True)
 
     elapsed("phase 28")
+    print(f"script: {time.perf_counter() - t_start:.1f} s (budget "
+          f"{SCRIPT_BUDGET_S:.0f} s, "
+          f"{SCRIPT_LIMIT_S:.0f} s the limit)", flush=True)
 
     main_row = rows[(8, 1024, "svrg", "l1")]
     # the shape the kernel bench gives svrg_step and mix_prox
@@ -5111,11 +5176,13 @@ def main() -> None:
         # phase 30: rank 0's launches across its sharded runs
         if row["name"] in mesh["launches"]:
             row["launches_mesh"] = mesh["launches"][row["name"]]
-        # phase 31: rank 0's launches in its sharded serving (each rank's
-        # are the same)
-        if row["name"] in mesh_lm["launches"]:
-            row["launches_mesh_lm_per_rank"] = \
-                mesh_lm["launches"][row["name"]]
+        # phase 31: rank 0's launches in its sharded serving of danube,
+        # xlstm (RMSNorm) and whisper (flash) (each rank's are the same)
+        for name, counts in mesh_lm["launches"].items():
+            if row["name"] in counts:
+                suffix = "" if name == "danube" else f"_{name}"
+                row[f"launches_mesh_lm{suffix}_per_rank"] = \
+                    counts[row["name"]]
         # phases 21-23 serve stablelm-12b (flash float32), llama4-scout
         # (flash float32 on its global layer, RMSNorm) and llama4-maverick
         # (RMSNorm bf16); phases 25-26 xlstm-350m (RMSNorm) and

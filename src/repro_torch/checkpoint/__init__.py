@@ -24,6 +24,7 @@ its device.
 
 from __future__ import annotations
 
+import concurrent.futures
 import os
 import re
 import shutil
@@ -98,8 +99,10 @@ def _map_with_paths(fn, tree, path=()):
 
 
 def _encode(leaf) -> tuple[np.ndarray, str | None]:
-    """A leaf as the numpy array the npz stores, and its true dtype's name
-    where the array is a view."""
+    """A leaf (or a future of one) as the numpy array the npz stores, and
+    its true dtype's name where the array is a view."""
+    if isinstance(leaf, concurrent.futures.Future):
+        leaf = leaf.result()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if t.dtype in _VIEW_DTYPES:
@@ -139,6 +142,15 @@ def _write_npz(path: str, leaves: list) -> dict:
     return dtypes
 
 
+def _read_header(fh) -> tuple:
+    """(shape, fortran_order, dtype) of the ``.npy`` member open in
+    ``fh``, which is left at the start of its data."""
+    version = np.lib.format.read_magic(fh)
+    read_header = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                   else np.lib.format.read_array_header_2_0)
+    return read_header(fh)
+
+
 def leaf_shape(npz_path: str, key: str) -> tuple | None:
     """The shape of one stored leaf, read from its header alone (None when
     the checkpoint has no such leaf)."""
@@ -146,12 +158,29 @@ def leaf_shape(npz_path: str, key: str) -> tuple | None:
         if key + ".npy" not in zf.namelist():
             return None
         with zf.open(key + ".npy") as fh:
-            version = np.lib.format.read_magic(fh)
-            read_header = (np.lib.format.read_array_header_1_0
-                           if version == (1, 0)
-                           else np.lib.format.read_array_header_2_0)
-            shape, _, _ = read_header(fh)
+            shape, _, _ = _read_header(fh)
     return tuple(shape)
+
+
+def _read_rows(zf, key: str, rows: slice) -> tuple[np.ndarray, tuple]:
+    """Rows ``rows`` of the leading dim of a stored leaf, read alone (the
+    members are stored uncompressed, so the reader seeks past the rows
+    before them; a scalar is read whole), and the leaf's whole shape."""
+    with zf.open(key + ".npy") as fh:
+        shape, fortran, dtype = _read_header(fh)
+        if not shape:
+            return np.frombuffer(fh.read(dtype.itemsize), dtype).reshape(
+                ()).copy(), ()
+        if fortran:
+            raise ValueError(f"{key}: a Fortran-ordered leaf's rows are not "
+                             f"contiguous")
+        start, stop, _ = rows.indices(shape[0])
+        row_bytes = int(np.prod(shape[1:], dtype=np.int64)) * dtype.itemsize
+        fh.seek(fh.tell() + start * row_bytes)
+        data = fh.read((stop - start) * row_bytes)
+    arr = np.frombuffer(data, dtype=dtype).reshape(
+        (stop - start,) + tuple(shape[1:]))
+    return arr.copy(), tuple(shape)
 
 
 def _sweep_orphan_tmpdirs(directory: str) -> None:
@@ -187,7 +216,9 @@ def _prune_old(directory: str, keep_last: int) -> None:
 def save(directory: str, step: int, tree, metadata: dict | None = None,
          keep_last: int | None = None) -> str:
     """Atomic checkpoint write of a tree of tensors (any device) or numpy
-    arrays.  ``keep_last=N`` prunes all but the N newest ``step_*`` dirs
+    arrays, or ``concurrent.futures.Future``s of them, each awaited when
+    its turn to be written comes (so that another thread may produce the
+    leaves while this one writes).  ``keep_last=N`` prunes all but the N newest ``step_*`` dirs
     after a successful write (None keeps everything); orphaned
     ``.tmp_ckpt_*`` dirs from previously interrupted saves are swept on
     entry either way."""
@@ -222,11 +253,14 @@ def latest_step(directory: str) -> int | None:
     return entries[-1][0] if entries else None
 
 
-def restore(directory: str, template, step: int | None = None):
+def restore(directory: str, template, step: int | None = None,
+            rows: slice | None = None):
     """Restore into the structure of ``template`` (leaves need only a
     ``.shape``).  Returns ``(tree, step, metadata)`` with CPU tensor
     leaves in the stored dtypes; checkpoint leaves the template does not
-    name are not read."""
+    name are not read.  ``rows`` reads only those rows of every leaf's
+    leading dim (a node-sharded rank's rows of the stacked state; a scalar
+    whole): the template's shapes stay whole, the leaves hold the rows."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {directory}")
@@ -234,13 +268,27 @@ def restore(directory: str, template, step: int | None = None):
     with open(os.path.join(path, "meta.msgpack"), "rb") as f:
         meta = _msgpack.unpackb(f.read())
     dtypes = meta.get("dtypes", {})
-    with np.load(os.path.join(path, "arrays.npz")) as arrays:
+    npz = os.path.join(path, "arrays.npz")
+
+    def check(key, stored, leaf):
+        if tuple(stored) != tuple(leaf.shape):
+            raise ValueError(f"shape mismatch for {key}: ckpt "
+                             f"{tuple(stored)} vs template "
+                             f"{tuple(leaf.shape)}")
+
+    if rows is not None:
+        with zipfile.ZipFile(npz) as zf:
+            def read_rows(key, leaf):
+                arr, whole = _read_rows(zf, key, rows)
+                check(key, whole, leaf)
+                return _decode(arr, dtypes.get(key))
+
+            tree = _map_with_paths(read_rows, template)
+        return tree, step, meta["metadata"]
+    with np.load(npz) as arrays:
         def read(key, leaf):
             arr = arrays[key]
-            if tuple(arr.shape) != tuple(leaf.shape):
-                raise ValueError(f"shape mismatch for {key}: ckpt "
-                                 f"{arr.shape} vs template "
-                                 f"{tuple(leaf.shape)}")
+            check(key, arr.shape, leaf)
             return _decode(arr, dtypes.get(key))
 
         tree = _map_with_paths(read, template)

@@ -13,9 +13,10 @@ ranks goes through this module, and nowhere else:
   size}``, the reference's ``mesh.shape``.  Without one, a run that needs a
   mesh builds a 1-D one over the default group (:func:`world_mesh`), and
   raises without an initialized group, naming :func:`spawn`.
-* **A node axis** (:class:`NodeAxis`) is a mesh dim that splits the ``m``
-  nodes in contiguous blocks, ``m / size`` rows a rank.  A node-sharded run
-  holds only its rows of every ``(m, ...)`` leaf.
+* **A node axis** (:class:`NodeAxis`) is a mesh dim, or several flattened
+  into one (:func:`node_mesh`), that splits the ``m`` nodes in contiguous
+  blocks, ``m / size`` rows a rank.  A node-sharded run holds only its rows
+  of every ``(m, ...)`` leaf.
 * **The wire**: :func:`shift` (one point-to-point exchange a band: rank
   ``j`` sends to ``(j - d) % size`` and receives from ``(j + d) % size``,
   the reference's ``ppermute``), :func:`all_gather_rows`,
@@ -60,7 +61,8 @@ from torch.utils import _pytree as pytree
 
 __all__ = ["WIRES", "require_group", "backend_for", "check_backend",
            "world_mesh",
-           "mesh_shape", "NodeAxis", "node_axis", "wire_name", "shift",
+           "mesh_shape", "NodeAxis", "node_mesh", "node_axis", "wire_name",
+           "shift",
            "all_gather_rows", "all_reduce_sum", "all_gather_object",
            "local_problem", "stage_placed_collectives", "placed_wire",
            "spawn"]
@@ -152,9 +154,50 @@ class NodeAxis:
 
 
 @functools.lru_cache(maxsize=32)
-def node_axis(mesh, axis: str, m: int) -> NodeAxis:
+def node_mesh(mesh, axes):
+    """The 1-D mesh of ``mesh``'s dims ``axes`` (a name or a tuple of
+    names): ``mesh[axis]`` for one dim; for several, their ranks flattened
+    row-major in the order of ``axes`` (the first dim major, the order of
+    the reference's ``P(("pod", "data"))``) into one dim named
+    ``"_".join(axes)``, over the ranks that share every other coordinate
+    with this one.  Building it creates process groups, which every rank
+    of the world does in the same order: every rank makes the same call
+    (``DeviceMesh``'s constructor over the rank tensor with the other dims
+    first and the node dims flattened last)."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    names = tuple(mesh.mesh_dim_names or ())
+    missing = [a for a in axes if a not in names]
+    if missing:
+        raise ValueError(f"mesh dims {missing} are not dims of the mesh "
+                         f"{names}")
+    if len(axes) == 1:
+        return mesh[axes[0]]
+    from torch.distributed.device_mesh import DeviceMesh
+    node_dims = [names.index(a) for a in axes]
+    rest = [i for i in range(len(names)) if i not in node_dims]
+    size = 1
+    for i in node_dims:
+        size *= mesh.mesh.shape[i]
+    ranks = mesh.mesh.permute(rest + node_dims).reshape(-1, size)
+    name = "_".join(axes)
+    if not rest:
+        return DeviceMesh(mesh.device_type, ranks[0],
+                          mesh_dim_names=(name,))
+    return DeviceMesh(mesh.device_type, ranks,
+                      mesh_dim_names=("_".join(names[i] for i in rest),
+                                      name))[name]
+
+
+@functools.lru_cache(maxsize=32)
+def node_axis(mesh, axis, m: int) -> NodeAxis:
     """The :class:`NodeAxis` of ``m`` nodes over ``mesh``'s dim ``axis``,
-    whose size must divide ``m``."""
+    whose size must divide ``m``.  ``axis`` may be a tuple of dims: the
+    nodes then lie over their product, a rank's index row-major over them
+    in the tuple's order (:func:`node_mesh`), and the axis is that of the
+    flattened 1-D mesh (its ``mesh`` and ``axis`` name it)."""
+    if not isinstance(axis, str):
+        flat = node_mesh(mesh, tuple(axis))
+        return node_axis(flat, flat.mesh_dim_names[0], m)
     size = mesh_shape(mesh)[axis]
     if m % size:
         raise ValueError(f"{m} nodes do not split evenly over the {size} "

@@ -307,9 +307,11 @@ def cross_attention_apply(params, spec: AttnSpec, x, cross_cache):
     """Queries from ``x`` (B, S, d) over a ``cross_attention_cache``, every
     key visible (a zero bias)."""
     q = _split_heads(x @ params["wq"], spec.num_heads, spec.head_dim)
-    k = _repeat_kv(cross_cache["k"], spec.num_heads)
-    v = _repeat_kv(cross_cache["v"], spec.num_heads)
+    k, v = cross_cache["k"], cross_cache["v"]
     bias = torch.zeros((x.shape[1], k.shape[1]), dtype=torch.float32,
                        device=x.device)
-    out = _sdpa(spec, q, k, v, bias)
+    # each rank's heads, repeated to its own query heads
+    out = placed.attention_core(
+        lambda q_, k_, v_: _sdpa(spec, q_, _repeat_kv(k_, q_.shape[2]),
+                                 _repeat_kv(v_, q_.shape[2]), bias), q, k, v)
     return _merge_heads(out) @ params["wo"]

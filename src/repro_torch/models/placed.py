@@ -23,8 +23,12 @@ DTensor with the placements the region states.
 * :func:`rmsnorm_kernel` runs the RMSNorm kernel on each rank's rows.
 * :func:`moe_tokens` runs an MoE layer with its experts split over ranks.
 * :func:`whole_last_dim` gathers the logits' vocab.
-* :func:`replicated_call` runs anything else (the SSM mixers) on whole
-  tensors: every operand is gathered, and the result is replicated.
+* :func:`channel_call` runs Mamba and mLSTM on each rank's channels (the
+  Mamba state's d_inner, mLSTM's heads), as ``sharding.cache_specs``
+  places their states.
+* :func:`replicated_call` runs anything else (the sLSTM mixer, whose
+  recurrent weights the specs replicate) on whole tensors: every operand
+  is gathered, and the result is replicated.
 
 Every function here takes plain tensors too, and then calls its plain
 body, so the model's code reads the same on one device.
@@ -41,7 +45,7 @@ from torch.utils import _pytree as pytree
 __all__ = ["is_placed", "any_placed", "wrap", "attention_core", "cache_core",
            "decode_core",
            "embedding", "rmsnorm_kernel", "moe_tokens", "whole_last_dim",
-           "replicated_call",
+           "channel_call", "replicated_call",
            "constrain"]
 
 
@@ -325,6 +329,174 @@ def whole_last_dim(x):
     return x.redistribute(x.device_mesh, [
         Replicate() if p.is_partial() or p.is_shard(last) or p.is_shard(-1)
         else p for p in x.placements])
+
+
+# ---------------------------------------------------------------------------
+# Mamba and mLSTM on each rank's channels
+# ---------------------------------------------------------------------------
+
+# Per mixer: the weight whose dim 0 holds the channels (its spec splits it
+# over the model axis), and the dim of each weight and state leaf that
+# holds them.  "halves" is a weight whose columns are two halves of
+# channels (mLSTM's input and forget gates): the rank takes its part of
+# each.  The up-projections' columns are two halves too, but their spec
+# splits them in place (one rank may hold all of one half): the rank keeps
+# its block of columns and the product is regrouped (``_Channels.halves``).
+_CHANNELS = {
+    "mamba": {"out": "out_proj",
+              "weights": {"in_proj": 1, "conv_w": 1, "conv_b": 0,
+                          "x_proj": 0, "dt_proj": 1, "dt_bias": 0,
+                          "a_log": 0, "d_skip": 0, "out_proj": 0},
+              "state": {"h": 1, "conv": 2}},
+    "mlstm": {"out": "down_proj",
+              "weights": {"up_proj": 1, "conv_w": 1, "conv_b": 0, "wq": 1,
+                          "wk": 1, "wv": 1, "w_if": "halves", "b_i": 0,
+                          "b_f": 0, "skip_w": 0, "norm_w": 0,
+                          "down_proj": 0},
+              "state": {"c": 1, "n": 1, "m": 1, "conv": 2}},
+}
+
+
+class _Channels:
+    """The cross-channel steps of a mixer on the rank's channels (the
+    counterpart of ``ssm.Whole``), over the mesh dims ``split``; ``act`` is
+    the layout of batch-leading activations (batch rows split where the
+    input's are, replicated elsewhere), ``batch`` their global batch size,
+    and ``lo``/``c`` the rank's channels of ``n``.  Each step is a DTensor
+    redistribution, so that autograd carries its gradient: a gather's is a
+    reduce-scatter, a sum's an all-reduce."""
+
+    def __init__(self, mesh, split, act, batch: int, lo: int, c: int,
+                 n: int):
+        self.mesh, self.split, self.act = mesh, split, act
+        self.batch, self.lo, self.c = batch, lo, c
+        self.k = n // c
+
+    def layout(self, on_split) -> list:
+        return [on_split if i in self.split else p
+                for i, p in enumerate(self.act)]
+
+    def _shape(self, t, dim=None) -> tuple:
+        shape = [self.batch] + list(t.shape[1:])
+        if dim is not None:
+            shape[dim] *= self.k
+        return tuple(shape)
+
+    def _whole(self, t, placements, shape):
+        from torch.distributed.tensor import Partial
+        return wrap(t, self.mesh, placements, shape).redistribute(
+            self.mesh, self.act).to_local(
+            grad_placements=self.layout(Partial()))
+
+    def gather(self, t):
+        """``t`` (the rank's channels in its last dim) with every
+        channel."""
+        if not self.split:
+            return t
+        from torch.distributed.tensor import Shard
+        last = t.ndim - 1
+        return self._whole(t, self.layout(Shard(last)), self._shape(t, last))
+
+    def halves(self, t):
+        """The rank's channels of each half of a product whose last dim
+        holds the rank's block of the two halves' columns."""
+        full = self.gather(t)
+        half = full.shape[-1] // 2
+        lo, hi = self.lo, self.lo + self.c
+        return full[..., lo:hi], full[..., half + lo:half + hi]
+
+    def psum(self, t):
+        """The sum of the ranks' partial products ``t``."""
+        if not self.split:
+            return t
+        from torch.distributed.tensor import Partial
+        return self._whole(t, self.layout(Partial()), self._shape(t))
+
+    def rms_norm(self, h, weight, eps: float = 1e-6):
+        """``common.rms_norm`` over every channel of the rank's ``h``."""
+        x = h.to(torch.float32)
+        var = self.psum(torch.sum(x * x, dim=-1, keepdim=True)) / (
+            h.shape[-1] * self.k)
+        out = x * torch.rsqrt(var + eps) * (1.0 + weight.to(torch.float32))
+        return out.to(h.dtype)
+
+
+def channel_call(fn, kind: str, params, spec, x, state=None,
+                 unit: int = 1):
+    """``fn(params, spec, x[, state], ch=...)`` (a Mamba or mLSTM entry of
+    ``models.ssm``, ``kind`` naming which) on each rank's channels, where
+    the mixer's weights are placed.  The channels are split over the mesh
+    dims that split the out-projection's rows (the model axis), when their
+    ``unit``s (mLSTM's heads) divide evenly, and the batch rows stay split
+    where ``x``'s are.  Each weight is redistributed to the rank's
+    channels, the input and the state likewise (the state is laid out as
+    ``sharding.cache_specs`` lays it where the model axis divides it);
+    ``fn`` runs on local tensors with a :class:`_Channels` for its
+    cross-channel steps, and returns the out-projection's partial sum, a
+    DTensor, with the new state on the rank's channels."""
+    if not any_placed(params, x, state):
+        return fn(params, spec, x) if state is None else \
+            fn(params, spec, x, state)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    table = _CHANNELS[kind]
+    mesh = _mesh_of(x, *pytree.tree_leaves(params))
+    params = {k: w if is_placed(w) else _replicate(w, mesh)
+              for k, w in params.items()}
+    x = x if is_placed(x) else _replicate(x, mesh)
+    out_w = params[table["out"]]
+    n = out_w.shape[0]
+    split = [i for i in range(mesh.ndim) if out_w.placements[i].is_shard(0)
+             and not x.placements[i].is_shard()]
+    if (n // unit) % math.prod(mesh.size(i) for i in split):
+        split = []
+    act = [Shard(0) if i not in split and p.is_shard(0) else Replicate()
+           for i, p in enumerate(x.placements)]
+    batch = [i for i, p in enumerate(act) if p.is_shard()]
+    (c,), (lo,) = compute_local_shape_and_global_offset(
+        (n,), mesh, [Shard(0) if i in split else Replicate()
+                     for i in range(mesh.ndim)])
+    ch = _Channels(mesh, split, act, x.shape[0], lo, c, n)
+
+    def weight(name, w):
+        dim = table["weights"][name]
+        grads = [Partial() if i in batch else Replicate()
+                 for i in range(mesh.ndim)]
+        if dim == "halves":
+            full = w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+                grad_placements=[Partial() if i in split else g
+                                 for i, g in enumerate(grads)])
+            half = full.shape[-1] // 2
+            per = full.shape[-1] // 2 // ch.k
+            at = lo // (n // half)
+            return torch.cat([full[..., at:at + per],
+                              full[..., half + at:half + at + per]], dim=-1)
+        pl = [Shard(dim) if i in split else Replicate()
+              for i in range(mesh.ndim)]
+        return w.redistribute(mesh, pl).to_local(
+            grad_placements=[Shard(dim) if i in split else g
+                             for i, g in enumerate(grads)])
+
+    local = {k: weight(k, w) for k, w in params.items()}
+    xl = x.redistribute(mesh, act).to_local(
+        grad_placements=ch.layout(Partial()))
+    if state is None:
+        out, new_state = fn(local, spec, xl, ch=ch), None
+    else:
+        st = {k: (v if is_placed(v) else _replicate(v, mesh)).redistribute(
+            mesh, ch.layout(Shard(table["state"][k]))).to_local()
+            for k, v in state.items()}
+        out, new_state = fn(local, spec, xl, st, ch=ch)
+    if isinstance(out, tuple):
+        out, new_state = out
+    out = wrap(out, mesh, ch.layout(Partial()), tuple(x.shape[:-1])
+               + (out.shape[-1],))
+    if new_state is None:
+        return out
+    return out, {k: wrap(v, mesh, ch.layout(Shard(table["state"][k])),
+                         ch._shape(v, table["state"][k]))
+                 for k, v in new_state.items()}
 
 
 def replicated_call(fn, *args):

@@ -18,6 +18,15 @@ float32 in every model dtype; the scans take float32 inputs and cast their
 outputs back to the activation dtype.  The inner norms of mLSTM and sLSTM
 are the plain ``common.rms_norm``, as in the reference, whatever the
 config's ``use_fused_norm`` says.
+
+Mamba and mLSTM also run on a slice of their channels (a sharded step's
+local region, ``models.placed.channel_call``): their few steps that cross
+channels go through a ``ch`` argument, :class:`Whole` on one device
+(``halves`` splits an up-projection into its two halves, ``psum`` sums a
+product over the channel slices, ``gather`` makes a channel dim whole and
+``rms_norm`` normalizes over every channel), and the sizes of the states
+and loops are read from the tensors, so that the same code runs on the
+rank's channels with the rank's weights.
 """
 
 from __future__ import annotations
@@ -36,6 +45,30 @@ __all__ = ["MambaSpec", "init_mamba", "mamba_forward", "mamba_init_state",
            "slstm_forward", "slstm_init_state", "slstm_step"]
 
 F32 = torch.float32
+
+
+class Whole:
+    """The cross-channel steps of Mamba and mLSTM on every channel: the
+    plain code, as the reference writes it."""
+
+    @staticmethod
+    def halves(t):
+        return torch.chunk(t, 2, dim=-1)
+
+    @staticmethod
+    def psum(t):
+        return t
+
+    @staticmethod
+    def gather(t):
+        return t
+
+    @staticmethod
+    def rms_norm(h, weight):
+        return common.rms_norm(h, weight)
+
+
+WHOLE = Whole()
 
 
 def _softplus(x):
@@ -109,16 +142,16 @@ def init_mamba(gen: torch.Generator, spec: MambaSpec, dtype=F32):
     }
 
 
-def _mamba_inputs(params, spec: MambaSpec, x, conv_state=None):
+def _mamba_inputs(params, spec: MambaSpec, x, conv_state=None, ch=WHOLE):
     """Shared pre-scan computation.  x: (B, L, d).
 
     Returns (u, z, dt, b_mat, c_mat, new_conv_state)."""
     ds, r = spec.d_state, spec.rank
     xz = x @ params["in_proj"]
-    u, z = torch.chunk(xz, 2, dim=-1)                    # (B, L, di) each
+    u, z = ch.halves(xz)                                 # (B, L, di) each
     conv, new_conv_state = _causal_conv(params, spec.d_conv, u, conv_state)
     u = F.silu(conv + params["conv_b"])
-    proj = u @ params["x_proj"]                          # (B, L, r + 2 ds)
+    proj = ch.psum(u @ params["x_proj"])                 # (B, L, r + 2 ds)
     dt_in, b_mat, c_mat = torch.split(proj, [r, ds, ds], dim=-1)
     dt = _softplus(dt_in @ params["dt_proj"] + params["dt_bias"])
     return u, z, dt, b_mat, c_mat, new_conv_state
@@ -142,7 +175,7 @@ def _mamba_scan(spec: MambaSpec, params, u, dt, b_mat, c_mat):
     float32 casts of the inputs: (h_final, ys).  One loop: the reference's
     chunks (``spec.chunk_size``) are remat boundaries of its scan and give
     the same numbers."""
-    h0 = torch.zeros((u.shape[0], spec.d_inner, spec.d_state), dtype=F32,
+    h0 = torch.zeros((u.shape[0], u.shape[-1], spec.d_state), dtype=F32,
                      device=u.device)
     return _mamba_scan_chunk(params, u.to(F32), dt.to(F32), b_mat.to(F32),
                              c_mat.to(F32), h0)
@@ -154,9 +187,9 @@ def _mamba_out(params, x, u, z, ys):
     return y @ params["out_proj"]
 
 
-def mamba_forward(params, spec: MambaSpec, x):
+def mamba_forward(params, spec: MambaSpec, x, ch=WHOLE):
     """Training forward.  x: (B, L, d) -> (B, L, d)."""
-    u, z, dt, b_mat, c_mat, _ = _mamba_inputs(params, spec, x)
+    u, z, dt, b_mat, c_mat, _ = _mamba_inputs(params, spec, x, ch=ch)
     _, ys = _mamba_scan(spec, params, u, dt, b_mat, c_mat)
     return _mamba_out(params, x, u, z, ys)
 
@@ -170,10 +203,10 @@ def mamba_init_state(spec: MambaSpec, batch: int, dtype=F32, device=None):
     }
 
 
-def mamba_step(params, spec: MambaSpec, x_t, state):
+def mamba_step(params, spec: MambaSpec, x_t, state, ch=WHOLE):
     """x_t: (B, 1, d) -> (y, new_state)."""
     u, z, dt, b_mat, c_mat, new_conv = _mamba_inputs(
-        params, spec, x_t, conv_state=state["conv"])
+        params, spec, x_t, conv_state=state["conv"], ch=ch)
     a = -torch.exp(params["a_log"].to(F32))
     dt_t = dt[:, 0].to(F32)
     u_t = u[:, 0].to(F32)
@@ -245,17 +278,22 @@ def _mlstm_cell(q, k, v, i_tilde, f_tilde, state):
     return (c_t, n_t, m_t), h
 
 
-def _mlstm_qkvif(params, spec: MLstmSpec, x, conv_state=None):
+def _mlstm_qkvif(params, spec: MLstmSpec, x, conv_state=None, ch=WHOLE):
+    """q, k and v of the heads whose channels ``inner`` holds: every head
+    on one device; on a channel slice, ``wq``/``wk``/``wv`` hold the
+    slice's columns and ``w_if``/``b_i``/``b_f`` its heads' gates."""
     b, l, _ = x.shape
-    nh, hd = spec.num_heads, spec.head_dim
+    hd = spec.head_dim
     up = x @ params["up_proj"]
-    inner, gate = torch.chunk(up, 2, dim=-1)
+    inner, gate = ch.halves(up)
+    nh = inner.shape[-1] // hd
     conv, new_conv = _causal_conv(params, spec.d_conv, inner, conv_state)
     conv = F.silu(conv + params["conv_b"])
-    q = (conv @ params["wq"]).reshape(b, l, nh, hd) / math.sqrt(hd)
-    k = (conv @ params["wk"]).reshape(b, l, nh, hd)
-    v = (inner @ params["wv"]).reshape(b, l, nh, hd)
-    if_g = conv @ params["w_if"]
+    conv_all, inner_all = ch.gather(conv), ch.gather(inner)
+    q = (conv_all @ params["wq"]).reshape(b, l, nh, hd) / math.sqrt(hd)
+    k = (conv_all @ params["wk"]).reshape(b, l, nh, hd)
+    v = (inner_all @ params["wv"]).reshape(b, l, nh, hd)
+    if_g = conv_all @ params["w_if"]
     i_tilde = if_g[..., :nh] + params["b_i"]
     f_tilde = if_g[..., nh:] + params["b_f"]
     return inner, gate, q, k, v, i_tilde, f_tilde, new_conv
@@ -264,8 +302,7 @@ def _mlstm_qkvif(params, spec: MLstmSpec, x, conv_state=None):
 def _mlstm_scan(spec: MLstmSpec, q, k, v, i_t, f_t):
     """The mLSTM recurrence over time from the zero state, on float32 casts
     of (B, L, ...) inputs.  Returns ((C, n, m) final, hs (B, L, H, hd))."""
-    b = q.shape[0]
-    nh, hd = spec.num_heads, spec.head_dim
+    b, _, nh, hd = q.shape
     q, k, v, i_t, f_t = (t.to(F32) for t in (q, k, v, i_t, f_t))
     state = (torch.zeros((b, nh, hd, hd), dtype=F32, device=q.device),
              torch.zeros((b, nh, hd), dtype=F32, device=q.device),
@@ -278,18 +315,18 @@ def _mlstm_scan(spec: MLstmSpec, q, k, v, i_t, f_t):
     return state, torch.stack(hs, dim=1)
 
 
-def _mlstm_out(params, spec: MLstmSpec, x, inner, gate, hs):
+def _mlstm_out(params, spec: MLstmSpec, x, inner, gate, hs, ch=WHOLE):
     b, l = hs.shape[:2]
-    h = hs.reshape(b, l, spec.d_inner).to(x.dtype)
-    h = common.rms_norm(h, params["norm_w"]) + inner * params["skip_w"]
+    h = hs.reshape(b, l, inner.shape[-1]).to(x.dtype)
+    h = ch.rms_norm(h, params["norm_w"]) + inner * params["skip_w"]
     h = h * F.silu(gate)
     return h @ params["down_proj"]
 
 
-def mlstm_forward(params, spec: MLstmSpec, x):
-    inner, gate, q, k, v, i_t, f_t, _ = _mlstm_qkvif(params, spec, x)
+def mlstm_forward(params, spec: MLstmSpec, x, ch=WHOLE):
+    inner, gate, q, k, v, i_t, f_t, _ = _mlstm_qkvif(params, spec, x, ch=ch)
     _, hs = _mlstm_scan(spec, q, k, v, i_t, f_t)
-    return _mlstm_out(params, spec, x, inner, gate, hs)
+    return _mlstm_out(params, spec, x, inner, gate, hs, ch)
 
 
 def mlstm_init_state(spec: MLstmSpec, batch: int, dtype=F32, device=None):
@@ -303,13 +340,13 @@ def mlstm_init_state(spec: MLstmSpec, batch: int, dtype=F32, device=None):
     }
 
 
-def mlstm_step(params, spec: MLstmSpec, x_t, state):
+def mlstm_step(params, spec: MLstmSpec, x_t, state, ch=WHOLE):
     inner, gate, q, k, v, i_t, f_t, new_conv = _mlstm_qkvif(
-        params, spec, x_t, conv_state=state["conv"])
+        params, spec, x_t, conv_state=state["conv"], ch=ch)
     st = (state["c"], state["n"], state["m"])
     st, h = _mlstm_cell(q[:, 0].to(F32), k[:, 0].to(F32), v[:, 0].to(F32),
                         i_t[:, 0].to(F32), f_t[:, 0].to(F32), st)
-    out = _mlstm_out(params, spec, x_t, inner, gate, h[:, None])
+    out = _mlstm_out(params, spec, x_t, inner, gate, h[:, None], ch)
     return out, {"c": st[0], "n": st[1], "m": st[2], "conv": new_conv}
 
 

@@ -195,11 +195,11 @@ def _block_forward(cfg: ModelConfig, plan: LayerPlan, p, x, enc_out=None):
     if plan.mixer == "attn":
         mix = attention.attention_forward(p["attn"], plan.attn, h)
     elif plan.mixer == "mamba":
-        mix = placed.replicated_call(ssm.mamba_forward, p["mamba"],
-                                     plan.mamba, h)
+        mix = placed.channel_call(ssm.mamba_forward, "mamba", p["mamba"],
+                                  plan.mamba, h)
     elif plan.mixer == "mlstm":
-        mix = placed.replicated_call(ssm.mlstm_forward, p["mlstm"],
-                                     plan.mlstm, h)
+        mix = placed.channel_call(ssm.mlstm_forward, "mlstm", p["mlstm"],
+                                  plan.mlstm, h, unit=plan.mlstm.head_dim)
     else:
         mix = placed.replicated_call(ssm.slstm_forward, p["slstm"],
                                      plan.slstm, h)
@@ -372,12 +372,13 @@ def prefill(cfg: ModelConfig, params, tokens, image_embeds=None,
                                                   max_len=max_len)
             entry = {"kv": kv}
         elif plan.mixer == "mamba":
-            mix, st = placed.replicated_call(_mamba_prefill, p["mamba"],
-                                             plan.mamba, h)
+            mix, st = placed.channel_call(_mamba_prefill, "mamba",
+                                          p["mamba"], plan.mamba, h)
             entry = {"mamba": st}
         elif plan.mixer == "mlstm":
-            mix, st = placed.replicated_call(_mlstm_prefill, p["mlstm"],
-                                             plan.mlstm, h)
+            mix, st = placed.channel_call(_mlstm_prefill, "mlstm",
+                                          p["mlstm"], plan.mlstm, h,
+                                          unit=plan.mlstm.head_dim)
             entry = {"mlstm": st}
         else:
             mix, st = placed.replicated_call(_slstm_prefill, p["slstm"],
@@ -395,18 +396,20 @@ def prefill(cfg: ModelConfig, params, tokens, image_embeds=None,
     return logits[:, 0], {"pos": pos, "layers": cache_layers}
 
 
-def _mamba_prefill(p, spec, x):
+def _mamba_prefill(p, spec, x, ch=ssm.WHOLE):
     """The training forward, returning the final recurrent and conv
     states with the output."""
-    u, z, dt, b_mat, c_mat, conv_state = ssm._mamba_inputs(p, spec, x)
+    u, z, dt, b_mat, c_mat, conv_state = ssm._mamba_inputs(p, spec, x,
+                                                           ch=ch)
     h_final, ys = ssm._mamba_scan(spec, p, u, dt, b_mat, c_mat)
     return ssm._mamba_out(p, x, u, z, ys), {"h": h_final, "conv": conv_state}
 
 
-def _mlstm_prefill(p, spec, x):
-    inner, gate, q, k, v, i_t, f_t, conv_state = ssm._mlstm_qkvif(p, spec, x)
+def _mlstm_prefill(p, spec, x, ch=ssm.WHOLE):
+    inner, gate, q, k, v, i_t, f_t, conv_state = ssm._mlstm_qkvif(p, spec, x,
+                                                                  ch=ch)
     st, hs = ssm._mlstm_scan(spec, q, k, v, i_t, f_t)
-    out = ssm._mlstm_out(p, spec, x, inner, gate, hs)
+    out = ssm._mlstm_out(p, spec, x, inner, gate, hs, ch)
     return out, {"c": st[0], "n": st[1], "m": st[2], "conv": conv_state}
 
 
@@ -442,12 +445,15 @@ def decode_step(cfg: ModelConfig, params, cache, token):
                                                  entry["kv"], pos)
             new_entry = dict(entry, kv=kv)
         elif plan.mixer == "mamba":
-            mix, st = placed.replicated_call(ssm.mamba_step, p["mamba"],
-                                             plan.mamba, h, entry["mamba"])
+            mix, st = placed.channel_call(ssm.mamba_step, "mamba",
+                                          p["mamba"], plan.mamba, h,
+                                          entry["mamba"])
             new_entry = dict(entry, mamba=st)
         elif plan.mixer == "mlstm":
-            mix, st = placed.replicated_call(ssm.mlstm_step, p["mlstm"],
-                                             plan.mlstm, h, entry["mlstm"])
+            mix, st = placed.channel_call(ssm.mlstm_step, "mlstm",
+                                          p["mlstm"], plan.mlstm, h,
+                                          entry["mlstm"],
+                                          unit=plan.mlstm.head_dim)
             new_entry = dict(entry, mlstm=st)
         else:
             mix, st = placed.replicated_call(ssm.slstm_step, p["slstm"],

@@ -28,8 +28,8 @@ import math
 from torch.utils import _pytree as pytree
 
 __all__ = ["MeshPlan", "param_specs", "batch_spec", "cache_specs",
-           "stacked_specs", "placements", "place", "shard_shape",
-           "spec_axes"]
+           "stacked_specs", "placements", "place", "shard_slices",
+           "shard_shape", "spec_axes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -266,17 +266,29 @@ def placements(spec, mesh) -> tuple:
     return tuple(out)
 
 
+def shard_slices(x, mesh=None, placements=None) -> tuple:
+    """The slices of the whole value that this rank's shard holds: of the
+    DTensor ``x``, or of a tensor of ``x``'s shape placed so on
+    ``mesh``."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    if mesh is None:
+        mesh, placements = x.device_mesh, x.placements
+    shape, offset = compute_local_shape_and_global_offset(
+        tuple(x.shape), mesh, placements)
+    return tuple(slice(o, o + n) for o, n in zip(offset, shape))
+
+
 def place(x, mesh, placements):
     """The DTensor on ``mesh`` with ``placements`` whose whole value is
     ``x`` (a tensor every rank holds whole): each rank keeps its own shard,
-    cut from ``x`` without any exchange."""
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
-
+    cut from ``x`` without any exchange (a host ``x`` of a mesh on the
+    card moves only the shard there)."""
     from ..models.placed import wrap
-    shape, offset = compute_local_shape_and_global_offset(
-        tuple(x.shape), mesh, placements)
-    local = x[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    local = x[shard_slices(x, mesh, placements)]
     # a shard is its own memory, so that the whole value can be freed
-    return wrap(local.clone() if local.numel() < x.numel() else local,
-                mesh, placements, x.shape)
+    if local.device.type != mesh.device_type:
+        local = local.to(mesh.device_type)
+    elif local.numel() < x.numel():
+        local = local.clone()
+    return wrap(local, mesh, placements, x.shape)

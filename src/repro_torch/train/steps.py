@@ -24,8 +24,9 @@ kernels either), so ``train_loop`` refuses configs that turn them on.
 dims, every rank making the same call; ``core.spmd``), the counterpart of
 the reference's GSPMD shardings:
 
-  * the stacked node axis is split over the plan's node axis in
-    contiguous blocks, ``m / size`` rows a rank (``spmd.node_axis``), and
+  * the stacked node axis is split over the plan's node axes (one mesh
+    dim, or several flattened pod major) in contiguous blocks, ``m / size``
+    rows a rank (``spmd.node_axis``), and
     the mix runs over the wire (``gossip.shard_phi``: ``GatheredPhi`` or
     ``PermutePhi``) on each rank's local shards;
   * each leaf of the rank's rows is a DTensor on the submesh of the other
@@ -87,12 +88,15 @@ class TrainBundle(NamedTuple):
     loss_fn: Callable
     # sharded: the TrainState of each leaf's DTensor placements, a function
     # of a (whole, stacked) batch giving its leaves' placements a row, the
-    # rank's placed rows of a whole stacked params-shaped tree, and the
-    # whole stacked tensors of one; None / identity unsharded
+    # rank's placed rows of a whole stacked params-shaped tree (or of its
+    # rows alone), and the whole stacked tensors of one (every rank's; with
+    # ``dst=r``, host tensors on global rank r only, None on the others);
+    # None / identity unsharded
     state_shardings: Any = None
     batch_shardings: Callable = lambda batch: None
     place: Callable = lambda tree: tree
-    gather: Callable = lambda tree: tree
+    gather: Callable = lambda tree, dst=None: tree
+    rows: slice = slice(None)    # the rank's rows of the stacked nodes
 
 
 class ServeBundle(NamedTuple):
@@ -245,21 +249,17 @@ class _Layout(NamedTuple):
 
 def node_layout(mesh, plan: sharding.MeshPlan, m: int) -> _Layout:
     """The node axis of ``plan`` on ``mesh`` and the submesh of the other
-    dims.  The plan's node axes must be one mesh dim."""
-    if len(plan.node_axes) != 1:
-        raise ValueError(
-            f"the sharded step lays the nodes over one mesh dim; the plan's "
-            f"node axes are {plan.node_axes}: build the mesh with them as "
-            f"one dim")
-    node = plan.node_axes[0]
-    names = tuple(mesh.mesh_dim_names or ())
-    if node not in names:
-        raise ValueError(f"the plan's node axis {node!r} is not a dim of "
-                         f"the mesh {names}")
-    rest = tuple(n for n in names if n != node)
-    return _Layout(axis=spmd.node_axis(mesh, node, m),
+    dims.  Node axes of several mesh dims (the ("multi", "faithful") plan's
+    ``("pod", "data")``) lie over their product, a rank's node block
+    row-major over them, pod major (``spmd.node_mesh``): the order of the
+    reference's ``P(("pod", "data"), ...)``."""
+    nodes = tuple(plan.node_axes)
+    node_mesh = spmd.node_mesh(mesh, nodes)      # raises on a missing dim
+    rest = tuple(n for n in mesh.mesh_dim_names if n not in nodes)
+    return _Layout(axis=spmd.node_axis(node_mesh,
+                                       node_mesh.mesh_dim_names[0], m),
                    sub=mesh[rest] if rest else None,
-                   axis_sizes=spmd.mesh_shape(mesh), node_mesh=mesh[node],
+                   axis_sizes=spmd.mesh_shape(mesh), node_mesh=node_mesh,
                    wire=spmd.placed_wire(mesh))
 
 
@@ -272,11 +272,20 @@ def _sub_placements(layout: _Layout, spec: tuple):
 
 
 def _place_rows(layout: _Layout, x: torch.Tensor, pl):
-    """The rank's rows of a whole stacked leaf (its own memory), placed on
-    the submesh."""
-    rows = x[layout.axis.rows]
-    return rows.clone() if pl is None else sharding.place(rows, layout.sub,
-                                                          pl)
+    """The rank's rows of a whole stacked leaf, or those rows alone (as
+    ``checkpoint.restore(rows=)`` reads them), placed on the submesh: its
+    own memory, on the mesh's device (a leaf on the host moves only the
+    rank's part)."""
+    ax = layout.axis
+    rows = x[ax.rows] if x.shape[0] == ax.m else x
+    if rows.shape[0] != ax.rows.stop - ax.rows.start:
+        raise ValueError(f"a stacked leaf of {x.shape[0]} rows is neither "
+                         f"the {ax.m} nodes nor this rank's "
+                         f"{ax.rows.stop - ax.rows.start}")
+    if pl is not None:
+        return sharding.place(rows, layout.sub, pl)
+    device = layout.node_mesh.device_type
+    return rows.clone() if rows.device.type == device else rows.to(device)
 
 
 def _local(x):
@@ -299,6 +308,18 @@ def _build_sharded_step(cfg, prox, m, plan, mesh, rule) -> TrainBundle:
                                  axis_sizes=layout.axis_sizes)
     pls = pytree.tree_map(lambda sp: _sub_placements(layout, sp), specs,
                           is_leaf=lambda x: isinstance(x, tuple))
+
+    def pinned(tree):
+        """``tree`` (params-shaped) on the specs' placements, as the
+        reference's ``out_shardings=state_shardings`` pins its state: an
+        update's DTensors come out wherever sharding propagation put them
+        (a gradient's placements follow its backward), and a state whose
+        layout drifted would round otherwise than one restored from a
+        checkpoint by the specs."""
+        return pytree.tree_map(
+            lambda x, pl: x if pl is None or tuple(x.placements) == tuple(pl)
+            else x.redistribute(x.device_mesh, pl), tree, pls,
+            is_leaf=lambda x: x is None or isinstance(x, torch.Tensor))
 
     def batch_shardings(batch):
         return pytree.tree_map(lambda leaf: _sub_placements(
@@ -353,6 +374,7 @@ def _build_sharded_step(cfg, prox, m, plan, mesh, rule) -> TrainBundle:
             # the mix crosses the node axis only: each rank exchanges its
             # local shards with the ranks that hold the same shards of the
             # other nodes' rows
+            tree = pinned(tree)
             mixed, mix_out["state"] = compression.mix_with_state(
                 phi_, pytree.tree_map(_local, tree), state.mix_state)
             return pytree.tree_map(_rewrap, tree, mixed)
@@ -364,7 +386,7 @@ def _build_sharded_step(cfg, prox, m, plan, mesh, rule) -> TrainBundle:
                               mix_state=mix_out["state"]), metrics
 
     def snapshot_step(state: TrainState, big_batch):
-        mu = row_grads(state.params, big_batch, False)[0]
+        mu = pinned(row_grads(state.params, big_batch, False)[0])
         return state._replace(snapshot=state.params, full_grad=mu)
 
     def init_state(seed, device="cuda"):
@@ -384,7 +406,32 @@ def _build_sharded_step(cfg, prox, m, plan, mesh, rule) -> TrainBundle:
                                tree, pls, is_leaf=lambda x: x is None
                                or isinstance(x, torch.Tensor))
 
-    def gather(tree):
+    def gathered_to(x, dst: int):
+        """The whole stacked leaf on the host of global rank ``dst`` (None
+        on the others): each rank's shard goes there once, through the
+        host over gloo (over NCCL, on the card, then to the host)."""
+        dist = spmd.dist
+        nccl = dist.get_backend() == "nccl"
+        local = _local(x).detach().contiguous()
+        local = local if nccl else local.cpu()
+        sl = (ax.rows,) + (sharding.shard_slices(x)[1:]
+                           if placed.is_placed(x) else ())
+        mine = dist.get_rank() == dst
+        parts = [torch.empty_like(local) for _ in range(
+            dist.get_world_size())] if mine else None
+        dist.gather(local, parts, dst=dst)
+        slices = [None] * dist.get_world_size() if mine else None
+        dist.gather_object(sl, slices, dst=dst)
+        if not mine:
+            return None
+        whole = torch.empty((m,) + tuple(x.shape[1:]), dtype=local.dtype)
+        for part, where in zip(parts, slices):
+            whole[where] = part.cpu()
+        return whole
+
+    def gather(tree, dst: int | None = None):
+        if dst is not None:
+            return pytree.tree_map(lambda x: gathered_to(x, dst), tree)
         return pytree.tree_map(lambda x: whole_rows(_full(x)), tree)
 
     return TrainBundle(
@@ -392,7 +439,8 @@ def _build_sharded_step(cfg, prox, m, plan, mesh, rule) -> TrainBundle:
         init_state=init_state, loss_fn=loss,
         state_shardings=TrainState(params=pls, snapshot=pls, full_grad=pls,
                                    step=None),
-        batch_shardings=batch_shardings, place=place, gather=gather)
+        batch_shardings=batch_shardings, place=place, gather=gather,
+        rows=ax.rows)
 
 
 def _full(x):

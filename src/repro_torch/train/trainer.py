@@ -43,14 +43,21 @@ loader stream, staged once, every cell's node-vmapped step under one
 Across ranks (SPMD over ``torch.distributed``, ``core.spmd``: every rank
 makes the same call with the same loader and gets the same history back):
 ``train_loop(mesh=, plan=)`` shards the state on the host loop
-(``steps.build_train_step``: the node axis over the plan's node dim, each
+(``steps.build_train_step``: the node axis over the plan's node dims, each
 leaf a DTensor over the others; ``final_state`` holds each rank's shards,
 ``TrainBundle.gather`` makes them whole), and ``train_sweep(exec=
 ExecSpec(shard="cells", mesh=))`` splits the grid's cells over the mesh's
 ``"cells"`` dim, as ``core.sweep.run_sweep`` does.  The reference's
 refusals stand: sharded state on the resident path, ``shard="nodes"`` and
 ``shard="cells"`` in ``train_loop``, ``shard="nodes"`` in
-``train_sweep``.  Checkpoints of sharded state are not written.
+``train_sweep``.  A sharded run checkpoints in the same format as one
+device, the reference's "resharding restore": every rank takes part in
+gathering the state whole (``TrainBundle.gather``, a leaf at a time),
+rank 0 alone writes (the format is single-writer: its atomic rename and
+``keep_last`` pruning), and the others wait for it at a barrier; on
+``resume=True`` every rank reads the checkpoint and keeps its rows and
+shards (``TrainBundle.place``), so a checkpoint written on one layout
+resumes on any other of the same ``m``, or on one device.
 
 Refused, by name: ``kernel`` other than ``"plain"`` (as the reference
 refuses other than ``"xla"``), and configs that route the forward through
@@ -59,6 +66,7 @@ the RMSNorm or flash kernels, which have no backward.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import time
 import warnings
@@ -189,6 +197,92 @@ def _to(device, tree, dtype=None):
         else torch.as_tensor(a).to(device=device, dtype=dtype), tree)
 
 
+def _mix_fields(mix) -> tuple:
+    """The fields of a transport state (``TrainState.mix_state``), each a
+    tree of the rank's local shards shaped as the params (a
+    ``CompressionState``'s error feedback); () for a stateless transport."""
+    return () if mix is None else mix._fields
+
+
+def _save_sharded(ckpt_dir: str, step: int, bundle, state, md: dict,
+                  keep_last) -> None:
+    """A sharded state's checkpoint in the one-device format: each leaf is
+    gathered whole on rank 0's host in turn (``bundle.gather(dst=0)``),
+    while a thread of rank 0 writes the leaves gathered before it; every
+    rank waits for the write at a barrier."""
+    mix = state.mix_state
+    placed_tree = {"params": state.params, "snapshot": state.snapshot,
+                   "full_grad": state.full_grad}
+    if mix is not None:
+        placed_tree["mix_state"] = {f: pytree.tree_map(
+            steps_lib._rewrap, state.params, getattr(mix, f))
+            for f in _mix_fields(mix)}
+    leaves = pytree.tree_leaves(placed_tree)
+    if spmd.dist.get_rank() != 0:
+        for x in leaves:
+            bundle.gather(x, dst=0)
+        spmd.dist.barrier()
+        return
+    futures = [concurrent.futures.Future() for _ in leaves]
+    whole = pytree.tree_unflatten(futures,
+                                  pytree.tree_structure(placed_tree))
+    if mix is not None:
+        whole["mix_state"] = mix._replace(**whole["mix_state"])
+    tree = {"state": state._replace(
+        params=whole["params"], snapshot=whole["snapshot"],
+        full_grad=whole["full_grad"], step=state.step.cpu(),
+        mix_state=whole.get("mix_state"))}
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        writing = pool.submit(ckpt_lib.save, ckpt_dir, step, tree, md,
+                              keep_last=keep_last)
+        try:
+            for x, future in zip(leaves, futures):
+                future.set_result(bundle.gather(x, dst=0))
+        except BaseException as exc:     # the writer must not wait forever
+            for future in futures:
+                if not future.done():
+                    future.set_exception(exc)
+            raise
+        finally:
+            del tree, whole
+        writing.result()
+    spmd.dist.barrier()
+
+
+def _restore_sharded(ckpt_dir: str, bundle, mix, cfg, m: int, device):
+    """The latest checkpoint under ``ckpt_dir`` (written by one device or by
+    any layout of ``m`` nodes) as this rank's sharded state: every rank
+    reads its rows of it (``bundle.rows``) a field at a time and moves its
+    shards of them to its device (``bundle.place``); ``mix`` is the run's
+    fresh transport state (None when stateless).  Returns (state,
+    metadata)."""
+    shapes = steps_lib.make_stacked_init(cfg, m)(0, "meta")
+    empty = steps_lib.TrainState(params=None, snapshot=None, full_grad=None,
+                                 step=None)
+    wanted = {"params": shapes, "snapshot": shapes, "full_grad": shapes,
+              "step": torch.zeros((), dtype=torch.int32)}
+    if mix is not None:
+        wanted["mix_state"] = mix._replace(
+            **{f: shapes for f in _mix_fields(mix)})
+    fields = {}
+    for f, template in wanted.items():
+        tree, _, md = ckpt_lib.restore(
+            ckpt_dir, {"state": empty._replace(**{f: template})},
+            rows=bundle.rows)
+        got = getattr(tree["state"], f)
+        del tree
+        if f == "step":
+            fields[f] = _to(device, got)
+        elif f == "mix_state":
+            fields[f] = got._replace(**{g: pytree.tree_map(
+                steps_lib._local, bundle.place(getattr(got, g)))
+                for g in _mix_fields(mix)})
+        else:
+            fields[f] = bundle.place(got)
+        del got
+    return steps_lib.TrainState(**fields), md
+
+
 def gather_windows(shards: torch.Tensor, starts: torch.Tensor,
                    window: torch.Tensor) -> dict:
     """Minibatch windows gathered on the shards' device: ``shards`` (m,
@@ -281,11 +375,6 @@ def train_loop(cfg: ModelConfig,
     if resume and not (tc.ckpt_dir and is_loader):
         raise ValueError("resume=True needs ckpt_dir and an LMLoader (the "
                          "checkpoint stores the loader's data cursor)")
-    if tc.ckpt_dir and mesh is not None:
-        raise ValueError("train_loop(mesh=, plan=) keeps each rank's shards "
-                         "of the state and writes no checkpoint; drop "
-                         "ckpt_dir, or gather the final state "
-                         "(TrainBundle.gather) and save it")
     if is_loader and snapshot_batch_iter is not None:
         raise ValueError(
             "snapshot_batch_iter is not supported with an LMLoader: both "
@@ -324,9 +413,14 @@ def train_loop(cfg: ModelConfig,
         if device_sampling:
             _check_device_stream(tc.ckpt_dir)
             template["key"] = torch.zeros(1, dtype=torch.int64)
-        tree, _, md = ckpt_lib.restore(tc.ckpt_dir, template)
-        state = None                 # free the fresh state before the copy
-        state = _to(device, tree["state"])
+        if mesh is None:
+            tree, _, md = ckpt_lib.restore(tc.ckpt_dir, template)
+            state = None             # free the fresh state before the copy
+            state = _to(device, tree["state"])
+        else:
+            mix, state = state.mix_state, None
+            state, md = _restore_sharded(tc.ckpt_dir, bundle, mix, cfg, m,
+                                         device)
         if device_sampling:
             key = int(tree["key"][0])
         transfers["h2d"] += 1
@@ -371,6 +465,10 @@ def train_loop(cfg: ModelConfig,
               "wire": wire if wire_at is None else wire_at,
               "algorithm": rule.name,
               "loader": loader_state}
+        if mesh is not None:
+            _save_sharded(tc.ckpt_dir, next_step, bundle, cur_state, md,
+                          tc.keep_last)
+            return
         tree = {"state": cur_state}
         if device_sampling:
             tree["key"] = torch.tensor([key], dtype=torch.int64)

@@ -408,13 +408,19 @@ def lm_inputs(vocab: int, m: int, seed: int = 0) -> dict:
                      sched.consensus_rounds(2, 2).astype(np.float32)]}
 
 
-def lm_phi(phi: np.ndarray, kind: str, device="cpu"):
-    """``phi`` dense or as its bands, on ``device``."""
+def lm_phi(phi: np.ndarray, kind: str, device="cpu", layout=None):
+    """``phi`` dense, as its bands, or as its bands exchanged point to point
+    over ``layout``'s node axis (``"ppermute"``, one node a rank), on
+    ``device``."""
     if kind == "dense":
         return torch.as_tensor(phi, device=device)
     offsets, _ = gossip.band_decompose(phi)
-    return gossip.BandedPhi(offsets, torch.as_tensor(
-        gossip.bands_for_phi(phi, offsets), device=device))
+    coeffs = torch.as_tensor(gossip.bands_for_phi(phi, offsets),
+                             device=device)
+    if kind == "ppermute":
+        return gossip.PermutePhi(offsets, layout.node_mesh, layout.axis.axis,
+                                 coeffs)
+    return gossip.BandedPhi(offsets, coeffs)
 
 
 def lm_train_steps(cfg, init, m: int, phi_kind: str, device="cpu",
@@ -436,26 +442,48 @@ def lm_train_steps(cfg, init, m: int, phi_kind: str, device="cpu",
     inputs = lm_inputs(cfg.vocab_size, m)
     batch = params_from_numpy(inputs["batch"], device)
     state = bundle.snapshot_step(state, batch)
+    layout = None if mesh is None else steps.node_layout(mesh, plan, m)
     metrics = []
     for phi in inputs["phis"]:
         state, mets = bundle.train_step(
-            state, batch, lm_phi(phi, phi_kind, device), LM_ALPHA)
+            state, batch, lm_phi(phi, phi_kind, device, layout), LM_ALPHA)
         metrics.append([float(mets["loss"]), float(mets["v_norm"])])
     return {"params": bundle.gather(state.params),
             "metrics": np.asarray(metrics)}
 
 
+def lm_modality(cfg, batch: int = 2) -> dict:
+    """The stub modality inputs a config's prefill takes (numpy): audio
+    frames for an encoder, image rows for a vision prefix, else none."""
+    from repro_torch.models import multimodal
+    out = {}
+    if cfg.encoder_layers:
+        out["audio_frames"] = multimodal.fake_audio_frames(
+            batch, cfg.d_model, frames=cfg.encoder_seq, seed=5)
+    if cfg.frontend == "vision_stub":
+        out["image_embeds"] = multimodal.fake_image_patches(
+            batch, cfg.d_model, tokens=cfg.image_tokens, seed=5)
+    return out
+
+
 def lm_serve(cfg, params, device="cpu", plan=None, mesh=None,
              decode: int = 2) -> dict:
-    """Prefill 2 prompts of 8 tokens, then ``decode`` greedy steps: the
-    tokens and each step's logits, whole."""
+    """Prefill 2 prompts of 8 tokens (after the config's stub modality
+    inputs), then ``decode`` greedy steps: the tokens and each step's
+    logits, whole."""
     from repro_torch.train import steps
     bundle = steps.build_serve_steps(cfg, plan=plan, mesh=mesh)
     p = bundle.place_params(params_from_numpy(params, device))
     prompts = torch.as_tensor(np.random.default_rng(3).integers(
         0, cfg.vocab_size, size=(2, 8)), device=device)
     whole = lambda x: x.full_tensor() if hasattr(x, "full_tensor") else x
-    logits, cache = bundle.prefill_step(p, prompts, max_len=8 + decode)
+    modality = {k: torch.as_tensor(v, device=device)
+                for k, v in lm_modality(cfg).items()}
+    prefix = modality["image_embeds"].shape[1] \
+        if "image_embeds" in modality else 0
+    logits, cache = bundle.prefill_step(p, prompts,
+                                        max_len=prefix + 8 + decode,
+                                        **modality)
     outs, toks = [whole(logits)], []
     for _ in range(decode):
         tok = torch.argmax(outs[-1], dim=-1)
@@ -479,24 +507,32 @@ def lm_trainer_config(**kw):
     return trainer.TrainerConfig(**base)
 
 
-def lm_train_loop(m: int, device="cpu", plan=None, mesh=None) -> dict:
-    """``train_loop`` of the tiny config on the host loop: its history,
-    wire bytes and the whole final params."""
+def lm_train_loop(m: int, device="cpu", plan=None, mesh=None,
+                  resume: bool = False, **config) -> dict:
+    """``train_loop`` of the tiny config on the host loop (``config``
+    overriding ``lm_trainer_config``'s): its history, wire bytes and the
+    whole final state."""
     from repro_torch.train import steps, trainer
     cfg = lm_cfg("tiny")
     hist = trainer.train_loop(
         cfg, prox.l1(LM_LAM), graphs.b_connected_ring_schedule(m, b=2,
                                                                seed=0),
-        lm_loader(m), lm_trainer_config(), mesh=mesh, plan=plan,
-        exec=ExecSpec(device=device))
-    params = hist["final_state"].params
+        lm_loader(m), lm_trainer_config(**config), mesh=mesh, plan=plan,
+        exec=ExecSpec(device=device), resume=resume)
+    state = hist["final_state"]
     if mesh is not None:
-        params = steps.build_train_step(cfg, prox.l1(LM_LAM), m, plan=plan,
-                                        mesh=mesh).gather(params)
+        bundle = steps.build_train_step(cfg, prox.l1(LM_LAM), m, plan=plan,
+                                        mesh=mesh)
+        state = state._replace(params=bundle.gather(state.params),
+                               snapshot=bundle.gather(state.snapshot),
+                               full_grad=bundle.gather(state.full_grad),
+                               mix_state=None)
     return {"loss": np.asarray(hist["loss"]),
             "v_norm": np.asarray(hist["v_norm"]),
             "wire_bytes": np.asarray(hist["wire_bytes"]),
-            "params": params, "wire": hist.get("wire")}
+            "step": np.asarray(hist["step"]),
+            "params": state.params, "state": state,
+            "wire": hist.get("wire")}
 
 
 LM_SWEEP_GRID = {"lam": [1e-4, 1e-3]}
@@ -589,3 +625,291 @@ def card_mesh_cases(init) -> dict:
                                  mesh_lib.PLANS[("single", "faithful")],
                                  mesh),
             "wire": spmd.placed_wire(mesh)}
+
+
+# ---------------------------------------------------------------------------
+# The zoo across ranks (tests/test_torch_mesh_zoo.py)
+# ---------------------------------------------------------------------------
+
+def zoo_archs() -> tuple:
+    """Every LM arch of ``configs`` (all but the logistic regression)."""
+    from repro_torch import configs
+    return tuple(a for a in configs.list_archs() if a != "paper_logreg")
+
+
+def zoo_trained(arch: str) -> bool:
+    """Whether ``arch`` trains on tokens alone (no stub modality input)."""
+    return not lm_modality(lm_cfg(arch))
+
+
+ZOO_M = 2
+
+
+def zoo_mesh(device="cpu"):
+    """The faithful (data=2, model=2) mesh: m = 2, a node a data rank,
+    each leaf split over model."""
+    from repro_torch.launch import mesh as mesh_lib
+    return (mesh_lib.make_mesh((2, 2), ("data", "model"), device),
+            mesh_lib.PLANS[("single", "faithful")])
+
+
+# the two mixers that run on each rank's channels, their config's spec and
+# the name of the weight whose columns are two halves split in place
+ZOO_MIXERS = {"mamba": ("jamba-1.5-large-398b", "in_proj"),
+              "mlstm": ("xlstm-350m", "up_proj")}
+
+
+def mixer_spec(kind: str):
+    from repro_torch.models.api import layer_plan
+    arch, _ = ZOO_MIXERS[kind]
+    return next(getattr(p, kind) for p in layer_plan(lm_cfg(arch))
+                if p.mixer == kind)
+
+
+def mixer_inputs(kind: str, d: int, batch: int = 2, length: int = 6,
+                 seed: int = 11):
+    """Numpy weights of one ``kind`` mixer (the port's init at ``seed``),
+    an input (batch, length, d), one decode token's input and a cotangent
+    of the output."""
+    from repro_torch.models import common, ssm
+    spec = mixer_spec(kind)
+    init = {"mamba": ssm.init_mamba, "mlstm": ssm.init_mlstm}[kind]
+    params = init(common.make_generator(seed, "cpu"), spec)
+    rng = np.random.default_rng(seed)
+    return {"params": {k: v.numpy() for k, v in params.items()},
+            "x": rng.normal(size=(batch, length, d)).astype(np.float32),
+            "x_t": rng.normal(size=(batch, 1, d)).astype(np.float32),
+            "cot": rng.normal(size=(batch, length, d)).astype(np.float32)}
+
+
+def mixer_run(kind: str, inputs: dict, device="cpu", plan=None,
+              mesh=None) -> dict:
+    """One mixer on ``inputs``: its forward, the gradient of <forward,
+    cot> by every weight and by the input, a prefill's state and one
+    decode step from it, and the two halves of its up-projection's product
+    as the rank's channels regroup them (whole); placed by ``plan``'s
+    specs on ``mesh`` (the cache by ``cache_specs``, the batch over
+    "data") when given, else on one device."""
+    from repro_torch.models import placed, ssm, transformer
+    from repro_torch.train import sharding
+    spec = mixer_spec(kind)
+    fns = {"mamba": (ssm.mamba_forward, transformer._mamba_prefill,
+                     ssm.mamba_step),
+           "mlstm": (ssm.mlstm_forward, transformer._mlstm_prefill,
+                     ssm.mlstm_step)}[kind]
+    unit = spec.head_dim if kind == "mlstm" else 1
+    params = params_from_numpy(inputs["params"], device)
+    x, x_t, cot = (torch.as_tensor(inputs[k], device=device)
+                   for k in ("x", "x_t", "cot"))
+    whole = lambda t: t.full_tensor() if placed.is_placed(t) else t  # noqa
+    if mesh is not None:
+        spmd.placed_wire(mesh)    # host-staged where ranks share a card
+        sizes = spmd.mesh_shape(mesh)
+        pspecs = sharding.param_specs(params, plan, axis_sizes=sizes)
+        params = {k: sharding.place(v, mesh, sharding.placements(
+            pspecs[k], mesh)) for k, v in params.items()}
+        split = lambda t: sharding.place(t, mesh, sharding.placements(  # noqa
+            ("data",) + (None,) * (t.ndim - 1), mesh))
+        x, x_t = split(x), split(x_t)
+    for t in list(params.values()) + [x]:
+        t.requires_grad_(True)
+
+    def call(fn, *args):
+        return placed.channel_call(fn, kind, params, spec, *args, unit=unit)
+
+    out = call(fns[0], x)
+    leaves = dict(params, x=x)
+    grads = torch.autograd.grad((whole(out) * cot).sum(),
+                                list(leaves.values()))
+    with torch.no_grad():
+        _, state = call(fns[1], x)
+        if mesh is not None:
+            cspecs = sharding.cache_specs(state, plan, axis_sizes=sizes)
+            state = {k: v.redistribute(mesh, sharding.placements(
+                cspecs[k], mesh)) for k, v in state.items()}
+        step, new_state = call(fns[2], x_t, state)
+        up = ZOO_MIXERS[kind][1]
+
+        def half(which):
+            def probe(p, spec_, x_, ch):
+                return torch.zeros_like(x_), {
+                    "conv": ch.halves(x_ @ p[up])[which]}
+            return whole(call(probe, x)[1]["conv"])
+
+        halves = [half(0), half(1)] if mesh is not None else list(
+            torch.chunk(x @ params[up], 2, dim=-1))
+    return {"out": whole(out).detach(),
+            "grads": {k: whole(g) for k, g in zip(leaves, grads)},
+            "state": {k: whole(v) for k, v in state.items()},
+            "step": whole(step), "new_state": {
+                k: whole(v) for k, v in new_state.items()},
+            "halves": halves}
+
+
+def regions_of(fn):
+    """``fn()`` and the mixers that ran through ``placed.channel_call`` and
+    ``placed.replicated_call`` in it, in call order."""
+    from repro_torch.models import placed
+    seen = {"channel_call": [], "replicated_call": []}
+    real = {name: getattr(placed, name) for name in seen}
+
+    def recording(name):
+        def call(body, *args, **kw):
+            seen[name].append(next(k for k in ("mamba", "mlstm", "slstm")
+                                   if k in body.__name__))
+            return real[name](body, *args, **kw)
+        return call
+
+    try:
+        for name in seen:
+            setattr(placed, name, recording(name))
+        return fn(), seen
+    finally:
+        for name, f in real.items():
+            setattr(placed, name, f)
+
+
+def zoo_cases(inits: dict, mixers: dict, device="cpu") -> dict:
+    """Every case of the zoo across one group of 4 ranks: each arch's
+    smoke variant served (2 requests, a prefill and 2 greedy steps) and
+    each token-path arch trained (a refresh and 2 DPSVRG steps, m = 2) on
+    the faithful (data=2, model=2) mesh, and each channel-split mixer on
+    it (model=2) and on a (data=1, model=4) mesh."""
+    from repro_torch.launch import mesh as mesh_lib
+    mesh, plan = zoo_mesh(device)
+    out = {"regions": {}}
+    for arch in zoo_archs():
+        serve = lambda: lm_serve(lm_cfg(arch, serve=True),  # noqa
+                                 inits[arch], device, plan, mesh)
+        if arch in ("jamba-1.5-large-398b", "xlstm-350m"):
+            out[f"serve/{arch}"], out["regions"][arch] = regions_of(serve)
+        else:
+            out[f"serve/{arch}"] = serve()
+        if zoo_trained(arch):
+            out[f"train/{arch}"] = lm_train_steps(
+                lm_cfg(arch), inits[arch], ZOO_M, "dense", device, plan,
+                mesh)
+    wide = mesh_lib.make_mesh((1, 4), ("data", "model"), device)
+    for kind, inputs in mixers.items():
+        out[f"mixer/{kind}/model2"] = mixer_run(kind, inputs, device, plan,
+                                                mesh)
+        out[f"mixer/{kind}/model4"] = mixer_run(kind, inputs, device, plan,
+                                                wide)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Node axes over two mesh dims, and checkpoints of sharded runs
+# (tests/test_torch_mesh_ckpt.py)
+# ---------------------------------------------------------------------------
+
+def ckpt_meshes(device="cpu") -> dict:
+    """The ("multi", "faithful") plan on (pod=2, data=2, model=1) (the m = 4
+    nodes over pod and data, one a rank), the same nodes over one dim
+    (data=4, model=1), and the faithful (data=2, model=2) mesh (two nodes
+    a rank, each leaf split over model)."""
+    from repro_torch.launch import mesh as mesh_lib
+    single = mesh_lib.PLANS[("single", "faithful")]
+    return {
+        "multi": (mesh_lib.make_mesh((2, 2, 1), ("pod", "data", "model"),
+                                     device),
+                  mesh_lib.PLANS[("multi", "faithful")]),
+        "data4": (mesh_lib.make_mesh((4, 1), ("data", "model"), device),
+                  single),
+        "faithful": (mesh_lib.make_mesh((2, 2), ("data", "model"), device),
+                     single),
+    }
+
+
+# the checkpointed runs: a checkpoint every step, the newest 3 kept; a
+# crash after step 3 leaves steps 1-3, and the resume runs steps 3 and 4
+# (a snapshot refresh at 4)
+CKPT_RUN = dict(num_steps=5, ckpt_every=1, keep_last=3)
+CKPT_CRASH_AFTER = 3
+
+
+def crash_copy(src: str, dst: str) -> None:
+    """``src``'s checkpoints as a run that crashed after writing step
+    ``CKPT_CRASH_AFTER`` left them."""
+    import os
+    import shutil
+    shutil.copytree(src, dst)
+    for name in os.listdir(dst):
+        if int(name.split("_")[1]) > CKPT_CRASH_AFTER:
+            shutil.rmtree(os.path.join(dst, name))
+
+
+def _on_rank0(fn, *args) -> None:
+    if spmd.dist.get_rank() == 0:
+        fn(*args)
+    spmd.dist.barrier()
+
+
+def ckpt_cases(init, root: str, unsharded_dir: str, device="cpu") -> dict:
+    """Every case of one group of 4 ranks: the tiny config's train steps
+    (dense, banded, ppermute) and ``train_loop`` (dense, ppermute) on the
+    two-dim node axis and on one dim; ``train_loop`` with checkpoints on
+    the faithful mesh (dense and compressed), resumed on it, and its crash
+    resumed on the two-dim node axis; the unsharded run's crash under
+    ``unsharded_dir`` resumed on the faithful mesh.  Checkpoints go under
+    ``root``; each rank counts its checkpoint writes and prunings."""
+    import os
+
+    from repro_torch import checkpoint as ckpt_lib
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.train import steps
+    meshes = ckpt_meshes(device)
+    out = {}
+    tiny = lm_cfg("tiny")
+    mesh, plan = meshes["multi"]
+    ax = steps.node_layout(mesh, plan, 4).axis
+    out["multi_axis"] = {"index": ax.index, "ranks": list(ax.ranks),
+                         "rows": [ax.rows.start, ax.rows.stop],
+                         "name": ax.axis,
+                         "node_count": mesh_lib.node_count(mesh, plan)}
+    # the node dims the whole mesh: one flattened dim, no other
+    whole = spmd.node_axis(mesh_lib.make_mesh((2, 2), ("pod", "data"),
+                                              device), ("pod", "data"), 4)
+    out["whole_mesh_axis"] = [whole.index, whole.size, whole.axis]
+    for name in ("multi", "data4"):
+        mesh, plan = meshes[name]
+        for kind in ("dense", "banded", "ppermute"):
+            out[f"steps/{name}/{kind}"] = lm_train_steps(
+                tiny, init, 4, kind, device, plan, mesh)
+        for kind in ("dense", "ppermute"):
+            out[f"loop/{name}/{kind}"] = lm_train_loop(
+                4, device, plan, mesh, gossip=kind)
+    counts = {"save": 0, "prune": 0}
+    real = {"save": ckpt_lib.save, "prune": ckpt_lib._prune_old}
+
+    def counting(name):
+        def call(*args, **kw):
+            counts[name] += 1
+            return real[name](*args, **kw)
+        return call
+
+    ckpt_lib.save, ckpt_lib._prune_old = counting("save"), counting("prune")
+    try:
+        mesh, plan = meshes["faithful"]
+        for kind in ("dense", "compressed"):
+            d = os.path.join(root, kind)
+            out[f"ckpt/{kind}"] = lm_train_loop(
+                4, device, plan, mesh, gossip=kind, ckpt_dir=d, **CKPT_RUN)
+            _on_rank0(crash_copy, d, d + "-crash")
+            out[f"resumed/{kind}"] = lm_train_loop(
+                4, device, plan, mesh, resume=True, gossip=kind,
+                ckpt_dir=d + "-crash", **CKPT_RUN)
+        _on_rank0(crash_copy, os.path.join(root, "dense"),
+                  os.path.join(root, "to-multi"))
+        mesh, plan = meshes["multi"]
+        out["resumed/multi"] = lm_train_loop(
+            4, device, plan, mesh, resume=True,
+            ckpt_dir=os.path.join(root, "to-multi"), **CKPT_RUN)
+        mesh, plan = meshes["faithful"]
+        out["resumed/from-unsharded"] = lm_train_loop(
+            4, device, plan, mesh, resume=True, ckpt_dir=unsharded_dir,
+            **CKPT_RUN)
+    finally:
+        ckpt_lib.save, ckpt_lib._prune_old = real["save"], real["prune"]
+    out["writes"] = dict(counts)
+    return out

@@ -85,13 +85,13 @@ from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 from torch.utils import _pytree as pytree
 
 from . import algorithm as algorithm_lib, cuda_graphs, gossip, graphs, \
     spmd, transport
 from . import device_sampling as device_sampling_lib
 from ..convert import params_to_numpy
+from ..spans import span
 from .exec_spec import ExecSpec
 
 __all__ = ["RunHistory", "RunResult", "Recorder", "run", "run_sweep",
@@ -708,9 +708,9 @@ def _run_resident(algo, problem, backend, aux, rng, *, m: int, n: int,
             device=device,
             rows=slice(None) if shard is None else shard.rows)
 
-    # spans for torch.profiler (nothing is recorded when it is off): the
+    # spans for torch.profiler (each a boolean check when it is off): the
     # host's plan and its staging copy, issuing the chunks, the pull
-    with record_function("resident.plan"):
+    with span("resident.plan"):
         plan = _plan_resident(
             [_PlanCell(meta, rng, backend, aux)], m=m, n=n,
             param_count=param_count, record_every=record_every,
@@ -726,7 +726,7 @@ def _run_resident(algo, problem, backend, aux, rng, *, m: int, n: int,
     # the dataset already lies on the device (runner.run checks it): only
     # the plan is staged, and the chunks gather their minibatches from it
     data_dev = problem.full_data
-    with record_function("resident.stage"):
+    with span("resident.stage"):
         # ONE staging transfer
         staged = _stage(plan.chunks, device)
     transfers["h2d"] += 1
@@ -735,7 +735,7 @@ def _run_resident(algo, problem, backend, aux, rng, *, m: int, n: int,
     # a node-sharded run's pieces cross ranks: eager, never captured
     run_piece, piece_graphs = ((body, None) if shard is not None
                                else _piece_runner(device, body))
-    with record_function("resident.execute"):
+    with span("resident.execute"):
         state = inject_mix_state(algo, backend, aux, algo.init())
         if transitions and algo.device_state is not None:
             state = algo.device_state(state)
@@ -760,7 +760,7 @@ def _run_resident(algo, problem, backend, aux, rng, *, m: int, n: int,
             elif algo.end_outer is not None:    # ("end_outer", K)
                 state = algo.end_outer(state, op[1])
 
-    with record_function("resident.pull"):
+    with span("resident.pull"):
         history_buf = bufs.cpu().numpy()       # the ONE history pull
     transfers["d2h"] += 1
 

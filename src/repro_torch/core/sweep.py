@@ -81,11 +81,11 @@ from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 from torch.utils import _pytree as pytree
 
 from . import device_sampling as device_sampling_lib, runner as runner_lib, \
     spmd, transport
+from ..spans import span
 from .exec_spec import ExecSpec
 
 __all__ = ["SweepResult", "expand_grid", "run_sweep"]
@@ -566,7 +566,7 @@ def _run_batched(build, built, cells, schedules, seeds, axis_names, *,
     B = len(cells)
     transfers = {"h2d": 0, "d2h": 0}
 
-    with record_function("sweep.plan"):
+    with span("sweep.plan"):
         rngs = [np.random.default_rng(s) for s in seeds]
         # one device stream a cell, its key drawn where a sequential run
         # draws it: first, before the plan
@@ -582,7 +582,7 @@ def _run_batched(build, built, cells, schedules, seeds, axis_names, *,
     # the dataset already lies on the device, shared by every cell: only
     # the plan and the cells' values are staged
     data_dev = template_problem.full_data
-    with record_function("sweep.stage"):
+    with span("sweep.stage"):
         staged = runner_lib._stage(plan.chunks, device)
         values = {k: torch.from_numpy(v).to(device)
                   for k, v in host_values.items()}
@@ -605,7 +605,7 @@ def _run_batched(build, built, cells, schedules, seeds, axis_names, *,
                             plan.phi_batched, sampler))
     get_params = template_algo.get_params
     track = meta0.track_consensus
-    with record_function("sweep.execute"):
+    with span("sweep.execute"):
         bufs = torch.zeros((2, plan.num_records, B), dtype=torch.float32,
                            device=device)      # objective, consensus
         slot = 0
@@ -624,7 +624,7 @@ def _run_batched(build, built, cells, schedules, seeds, axis_names, *,
                         runner_lib.traceable_consensus)(params)
                 slot += 1
 
-    with record_function("sweep.pull"):
+    with span("sweep.pull"):
         history_buf = bufs.cpu().numpy()         # the ONE history pull
     transfers["d2h"] += 1
 

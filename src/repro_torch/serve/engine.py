@@ -30,6 +30,11 @@ decode's, because each cache row's computation is independent of its batch
 neighbours.  A custom ``sampler`` maps ``logits (B, V)`` to ``(B,)`` int
 tokens on the device.  The JAX engine compiles each chunk; the port runs it
 eagerly (CUDA graphs of the chunk are later work).
+
+Under ``torch.profiler`` a step is the span ``engine.step``, holding one
+``engine.admit`` an admission (``engine.upload``, ``engine.prefill``,
+``engine.splice``), then ``engine.decode_chunk`` and ``engine.pull``
+(``repro_torch.spans``).
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ import torch
 
 from ..models import transformer
 from ..models.api import ModelConfig
+from ..spans import span
 from .scheduler import (Request, cache_insert, modality_inputs,
                         params_device)
 
@@ -120,18 +126,21 @@ class ResidentEngine:
     # -- engine -------------------------------------------------------------
 
     def _admit(self, slot: int, req: Request):
-        kw = modality_inputs(self.cfg, req, self.max_len, self.device)
-        toks = torch.as_tensor(np.asarray(req.tokens, np.int32),
-                               device=self.device)[None]
+        with span("engine.upload"):
+            kw = modality_inputs(self.cfg, req, self.max_len, self.device)
+            toks = torch.as_tensor(np.asarray(req.tokens, np.int32),
+                                   device=self.device)[None]
         # the prompt upload, modality or not, as the JAX engine counts it
         self.transfers["h2d"] += 1
-        logits, row_cache = transformer.prefill(self.cfg, self.params, toks,
-                                                max_len=self.max_len, **kw)
-        self.cache = cache_insert(self.cache, row_cache, slot)
-        st = self.state
-        st.active[slot] = True
-        st.next_tok[slot] = self._pick(logits)[0].to(torch.int32)
-        st.remaining[slot] = int(req.max_new_tokens)
+        with span("engine.prefill"):
+            logits, row_cache = transformer.prefill(
+                self.cfg, self.params, toks, max_len=self.max_len, **kw)
+        with span("engine.splice"):
+            self.cache = cache_insert(self.cache, row_cache, slot)
+            st = self.state
+            st.active[slot] = True
+            st.next_tok[slot] = self._pick(logits)[0].to(torch.int32)
+            st.remaining[slot] = int(req.max_new_tokens)
 
     def _admit_all(self):
         for slot in range(self.max_slots):
@@ -142,7 +151,8 @@ class ResidentEngine:
                 raise ValueError(
                     f"request {req.uid}: prompt length {len(req.tokens)} "
                     f"does not fit the engine's max_len={self.max_len} cache")
-            self._admit(slot, req)
+            with span("engine.admit"):
+                self._admit(slot, req)
             self.slot_req[slot] = req
             self.slot_generated[slot] = []
 
@@ -174,25 +184,28 @@ class ResidentEngine:
     def step(self) -> dict[int, int]:
         """Admit queued requests, run ONE decode chunk, pull the emission
         buffer once.  Returns {uid: n_new_tokens} for this chunk."""
-        self._admit_all()
-        if not any(r is not None for r in self.slot_req):
-            return {}
-        self._run_chunk()
-        ys = self._ys.cpu().numpy()               # ONE pull per chunk
-        self.transfers["d2h"] += 1
-        self.transfers["chunks"] += 1
-        n = self.chunk
-        toks, mask, active = ys[:n], ys[n:2 * n].astype(bool), ys[2 * n]
-        events: dict[int, int] = {}
-        for slot, req in enumerate(self.slot_req):
-            if req is None:
-                continue
-            new = toks[mask[:, slot], slot].tolist()
-            if new:
-                self.slot_generated[slot].extend(new)
-                events[req.uid] = len(new)
-            if not active[slot]:
-                self.outputs[req.uid] = np.asarray(self.slot_generated[slot],
-                                                   np.int32)
-                self.slot_req[slot] = None
-        return events
+        with span("engine.step"):
+            self._admit_all()
+            if not any(r is not None for r in self.slot_req):
+                return {}
+            with span("engine.decode_chunk"):
+                self._run_chunk()
+            with span("engine.pull"):
+                ys = self._ys.cpu().numpy()           # ONE pull per chunk
+            self.transfers["d2h"] += 1
+            self.transfers["chunks"] += 1
+            n = self.chunk
+            toks, mask, active = ys[:n], ys[n:2 * n].astype(bool), ys[2 * n]
+            events: dict[int, int] = {}
+            for slot, req in enumerate(self.slot_req):
+                if req is None:
+                    continue
+                new = toks[mask[:, slot], slot].tolist()
+                if new:
+                    self.slot_generated[slot].extend(new)
+                    events[req.uid] = len(new)
+                if not active[slot]:
+                    self.outputs[req.uid] = np.asarray(
+                        self.slot_generated[slot], np.int32)
+                    self.slot_req[slot] = None
+            return events

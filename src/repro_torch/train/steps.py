@@ -63,6 +63,7 @@ from ..core import algorithm as algo_lib, compression, gossip, \
     prox as prox_lib, spmd, svrg
 from ..models import placed, transformer
 from ..models.api import ModelConfig
+from ..spans import span
 from . import sharding
 
 __all__ = ["TrainBundle", "ServeBundle", "build_train_step",
@@ -196,9 +197,10 @@ def _build_train_step(cfg, prox, m, rule) -> TrainBundle:
     grad_only = torch.func.vmap(torch.func.grad(loss))
 
     def train_step(state: TrainState, batch, phi, alpha):
-        g_now, losses = grad_and_loss(state.params, batch)
-        g_snap = grad_only(state.snapshot, batch) if rule.needs_snapshot \
-            else None
+        with span("train.grad"):
+            g_now, losses = grad_and_loss(state.params, batch)
+            g_snap = grad_only(state.snapshot, batch) \
+                if rule.needs_snapshot else None
         v = rule.direction(g_now, g_snap, state.full_grad)
         del g_now, g_snap          # free the gradients before the update
         v_norm = svrg.tree_norm(v)
@@ -213,8 +215,10 @@ def _build_train_step(cfg, prox, m, rule) -> TrainBundle:
                 phi_, tree, state.mix_state)
             return mixed
 
-        new_params = algo_lib.prox_gossip_update(state.params, v, phi, alpha,
-                                                 prox, mix_fn=mix_fn)
+        with span("train.mix"):
+            new_params = algo_lib.prox_gossip_update(state.params, v, phi,
+                                                     alpha, prox,
+                                                     mix_fn=mix_fn)
         metrics = {"loss": torch.mean(losses), "v_norm": v_norm}
         return state._replace(params=new_params, step=state.step + 1,
                               mix_state=mix_out["state"]), metrics

@@ -62,6 +62,13 @@ resumes on any other of the same ``m``, or on one device.
 Refused, by name: ``kernel`` other than ``"plain"`` (as the reference
 refuses other than ``"xla"``), and configs that route the forward through
 the RMSNorm or flash kernels, which have no backward.
+
+Under ``torch.profiler``, ``train_loop``'s parts are spans of the same
+names on both paths (``repro_torch.spans``): ``train.build`` (the bundle,
+the transport, the state), ``train.plan`` (resident only), ``train.stage``
+(the resident path's one copy; the host loop's batch and phi a step),
+``train.refresh``, ``train.step`` (its ``train.grad`` and ``train.mix``),
+``train.record`` and ``train.ckpt``.
 """
 
 from __future__ import annotations
@@ -84,6 +91,7 @@ from ..core.exec_spec import ExecSpec
 from ..data import loader as loader_lib
 from ..models.api import ModelConfig
 from ..models.common import resolve_device
+from ..spans import span
 from . import steps as steps_lib
 from .tracker import CompositeTracker, HistoryTracker, resolve_tracker
 
@@ -382,26 +390,29 @@ def train_loop(cfg: ModelConfig,
             "stream (per_node_batch * snapshot_batch_mult windows) — pass a "
             "legacy batch iterator as `data` to control snapshot batches")
     device_sampling = resident and spec.sampling == "device"
-    bundle = steps_lib.build_train_step(cfg, prox, m, plan=plan, mesh=mesh,
-                                        algorithm=rule)
-    device = resolve_device(spec.device)
+    with span("train.build"):
+        bundle = steps_lib.build_train_step(cfg, prox, m, plan=plan,
+                                            mesh=mesh, algorithm=rule)
+        device = resolve_device(spec.device)
 
-    # the transport backend owns the wire format: its per-step phi flows
-    # into the train step, which dispatches the mix on its type; stateful
-    # transports thread their state via TrainState.mix_state.  A sharded
-    # run's transport sees the node dim only (ppermute takes it when it has
-    # one node a rank)
-    node_mesh = None if mesh is None else \
-        steps_lib.node_layout(mesh, plan, m).node_mesh
-    tmeta = transport.TransportMeta.constant(tc.consensus_rounds)
-    backend = transport.resolve_backend(gossip, schedule, tmeta, node_mesh)
-    gaux = backend.prepare(schedule, tmeta, mesh=node_mesh)
+        # the transport backend owns the wire format: its per-step phi
+        # flows into the train step, which dispatches the mix on its type;
+        # stateful transports thread their state via TrainState.mix_state.
+        # A sharded run's transport sees the node dim only (ppermute takes
+        # it when it has one node a rank)
+        node_mesh = None if mesh is None else \
+            steps_lib.node_layout(mesh, plan, m).node_mesh
+        tmeta = transport.TransportMeta.constant(tc.consensus_rounds)
+        backend = transport.resolve_backend(gossip, schedule, tmeta,
+                                            node_mesh)
+        gaux = backend.prepare(schedule, tmeta, mesh=node_mesh)
 
-    state = bundle.init_state(tc.seed, device)
-    if backend.needs_mix_state:
-        # the mix runs on each rank's local shards, and so does its state
-        state = state._replace(mix_state=backend.init_mix_state(
-            gaux, pytree.tree_map(steps_lib._local, state.params)))
+        state = bundle.init_state(tc.seed, device)
+        if backend.needs_mix_state:
+            # the mix runs on each rank's local shards, and so does its
+            # state
+            state = state._replace(mix_state=backend.init_mix_state(
+                gaux, pytree.tree_map(steps_lib._local, state.params)))
     param_count = transport.node_param_count(state.params)
     # the device stream's key: the stream's whole state, beside the step
     key = trainer_key(tc.seed) if device_sampling else None
@@ -457,24 +468,25 @@ def train_loop(cfg: ModelConfig,
         resident path plans (and so advances all three to end-of-run)
         before executing, so its periodic saves pass the boundary values
         explicitly."""
-        transfers["d2h"] += 1
-        if loader_state is None and is_loader:
-            loader_state = data.state_dict()
-        md = {"step": next_step,
-              "slot": slot if slot_at is None else slot_at,
-              "wire": wire if wire_at is None else wire_at,
-              "algorithm": rule.name,
-              "loader": loader_state}
-        if mesh is not None:
-            _save_sharded(tc.ckpt_dir, next_step, bundle, cur_state, md,
-                          tc.keep_last)
-            return
-        tree = {"state": cur_state}
-        if device_sampling:
-            tree["key"] = torch.tensor([key], dtype=torch.int64)
-            md["device_stream"] = DEVICE_STREAM
-        ckpt_lib.save(tc.ckpt_dir, next_step, tree, md,
-                      keep_last=tc.keep_last)
+        with span("train.ckpt"):
+            transfers["d2h"] += 1
+            if loader_state is None and is_loader:
+                loader_state = data.state_dict()
+            md = {"step": next_step,
+                  "slot": slot if slot_at is None else slot_at,
+                  "wire": wire if wire_at is None else wire_at,
+                  "algorithm": rule.name,
+                  "loader": loader_state}
+            if mesh is not None:
+                _save_sharded(tc.ckpt_dir, next_step, bundle, cur_state, md,
+                              tc.keep_last)
+                return
+            tree = {"state": cur_state}
+            if device_sampling:
+                tree["key"] = torch.tensor([key], dtype=torch.int64)
+                md["device_stream"] = DEVICE_STREAM
+            ckpt_lib.save(tc.ckpt_dir, next_step, tree, md,
+                          keep_last=tc.keep_last)
 
     # ------------------------------------------------------------------
     # host loop
@@ -499,24 +511,30 @@ def train_loop(cfg: ModelConfig,
 
         for step in range(start_step, tc.num_steps):
             if vr and step % tc.snapshot_every == 0:
-                big = _to(device, next_big())
-                # the refresh replaces the snapshot and the full gradient:
-                # let the old ones go first, so that their memory (two
-                # copies of the stacked parameters) is free while the
-                # large batch's activations are held, the run's peak
-                state = state._replace(snapshot=None, full_grad=None)
-                state = bundle.snapshot_step(state, big)
-            batch = _to(device, next_batch())
+                with span("train.refresh"):
+                    big = _to(device, next_big())
+                    # the refresh replaces the snapshot and the full
+                    # gradient: let the old ones go first, so that their
+                    # memory (two copies of the stacked parameters) is free
+                    # while the large batch's activations are held, the
+                    # run's peak
+                    state = state._replace(snapshot=None, full_grad=None)
+                    state = bundle.snapshot_step(state, big)
             phi = backend.phi_for(gaux, slot, tc.consensus_rounds)
             wire += backend.bytes_per_step(gaux, phi, param_count)
             slot += tc.consensus_rounds
+            with span("train.stage"):
+                batch = _to(device, next_batch())
+                phi = _to(device, phi, torch.float32)
             transfers["h2d"] += 1      # per-step batch/phi staging
             alpha = alpha_fn(step)
-            state, metrics = bundle.train_step(
-                state, batch, _to(device, phi, torch.float32),
-                float(np.float32(alpha)))
+            with span("train.step"):
+                state, metrics = bundle.train_step(
+                    state, batch, phi, float(np.float32(alpha)))
             if is_record(step):
-                record(step, metrics["loss"], metrics["v_norm"], alpha, wire)
+                with span("train.record"):
+                    record(step, metrics["loss"], metrics["v_norm"], alpha,
+                           wire)
                 transfers["d2h"] += 1
             if is_ckpt(step):
                 save_ckpt(state, step + 1)
@@ -526,46 +544,51 @@ def train_loop(cfg: ModelConfig,
     else:
         B = data.per_node_batch
         snap_B = B * tc.snapshot_batch_mult
-        windows: list[_Window] = []
-        starts, sstarts, snaps, phis, alphas = [], [], [], [], []
-        count = 0
-        for step in range(start_step, tc.num_steps):
-            snap = vr and step % tc.snapshot_every == 0
-            # draw order matches the host loop exactly: snapshot windows
-            # first (when refreshing), then the minibatch; device sampling
-            # draws nothing here
-            if snap and not device_sampling:
-                sstarts.append(data.sample_starts(snap_B))
-            snaps.append(snap)
-            if not device_sampling:
-                starts.append(data.sample_starts(B))
-            phi = backend.phi_for(gaux, slot, tc.consensus_rounds)
-            wire += backend.bytes_per_step(gaux, phi, param_count)
-            slot += tc.consensus_rounds
-            phis.append(phi)
-            alpha = alpha_fn(step)
-            alphas.append(alpha)
-            count += 1
-            if is_record(step) or is_ckpt(step) or step == tc.num_steps - 1:
-                windows.append(_Window(
-                    length=count, last_step=step, record=is_record(step),
-                    ckpt_next=step + 1 if is_ckpt(step) else None,
-                    alpha_last=alpha, wire_end=wire, slot_end=slot,
-                    loader_state=data.state_dict() if is_ckpt(step)
-                    else None))
-                count = 0
+        with span("train.plan"):
+            windows: list[_Window] = []
+            starts, sstarts, snaps, phis, alphas = [], [], [], [], []
+            count = 0
+            for step in range(start_step, tc.num_steps):
+                snap = vr and step % tc.snapshot_every == 0
+                # draw order matches the host loop exactly: snapshot
+                # windows first (when refreshing), then the minibatch;
+                # device sampling draws nothing here
+                if snap and not device_sampling:
+                    sstarts.append(data.sample_starts(snap_B))
+                snaps.append(snap)
+                if not device_sampling:
+                    starts.append(data.sample_starts(B))
+                phi = backend.phi_for(gaux, slot, tc.consensus_rounds)
+                wire += backend.bytes_per_step(gaux, phi, param_count)
+                slot += tc.consensus_rounds
+                phis.append(phi)
+                alpha = alpha_fn(step)
+                alphas.append(alpha)
+                count += 1
+                if is_record(step) or is_ckpt(step) or \
+                        step == tc.num_steps - 1:
+                    windows.append(_Window(
+                        length=count, last_step=step,
+                        record=is_record(step),
+                        ckpt_next=step + 1 if is_ckpt(step) else None,
+                        alpha_last=alpha, wire_end=wire, slot_end=slot,
+                        loader_state=data.state_dict() if is_ckpt(step)
+                        else None))
+                    count = 0
 
         # ONE staging transfer ships the plan and the token shards (with
         # device sampling, the steps' numbers in place of their starts);
         # nothing per step crosses the host boundary thereafter
-        staged = _to(device, (
-            data.stacked_shards(),
-            np.asarray(starts, np.int64).reshape(len(starts), m, B),
-            np.asarray(sstarts, np.int64).reshape(len(sstarts), m, snap_B),
-            np.arange(start_step, tc.num_steps, dtype=np.int64)
-            if device_sampling else None,
-            runner_lib._stack_wire(phis) if phis else None,
-            np.asarray(alphas, np.float32)))
+        with span("train.stage"):
+            staged = _to(device, (
+                data.stacked_shards(),
+                np.asarray(starts, np.int64).reshape(len(starts), m, B),
+                np.asarray(sstarts, np.int64).reshape(len(sstarts), m,
+                                                      snap_B),
+                np.arange(start_step, tc.num_steps, dtype=np.int64)
+                if device_sampling else None,
+                runner_lib._stack_wire(phis) if phis else None,
+                np.asarray(alphas, np.float32)))
         transfers["h2d"] += 1
         shards, starts_dev, sstarts_dev, steps_dev, phis_dev, alphas_dev = \
             staged
@@ -581,26 +604,31 @@ def train_loop(cfg: ModelConfig,
         for w in windows:
             for _ in range(w.length):
                 if snaps[t]:
-                    sst = (draw_snap(steps_dev[t:t + 1])[0]
-                           if device_sampling else sstarts_dev[r])
-                    # the old snapshot and full gradient go first, as in
-                    # the host loop
-                    state = state._replace(snapshot=None, full_grad=None)
-                    state = bundle.snapshot_step(
-                        state, gather_windows(shards, sst, window))
+                    with span("train.refresh"):
+                        sst = (draw_snap(steps_dev[t:t + 1])[0]
+                               if device_sampling else sstarts_dev[r])
+                        # the old snapshot and full gradient go first, as
+                        # in the host loop
+                        state = state._replace(snapshot=None,
+                                               full_grad=None)
+                        state = bundle.snapshot_step(
+                            state, gather_windows(shards, sst, window))
                     r += 1
-                st = (draw(steps_dev[t:t + 1])[0] if device_sampling
-                      else starts_dev[t])
-                state, metrics = bundle.train_step(
-                    state, gather_windows(shards, st, window),
-                    pytree.tree_map(lambda a: a[t], phis_dev),
-                    alphas_dev[t])
+                with span("train.step"):
+                    st = (draw(steps_dev[t:t + 1])[0] if device_sampling
+                          else starts_dev[t])
+                    state, metrics = bundle.train_step(
+                        state, gather_windows(shards, st, window),
+                        pytree.tree_map(lambda a: a[t], phis_dev),
+                        alphas_dev[t])
                 t += 1
             if w.record:
-                loss, v_norm = torch.stack(
-                    [metrics["loss"], metrics["v_norm"]]).tolist()
+                with span("train.record"):
+                    loss, v_norm = torch.stack(
+                        [metrics["loss"], metrics["v_norm"]]).tolist()
+                    record(w.last_step, loss, v_norm, w.alpha_last,
+                           w.wire_end)
                 transfers["d2h"] += 1        # one pull per window
-                record(w.last_step, loss, v_norm, w.alpha_last, w.wire_end)
             if w.ckpt_next is not None:
                 save_ckpt(state, w.ckpt_next, slot_at=w.slot_end,
                           wire_at=w.wire_end, loader_state=w.loader_state)

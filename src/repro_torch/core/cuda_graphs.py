@@ -33,6 +33,10 @@ What a captured piece bakes in, and how the run feeds it:
 
 All graphs of a run share one memory pool: their replays run one after
 another on one stream, and no tensor of one graph outlives its replay.
+
+The capture stream, the pool, the warm-up and the launch accounting are
+:class:`GraphCapture`'s, which :class:`PieceGraphs` extends; the serving
+engine's decode chunk (``serve/engine.py``) is captured through it too.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ from torch.utils import _pytree as pytree
 
 from .. import kernels
 
-__all__ = ["PieceGraphs"]
+__all__ = ["GraphCapture", "PieceGraphs", "store"]
 
 
 def _clone(leaf):
@@ -63,7 +67,90 @@ def _store(buffers: list, leaves: list) -> None:
         b.copy_(leaf)
 
 
-class PieceGraphs:
+def store(buffers: list, spec, tree) -> None:
+    """Copy ``tree`` into ``buffers``, the leaves of a tree of structure
+    ``spec``, as :func:`_store` does; a captured step ends with it.  Raises
+    ``ValueError`` where ``tree`` has another structure."""
+    leaves, new_spec = pytree.tree_flatten(tree)
+    if new_spec != spec:
+        raise ValueError(f"a step changed the state's structure "
+                         f"({spec} -> {new_spec})")
+    _store(buffers, leaves)
+
+
+class GraphCapture:
+    """The capture stream and memory pool of a set of CUDA graphs, with the
+    kernel wrappers' launch counts kept straight around them.
+
+    :meth:`new_graph` warms up, captures, and returns the replay.  Graphs
+    made by one ``GraphCapture`` share its pool, so they must replay one
+    after another on one stream.
+    """
+
+    def __init__(self):
+        self._pool = None
+        self._stream = None
+
+    def new_graph(self, record: Callable,
+                  warm_up: Callable | None = None) -> Callable[[], None]:
+        """Run ``warm_up`` (if given) once on the capture stream, then
+        capture ``record``.  Returns the graph's replay, which adds the
+        launches the capture recorded to the kernel wrappers' counts.  The
+        launch counts that the warm-up or the capture moved are taken back,
+        also where one raises."""
+        counts = kernels.launch_counts()
+        try:
+            if warm_up is not None:
+                self._warm_up(warm_up)
+            before = kernels.launch_counts()
+            graph_replay = self._capture(record)
+            launches = [a - b for a, b in
+                        zip(kernels.launch_counts(), before)]
+        finally:
+            kernels.set_launch_counts(counts)
+
+        def replay():
+            graph_replay()
+            kernels.set_launch_counts(
+                [c + n for c, n in zip(kernels.launch_counts(), launches)])
+
+        return replay
+
+    def _side_stream(self):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream()
+        self._stream.wait_stream(torch.cuda.current_stream())
+        return self._stream
+
+    def _warm_up(self, fn: Callable) -> None:
+        """Run ``fn`` once on the capture stream (lazy set-up outside the
+        capture)."""
+        with torch.cuda.stream(self._side_stream()):
+            fn()
+        torch.cuda.current_stream().wait_stream(self._stream)
+
+    def _capture(self, record: Callable) -> Callable:
+        """Capture ``record`` into a CUDA graph on the capture stream, in
+        the shared memory pool; returns the graph's replay."""
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.stream(self._side_stream()):
+                graph.capture_begin(*(() if self._pool is None
+                                      else (self._pool,)))
+                try:
+                    record()
+                finally:
+                    graph.capture_end()
+        except RuntimeError:
+            _release_generators()
+            raise
+        torch.cuda.current_stream().wait_stream(self._stream)
+        if self._pool is None:
+            self._pool = graph.pool()
+        return graph.replay
+
+
+class PieceGraphs(GraphCapture):
     """The CUDA graphs of one resident run, keyed by piece length.
 
     ``body(state, xs, length) -> state`` runs ``length`` steps of a piece
@@ -74,13 +161,11 @@ class PieceGraphs:
     """
 
     def __init__(self, body: Callable):
+        super().__init__()
         self._body = body
-        self._graphs: dict = {}          # length -> (input buffers, replay,
-        #                                   launches per replay)
+        self._graphs: dict = {}          # length -> (input buffers, replay)
         self._buffers: list | None = None
         self._spec = None
-        self._pool = None
-        self._stream = None
         self.graphs_built = 0
         self.replays = 0
         self.capture_s = 0.0
@@ -91,15 +176,13 @@ class PieceGraphs:
         replay (capturing first if no graph has this length).  Returns the
         state as a tree of the state buffers."""
         self._adopt(state)
-        graph = self._graphs.get(length)
-        if graph is None:
-            graph = self._graphs[length] = self._build(xs, length)
-        inputs, replay, launches = graph
+        entry = self._graphs.get(length)
+        if entry is None:
+            entry = self._graphs[length] = self._build(xs, length)
+        inputs, replay = entry
         for buf, leaf in zip(inputs, _tensor_leaves(xs)):
             buf.copy_(leaf)
         replay()
-        kernels.set_launch_counts(
-            [c + n for c, n in zip(kernels.launch_counts(), launches)])
         self.replays += 1
         return self.state()
 
@@ -127,57 +210,35 @@ class PieceGraphs:
         t0 = time.perf_counter()
         inputs = [leaf.clone() for leaf in _tensor_leaves(xs)]
         static_xs = _with_tensor_leaves(xs, inputs)
-        counts = kernels.launch_counts()
+        warm_up = None
         if not self._graphs:
             scratch = pytree.tree_unflatten(
                 [_clone(b) for b in self._buffers], self._spec)
             first = _with_tensor_leaves(xs, [a[:1] for a in inputs])
-            self._warm_up(lambda: self._body(scratch, first, 1))
-        before = kernels.launch_counts()
+
+            def warm_up():
+                self._body(scratch, first, 1)
 
         def record():
-            new = self._body(self.state(), static_xs, length)
-            new_leaves, spec = pytree.tree_flatten(new)
-            if spec != self._spec:
-                raise ValueError(f"a step changed the state's structure "
-                                 f"({self._spec} -> {spec})")
-            _store(self._buffers, new_leaves)
+            store(self._buffers, self._spec,
+                  self._body(self.state(), static_xs, length))
 
-        replay = self._capture(record)
-        launches = [a - b for a, b in zip(kernels.launch_counts(), before)]
-        kernels.set_launch_counts(counts)
+        replay = self.new_graph(record, warm_up)
         self.graphs_built += 1
         self.capture_s += time.perf_counter() - t0
-        return inputs, replay, launches
+        return inputs, replay
 
-    def _side_stream(self):
-        if self._stream is None:
-            self._stream = torch.cuda.Stream()
-        self._stream.wait_stream(torch.cuda.current_stream())
-        return self._stream
 
-    def _warm_up(self, fn: Callable) -> None:
-        """Run ``fn`` once on the capture stream (lazy set-up outside the
-        capture)."""
-        with torch.cuda.stream(self._side_stream()):
-            fn()
-        torch.cuda.current_stream().wait_stream(self._stream)
-
-    def _capture(self, record: Callable) -> Callable:
-        """Capture ``record`` into a CUDA graph on the run's capture stream,
-        in the run's memory pool; returns the graph's replay."""
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(self._side_stream()):
-            graph.capture_begin(*(() if self._pool is None
-                                  else (self._pool,)))
-            try:
-                record()
-            finally:
-                graph.capture_end()
-        torch.cuda.current_stream().wait_stream(self._stream)
-        if self._pool is None:
-            self._pool = graph.pool()
-        return graph.replay
+def _release_generators() -> None:
+    """Take torch's CUDA generators out of capture mode after a failed
+    capture.  Where ``capture_end`` raises (a capture invalidated by a host
+    sync, say), it raises before it releases them (torch 2.11), and every
+    later random draw on the card then raises; a capture that ends cleanly
+    releases them.  ``tests/test_torch_card.py::
+    test_a_failed_capture_leaves_the_generators_in_capture_mode`` fails
+    once torch releases them itself."""
+    with torch.cuda.graph(torch.cuda.CUDAGraph()):
+        torch.zeros(1, device="cuda")
 
 
 def _tensor_leaves(xs) -> list:

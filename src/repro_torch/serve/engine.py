@@ -25,27 +25,46 @@ on the device:
   ``engine.transfers`` is the ledger ({h2d, d2h, chunks}): h2d = one prompt
   upload per admission, d2h = one pull per chunk, as the reference counts.
 
+* **The chunk replays one CUDA graph** where the params are on the current
+  CUDA device and not placed, and the sampler is the default greedy one.
+  The first chunk captures it (``core.cuda_graphs.GraphCapture``, after one
+  warm-up on scratch copies of the state); every chunk replays it.  The
+  graph's static buffers are the engine's own state: it reads the slot
+  state, the positions, the KV caches and the SSM states, writes the
+  emission buffer, and copies the new slot state, positions and SSM states
+  back into the same tensors (the KV caches update in place).  Admissions
+  write those tensors in place between replays, so a replay sees them with
+  no copy.  The captured body is the eager chunk's own code (``_chunk``).
+  Elsewhere the chunk runs eagerly: on the CPU, on a card that is not the
+  current device, across ranks (their host-staged collectives cannot be
+  captured), with a custom sampler (which may sync the host), and where the
+  capture raises.  ``engine.graphs`` is {captures, replays, capture_s}.
+
 Per-request outputs equal the host batcher's and standalone prefill +
 decode's, because each cache row's computation is independent of its batch
 neighbours.  A custom ``sampler`` maps ``logits (B, V)`` to ``(B,)`` int
-tokens on the device.  The JAX engine compiles each chunk; the port runs it
-eagerly (CUDA graphs of the chunk are later work).
+tokens on the device.
 
 Under ``torch.profiler`` a step is the span ``engine.step``, holding one
 ``engine.admit`` an admission (``engine.upload``, ``engine.prefill``,
-``engine.splice``), then ``engine.decode_chunk`` and ``engine.pull``
-(``repro_torch.spans``).
+``engine.splice``), then ``engine.decode_chunk`` (holding ``engine.replay``
+where the chunk replays its graph, and ``engine.capture`` on the chunk that
+captures it) and ``engine.pull`` (``repro_torch.spans``).
 """
 
 from __future__ import annotations
 
+import time
+import warnings
 from collections import deque
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
-from ..models import transformer
+from ..core import cuda_graphs
+from ..models import placed, transformer
 from ..models.api import ModelConfig
 from ..spans import span
 from .scheduler import (Request, cache_insert, modality_inputs,
@@ -63,6 +82,17 @@ class SlotState(NamedTuple):
 
 def _greedy(logits):
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def _use_graphs(device: torch.device, params, pick) -> bool:
+    """Whether an engine replays its decode chunk as a CUDA graph: params on
+    the current CUDA device (a capture records the current device's stream;
+    work on another card would run outside it), none of them placed (a run
+    across ranks, whose host-staged collectives cannot be captured), and the
+    default greedy sampler (a custom one may sync the host)."""
+    return device.type == "cuda" \
+        and device.index == torch.cuda.current_device() \
+        and not placed.any_placed(params) and pick is _greedy
 
 
 class ResidentEngine:
@@ -93,6 +123,11 @@ class ResidentEngine:
         self.slot_generated: list[list[int]] = [[] for _ in range(max_slots)]
         self.outputs: dict[int, np.ndarray] = {}
         self.transfers = {"h2d": 0, "d2h": 0, "chunks": 0}
+        self.graphs = {"captures": 0, "replays": 0, "capture_s": 0.0}
+        # the chunk's CUDA graph: None until the first chunk captures it,
+        # False where chunks run eagerly
+        self._graph = None if _use_graphs(self.device, params, self._pick) \
+            else False
 
         dev = self.device
         self.cache = transformer.init_cache(cfg, max_slots, max_len,
@@ -156,9 +191,10 @@ class ResidentEngine:
             self.slot_req[slot] = req
             self.slot_generated[slot] = []
 
-    def _run_chunk(self):
-        """``chunk`` decode steps on device tensors; fills ``self._ys``."""
-        st, cache, n = self.state, self.cache, self.chunk
+    def _chunk(self, st: SlotState, cache):
+        """``chunk`` decode steps on device tensors from ``st`` and
+        ``cache``; fills ``self._ys`` and returns the new (state, cache)."""
+        n = self.chunk
         for i in range(n):
             emit = st.next_tok
             emitted = st.active
@@ -178,7 +214,44 @@ class ResidentEngine:
                            next_tok=torch.where(keep, picked, st.next_tok),
                            remaining=rem)
         self._ys[2 * n] = st.active.to(torch.int32)
-        self.state, self.cache = st, cache
+        return st, cache
+
+    def _run_chunk(self):
+        """One decode chunk; fills ``self._ys``.  Replays the chunk's graph
+        where the engine has one (the first chunk captures it), else runs
+        ``_chunk`` eagerly."""
+        if self._graph is None:
+            self._graph = self._capture_chunk()
+        if self._graph:
+            with span("engine.replay"):
+                self._graph()
+            self.graphs["replays"] += 1
+            return
+        self.state, self.cache = self._chunk(self.state, self.cache)
+
+    def _capture_chunk(self):
+        """Capture ``_chunk`` over the engine's own state, which it copies
+        its new state back into; returns the graph's replay, or False where
+        the capture raises (the engine's chunks then run eagerly)."""
+        t0 = time.perf_counter()
+        live = (self.state, self.cache)
+        buffers, spec = pytree.tree_flatten(live)
+        scratch = pytree.tree_unflatten([b.clone() for b in buffers], spec)
+
+        def record():
+            cuda_graphs.store(buffers, spec, self._chunk(*live))
+
+        try:
+            with span("engine.capture"), torch.no_grad():
+                replay = cuda_graphs.GraphCapture().new_graph(
+                    record, warm_up=lambda: self._chunk(*scratch))
+        except RuntimeError as err:
+            warnings.warn(f"the decode chunk cannot be captured into a CUDA "
+                          f"graph, so it runs eagerly: {err}")
+            return False
+        self.graphs["captures"] += 1
+        self.graphs["capture_s"] += time.perf_counter() - t0
+        return replay
 
     @torch.no_grad()
     def step(self) -> dict[int, int]:

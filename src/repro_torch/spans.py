@@ -17,7 +17,9 @@ The spans, by layer (a child indented under its parent):
 * serving engine (``serve/engine.py``, ``ResidentEngine``):
   ``engine.step``, holding ``engine.admit`` (one an admission, holding
   ``engine.upload``, ``engine.prefill`` and ``engine.splice``),
-  ``engine.decode_chunk`` and ``engine.pull``;
+  ``engine.decode_chunk`` (holding ``engine.replay``, one a replay of the
+  chunk's CUDA graph, and ``engine.capture``, the graph's warm-up and
+  capture on the engine's first chunk) and ``engine.pull``;
 * LM trainer (``train/trainer.py``, ``train_loop``): ``train.build``,
   ``train.plan`` (resident path), ``train.stage``, ``train.refresh``,
   ``train.step`` (holding ``train.grad`` and ``train.mix`` of the

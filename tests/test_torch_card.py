@@ -46,7 +46,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from benchmarks import pt_common, pt_kernel_bench  # noqa: E402
 from repro_torch import configs
 from repro_torch.convert import params_from_numpy
-from repro_torch.core import algorithm, graphs, prox, runner
+from repro_torch.core import algorithm, cuda_graphs, graphs, prox, runner
 from repro_torch.core.exec_spec import ExecSpec
 from repro_torch.data import synthetic
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -1085,6 +1085,146 @@ def test_moe_layer_on_card_routes_as_the_cpu(cuda_device):
     assert not bool(want[4].all())
     assert float((y.cpu() - yc).abs().max()) <= 1e-4 * float(yc.abs().max())
     torch.testing.assert_close(aux.cpu(), auxc, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the engine's decode chunk as one CUDA graph
+# ---------------------------------------------------------------------------
+
+def _eager_greedy(logits):
+    """The greedy sampler under another name: an engine given it runs its
+    chunks eagerly, with the greedy engine's tokens."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def _graph_case_requests(cfg, seed):
+    """Ten requests of one budget for 4 slots, prompts of 2 to 33 tokens;
+    whisper's each with its audio."""
+    from repro_torch.models import multimodal
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i, n in enumerate((2, 12, 20, 33, 7, 18, 9, 30, 5, 14)):
+        kw = {}
+        if cfg.encoder_layers > 0:
+            kw = {"audio_frames": multimodal.fake_audio_frames(
+                1, cfg.d_model, cfg.encoder_seq, seed=i)[0]}
+        reqs.append(Request(uid=i, tokens=rng.integers(
+            0, cfg.vocab_size, size=n).astype(np.int32), max_new_tokens=7,
+            **kw))
+    return reqs
+
+
+def _served(cfg, params, reqs, **kw):
+    """(engine, outputs, the kernels' launches while it served)."""
+    from repro_torch import kernels
+    eng = ResidentEngine(cfg, params, max_slots=4, max_len=64, chunk=3, **kw)
+    before = kernels.launch_counts()
+    for r in reqs:
+        eng.submit(r)
+    out = eng.run_until_done()
+    torch.cuda.synchronize()
+    return eng, out, [a - b for a, b in zip(kernels.launch_counts(), before)]
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "llama4-scout-17b-a16e",
+                                  "xlstm-350m", "jamba-1.5-large-398b",
+                                  "whisper-base"])
+def test_graphed_engine_on_card_equals_eager_and_host_batcher(cuda_device,
+                                                              arch):
+    """The kernel routes on, ten requests through 4 slots, an EOS that
+    retires slots mid-chunk where no MoE couples the rows (scout's and
+    jamba's decode rows share capacity, so they run eight requests of one
+    budget without EOS): the graphed engine gives the eager engine's and the host
+    batcher's tokens, captures once and replays every chunk, and counts
+    the eager engine's kernel launches; the eager engine records no
+    capture."""
+    cfg = configs.smoke_variant(configs.get_config(arch)).scaled(
+        use_flash=True, use_fused_norm=True)
+    if arch == "llama4-scout-17b-a16e":
+        cfg = cfg.scaled(num_layers=4)
+    params = transformer.init_params(cfg, 1, device=cuda_device)
+    reqs = _graph_case_requests(cfg, 0)
+    eos = None
+    if cfg.moe_experts:
+        # two waves that fill and empty the slots together: every path
+        # decodes the same rows
+        reqs = reqs[:8]
+    else:
+        _, probe, _ = _served(cfg, params, reqs, sampler=_eager_greedy)
+        eos = int(probe[0][3])
+    eager, eout, elaunch = _served(cfg, params, reqs, eos_id=eos,
+                                   sampler=_eager_greedy)
+    graphed, gout, glaunch = _served(cfg, params, reqs, eos_id=eos)
+    host = ContinuousBatcher(cfg, params, max_slots=4, max_len=64,
+                             eos_id=eos)
+    for r in reqs:
+        host.submit(r)
+    hout = host.run_until_done()
+    for r in reqs:
+        np.testing.assert_array_equal(gout[r.uid], eout[r.uid])
+        np.testing.assert_array_equal(gout[r.uid], hout[r.uid])
+    if eos is not None:
+        assert any(len(o) < 7 for o in gout.values())
+    assert eager.graphs == {"captures": 0, "replays": 0, "capture_s": 0.0}
+    assert graphed.graphs["captures"] == 1
+    assert graphed.graphs["replays"] == graphed.transfers["chunks"] > 1
+    assert graphed.graphs["capture_s"] > 0
+    assert graphed.transfers == eager.transfers
+    assert glaunch == elaunch and sum(glaunch) > 0
+
+
+def test_engine_whose_decode_step_cannot_be_captured_runs_eagerly(
+        cuda_device, monkeypatch):
+    """A decode step that syncs the host: its capture raises, the engine
+    falls back to eager chunks with the greedy engine's tokens, and its
+    counter shows no capture; random draws on the card work after it (a
+    failed capture leaves torch's generators in capture mode unless they
+    are released)."""
+    cfg = configs.smoke_variant(configs.get_config("h2o-danube-1.8b")).scaled(
+        use_flash=True, use_fused_norm=True)
+    params = transformer.init_params(cfg, 1, device=cuda_device)
+    reqs = _graph_case_requests(cfg, 1)
+    _, want, _ = _served(cfg, params, reqs)
+    step = transformer.decode_step
+
+    def syncing(cfg, params, cache, token):
+        int(token.sum())                         # a host sync
+        return step(cfg, params, cache, token)
+
+    monkeypatch.setattr(transformer, "decode_step", syncing)
+    with pytest.warns(UserWarning, match="runs eagerly"):
+        eng, got, _ = _served(cfg, params, reqs)
+    for r in reqs:
+        np.testing.assert_array_equal(got[r.uid], want[r.uid])
+    assert eng.graphs == {"captures": 0, "replays": 0, "capture_s": 0.0}
+    assert eng.transfers["chunks"] > 1
+    assert bool(torch.isfinite(torch.randn(8, device=cuda_device)).all())
+
+
+def test_a_failed_capture_leaves_the_generators_in_capture_mode(cuda_device):
+    """What ``cuda_graphs._release_generators`` works around: where a host
+    sync invalidates a capture, ``capture_end`` raises before torch takes
+    its CUDA generators out of capture mode, and every later random draw on
+    the card raises; the release makes draws work again.  This test fails
+    once torch releases them itself, and the release can then go."""
+    x = torch.ones(4, device=cuda_device)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError):
+        with torch.cuda.stream(stream):
+            graph.capture_begin()
+            try:
+                float(x.sum())                   # a host sync
+            finally:
+                graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    try:
+        with pytest.raises(RuntimeError, match="outside graph capture"):
+            torch.randn(8, device=cuda_device)
+    finally:
+        cuda_graphs._release_generators()
+    assert bool(torch.isfinite(torch.randn(8, device=cuda_device)).all())
 
 
 # ---------------------------------------------------------------------------

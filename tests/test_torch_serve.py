@@ -37,9 +37,10 @@ from repro.serve.engine import ResidentEngine as JResidentEngine
 from repro.serve.scheduler import Request as JRequest
 from repro_torch import configs as tconfigs
 from repro_torch.convert import params_from_numpy
-from repro_torch.models import multimodal, transformer
+from repro_torch.core import cuda_graphs
+from repro_torch.models import multimodal, placed, transformer
 from repro_torch.models.api import ModelConfig
-from repro_torch.serve import metrics, stream
+from repro_torch.serve import engine as engine_mod, metrics, stream
 from repro_torch.serve.engine import ResidentEngine
 from repro_torch.serve.scheduler import ContinuousBatcher, Request, \
     cache_insert
@@ -199,6 +200,144 @@ def test_engine_rejects_prompt_exceeding_cache():
 def test_engine_rejects_bad_chunk():
     with pytest.raises(ValueError, match="chunk"):
         ResidentEngine(CFG, _params(CFG), max_slots=1, max_len=16, chunk=0)
+
+
+# ---------------------------------------------------------------------------
+# the chunk's CUDA graph: eager on the CPU, its logic with a stand-in capture
+# ---------------------------------------------------------------------------
+
+def test_the_cpu_engine_runs_its_chunks_eagerly():
+    eng = _run_both(CFG, _params(CFG), _requests(CFG, 8), slots=3, chunk=4)
+    assert eng.graphs == {"captures": 0, "replays": 0, "capture_s": 0.0}
+    chunks = eng.transfers["chunks"]
+    assert chunks > 0 and eng.transfers == {"h2d": 8, "d2h": chunks,
+                                            "chunks": chunks}
+
+
+def test_graphs_need_cuda_unplaced_params_and_the_greedy_sampler(
+        monkeypatch):
+    params = _params(CFG)
+    cuda = torch.device("cuda", 0)           # a name: no card is needed
+    greedy = engine_mod._greedy
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert engine_mod._use_graphs(cuda, params, greedy)
+    assert not engine_mod._use_graphs(torch.device("cpu"), params, greedy)
+    # params on a card that is not the current device
+    assert not engine_mod._use_graphs(torch.device("cuda", 1), params,
+                                      greedy)
+    assert not engine_mod._use_graphs(cuda, params, _second_best)
+    # a stand-in for params placed across ranks (DTensor leaves)
+    monkeypatch.setattr(placed, "is_placed", lambda x: True)
+    assert not engine_mod._use_graphs(cuda, params, greedy)
+
+
+class CpuCapture(cuda_graphs.GraphCapture):
+    """GraphCapture played on the CPU: the warm-up runs; a capture runs
+    nothing (it records), and a replay runs what it recorded."""
+
+    def _warm_up(self, fn):
+        fn()
+
+    def _capture(self, record):
+        return record
+
+
+def _graphed_engines(monkeypatch):
+    """From here on, engines take the graph path with the CPU stand-in."""
+    monkeypatch.setattr(engine_mod, "_use_graphs", lambda *a: True)
+    monkeypatch.setattr(cuda_graphs, "GraphCapture", CpuCapture)
+
+
+def _eos_of(cfg, params, reqs, slots, chunk):
+    """A token an eager engine emits mid-way through its first output."""
+    probe = ResidentEngine(cfg, params, max_slots=slots, max_len=40,
+                           chunk=chunk)
+    for r in reqs:
+        probe.submit(r)
+    out = probe.run_until_done()[reqs[0].uid]
+    return int(out[len(out) // 2])
+
+
+@pytest.mark.parametrize("arch", ["tiny", "h2o-danube-1.8b",
+                                  "llama4-scout-17b-a16e", "xlstm-350m",
+                                  "jamba-1.5-large-398b", "whisper-base"])
+def test_a_graphed_engine_equals_the_eager_engine_and_the_host_batcher(
+        arch, monkeypatch):
+    """The graph path's own logic, its capture stood in for: the chunk
+    reads and writes the engine's state in place (admissions between
+    replays seen with no copy; positions, slot state and SSM states copied
+    back), the warm-up runs on scratch copies (danube's window of 16 is a
+    ring buffer that its prompts of 20 wrap: a warm-up on the live cache
+    would overwrite entries the chunk still reads).  Eight requests of one
+    budget through 4 slots (the MoE rows share capacity, so every path
+    decodes the same rows), with an EOS that retires slots mid-chunk where
+    no MoE couples the rows: the same tokens and ledger as the eager engine
+    and the host batcher, one capture and a replay a chunk."""
+    cfg = CFG if arch == "tiny" else \
+        tconfigs.smoke_variant(tconfigs.get_config(arch))
+    params = _params(cfg, seed=1)
+    if cfg.encoder_layers > 0:
+        reqs = _mm_requests(cfg, 8, seed=4, new=(6, 7))
+    else:
+        reqs = _requests(cfg, 8, seed=4, lens=(2, 5, 12, 20), new=(6, 7))
+    eos = None if cfg.moe_experts else _eos_of(cfg, params, reqs, 4, 3)
+    eager = _run_both(cfg, params, reqs, slots=4, max_len=40, chunk=3,
+                      eos_id=eos)
+    _graphed_engines(monkeypatch)
+    graphed = _run_both(cfg, params, reqs, slots=4, max_len=40, chunk=3,
+                        eos_id=eos)
+    for uid in eager.outputs:
+        np.testing.assert_array_equal(graphed.outputs[uid],
+                                      eager.outputs[uid])
+    assert cfg.moe_experts or any(len(o) < 6
+                                  for o in graphed.outputs.values())
+    assert graphed.transfers == eager.transfers
+    assert graphed.graphs["captures"] == 1
+    assert graphed.graphs["replays"] == graphed.transfers["chunks"]
+
+
+def test_the_warm_up_leaves_the_engines_state_untouched(monkeypatch):
+    """The warm-up chunk runs on scratch copies: the live slot state and
+    cache are bit for bit what they were, the ring buffers of danube's
+    windowed layers (16 positions, prompts of 20) among them, which a
+    warm-up on the live cache would write ahead into."""
+    cfg = tconfigs.smoke_variant(tconfigs.get_config("h2o-danube-1.8b"))
+    _graphed_engines(monkeypatch)
+    eng = ResidentEngine(cfg, _params(cfg), max_slots=2, max_len=40,
+                         chunk=3)
+    for r in _requests(cfg, 2, seed=5, lens=(20,), new=(6, 7)):
+        eng.submit(r)
+    untouched = []
+
+    def warm_up(self, fn):
+        live = pytree.tree_leaves((eng.state, eng.cache))
+        before = [t.clone() for t in live]
+        fn()
+        untouched.append(all(map(torch.equal, before, live)))
+
+    monkeypatch.setattr(CpuCapture, "_warm_up", warm_up)
+    eng.step()
+    assert untouched == [True]
+    assert eng.graphs["captures"] == eng.graphs["replays"] == 1
+
+
+def test_a_capture_that_raises_leaves_the_engine_eager(monkeypatch):
+    """A decode step that cannot be captured: the engine runs its chunks
+    eagerly, gives the eager tokens, and its counter shows no capture."""
+    reqs = _requests(CFG, 6, seed=2)
+    want = _run_both(CFG, _params(CFG), reqs, slots=2, chunk=4).outputs
+    _graphed_engines(monkeypatch)
+
+    def refuses(self, record):
+        raise RuntimeError("operation not permitted when stream is "
+                           "capturing")
+
+    monkeypatch.setattr(CpuCapture, "_capture", refuses)
+    with pytest.warns(UserWarning, match="runs eagerly"):
+        eng = _run_both(CFG, _params(CFG), reqs, slots=2, chunk=4)
+    for uid in want:
+        np.testing.assert_array_equal(eng.outputs[uid], want[uid])
+    assert eng.graphs == {"captures": 0, "replays": 0, "capture_s": 0.0}
 
 
 # ---------------------------------------------------------------------------
